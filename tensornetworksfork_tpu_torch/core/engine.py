@@ -462,15 +462,17 @@ class Network:
         """Zero (Dp, Dp) f32 chunk carry on `device` for the tiled kernel
         route, or None when that route is not taken. Every tier carries the
         sum inside the Gram kernel (int8: gram_pair_band_q; f32/bf16:
-        gram_pair's carry epilogue, which replaces the reference's
-        add_packed_upper)."""
+        gram_pair's or, for a diagonal Hessian, weighted_gram_tiled's carry
+        epilogue, which replaces the reference's add_packed_upper)."""
         if not self.packed_kernel_route(plan):
             return None
         _, _, _, Dp = kgram.plan_tiles(plan["a0_sz"] * plan["r_sz"])
         return torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
 
     def packed_gram_finisher(self, plan):
-        """fn(carry) -> (D, D) symmetric A for the tiled route's carry."""
+        """fn(carry) -> (D, D) symmetric A for the tiled route's carry: the
+        band layout under int8 (full and diagonal Hessians both run the
+        band Gram there), the upper triangle otherwise."""
         D = plan["a0_sz"] * plan["r_sz"]
         if kgram.gram_quant():
             return lambda A: kgram.mirror_band(A)[:D, :D]
@@ -499,25 +501,33 @@ class Network:
         g2 = grad.reshape(S_sz, -1).to(J3.dtype)
         gd = kgram.gram_dtype()
         if self.packed_kernel_route(pj):
-            if diag:
-                raise NotImplementedError(
-                    "diagonal Hessians on the tiled kernel route need the "
-                    "weighted Gram kernel (weighted_gram_tiled), not ported yet")
             finish = acc is None
             if finish:
                 acc = self.packed_gram_acc_init(pj, J3.device)
             _, block, _, Dp = kgram.plan_tiles(D)
-            H3 = hess.reshape(S_sz, C_sz, C_sz).float().contiguous()
-            # fused class-major retile + class mix: rows come back (c, s)
-            # ordered, so g is reordered to match
-            Jt, Kt = kgram.retile_hmix(J3.contiguous(), H3, Dp)
-            gvec = g2.reshape(S_sz, C_sz).T.reshape(-1)
+            quant = gd is not None and kgram.gram_quant()
+            if diag:
+                # no class mix: rows stay (s, c) ordered. The int8 tier
+                # quantises K = h*J, which the retile forms in the same pass
+                h = hess.reshape(S_sz * C_sz).float().contiguous()
+                Jt, Kt = kgram.retile_rows(J3.reshape(S_sz * C_sz, D).contiguous(),
+                                           Dp, h if quant else None)
+                gvec = g2.reshape(-1)
+            else:
+                H3 = hess.reshape(S_sz, C_sz, C_sz).float().contiguous()
+                # fused class-major retile + class mix: rows come back (c, s)
+                # ordered, so g is reordered to match
+                Jt, Kt = kgram.retile_hmix(J3.contiguous(), H3, Dp)
+                gvec = g2.reshape(S_sz, C_sz).T.reshape(-1)
             b = (gvec.float() @ Jt.float())[:D]
-            if gd is not None and kgram.gram_quant():
+            if quant:
                 Q1, s1 = kgram.quantize_tiled(Jt, block)
                 Q2, s2 = kgram.quantize_tiled(Kt, block)
                 del Jt, Kt
                 kgram.gram_pair_band_q(Q1, s1, Q2, s2, acc)
+            elif diag:
+                # the weighting rides the Gram kernel's operand load
+                kgram.weighted_gram_tiled(Jt, h, acc)
             else:
                 kgram.gram_pair(Jt, Kt, acc=acc)
             if finish:
@@ -615,17 +625,21 @@ class Network:
                     W = W.sum(dim=1, keepdim=True)  # C == 1
             else:
                 W = hess.reshape(S, C, C)
-            if self.use_kernels and not diag:
+            if self.use_kernels:
                 gd = kgram.gram_dtype()
                 J2 = J3.reshape(S * C, D)
-                K2 = torch.einsum("scd,sci->sdi", W.to(J3.dtype), J3).reshape(S * C, D)
-                if gd is not None:
-                    J2, K2 = J2.to(gd), K2.to(gd)
-                A = self._kernel_gram(J2, K2)
-            elif self.use_kernels:
-                raise NotImplementedError(
-                    "diagonal Hessians on the flat kernel route need the "
-                    "weighted Gram kernel (weighted_gram), not ported yet")
+                if diag:
+                    # the weighting rides the kernel's operand load (K9)
+                    if gd is not None:
+                        J2 = J2.to(gd)
+                    A = kgram.mirror_gram(kgram.weighted_gram(
+                        J2.contiguous(), W.reshape(S * C).float().contiguous()))
+                else:
+                    K2 = torch.einsum("scd,sci->sdi", W.to(J3.dtype),
+                                      J3).reshape(S * C, D)
+                    if gd is not None:
+                        J2, K2 = J2.to(gd), K2.to(gd)
+                    A = self._kernel_gram(J2, K2)
             else:
                 A = _flat_gram(J3, W, diag)
             return A.reshape(node_shape + node_shape), b
@@ -670,6 +684,21 @@ class Network:
                     ppos.update({a: 2 * O + R + j for j, a in enumerate(rest)})
                     perm_out = tuple([upos[a] for a in node_axes]
                                      + [ppos[a] for a in node_axes])
+                    if (self.use_kernels
+                            and os.environ.get("TNF_OWNOUT_KERNEL") == "1"
+                            and DJ >= int(os.environ.get(
+                                "TNF_OWNOUT_KERNEL_MIN_DJ", "256"))):
+                        # opt-in class-pair kernel (K8 + K11), checked
+                        # before the deferred form as in the JAX package:
+                        # the caller gets the full A and no plan
+                        _, _, _, Dp = kgram.plan_tiles(DJ)
+                        Jt, _ = kgram.retile_rows(Jop.contiguous(), Dp)
+                        A4 = kgram.own_out_gram(Jt, Hf.float().contiguous(),
+                                                C_sz, DJ)
+                        A4 = kgram.mirror_own_out(A4)[:, :, :DJ, :DJ]
+                        A5 = A4.reshape(out_sizes + out_sizes
+                                        + rest_sizes + rest_sizes)
+                        return A5.permute(*perm_out).to(J_arr.dtype), b
                     if defer_ownout is not None and C_sz > 1:
                         # upper class pairs only: H[s,c,c'] = H[s,c',c], so
                         # A[c',.,c,.] = A[c,.,c',.]ᵀ(d↔d')

@@ -1,17 +1,22 @@
 // Gram-path kernels of the sweep trainer, hand-written for Hopper (sm_90a).
 //
 // Port of the Pallas kernels in tensornetworksfork_tpu/ops/pallas/gram.py.
-// Four kernels, each behind a plain-C entry point that tensornetworksfork_tpu_torch/ops/cuda/gram.py
+// Five kernels, each behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
 // binds with ctypes. Every entry launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() so the wrapper can raise.
 //
 //   retile_hmix  <- _make_retile_hmix_kernel / retile_hmix   (K1)
+//   retile_rows  <- _retile_copy_kernel / retile_rows         (K8)
 //   quantize     <- _quant_kernel / quantize_tiled           (K2)
 //   gram_q       <- _make_band_kernel_q / gram_pair_band_q    (K3) and
 //                   _pair_kernel_tiled_q / gram_pair_tiled_q  (K4)
 //   gram_f       <- _pair_kernel_tiled / gram_pair_tiled      (K6, K5 folded
 //                   into its carry epilogue) and
-//                   _pair_kernel_tiled / gram_pair             (K10)
+//                   _pair_kernel_tiled / gram_pair             (K10); its
+//                   weighted form <- _make_weighted_kernel_tiled_acc /
+//                   weighted_gram_tiled (K7), _weighted_kernel_tiled /
+//                   weighted_gram (K9) and _make_own_out_kernel /
+//                   own_out_gram (K11)
 //
 // Layouts: a Gram operand is row-major (rows, cols); rows are (class, sample)
 // pairs, columns the node's flattened D. Gram outputs are (cols, cols) f32;
@@ -20,8 +25,8 @@
 //
 // Numerics that must match the reference bit for bit are written with
 // explicit _rn intrinsics, so nvcc cannot contract a multiply and an add
-// into one FMA: the class mix of K1, the quantiser of K2 and the per-block
-// rescale of K3. Build without --use_fast_math.
+// into one FMA: the class mix of K1, the weighting of K8, the quantiser of
+// K2 and the per-block rescale of K3. Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,6 +74,27 @@ __global__ void retile_hmix_kernel(const T* __restrict__ J, const float* __restr
       if (e < C) acc = __fadd_rn(acc, __fmul_rn(sH[c * C + e], jf[e]));
     Jt[o] = from_f32<T>(jf[c]);
     Kt[o] = from_f32<T>(acc);
+  }
+}
+
+// ---------------------------------------------------------------- K8
+// Jt[r, c] = X[r, c] for c < D and 0 for D <= c < Dp (the tiled layout:
+// row-major, columns zero-padded). With Kt, also Kt[r, c] = X[r, c] * h[r]
+// multiplied in f32 and rounded once to T (0 in the padding): the int8
+// diagonal route's K, formed while X is in registers. Threads run along the
+// columns (coalesced), CTAs of the y grid stride over the rows.
+template <typename T>
+__global__ void retile_rows_kernel(const T* __restrict__ X, const float* __restrict__ h,
+                                   T* __restrict__ Jt, T* __restrict__ Kt,
+                                   int rows, int D, int Dp) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= Dp) return;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const size_t o = (size_t)r * Dp + c;
+    const bool in = c < D;
+    const T x = in ? X[(size_t)r * D + c] : from_f32<T>(0.f);
+    Jt[o] = x;
+    if (Kt) Kt[o] = in ? from_f32<T>(__fmul_rn(to_f32(x), h[r])) : from_f32<T>(0.f);
   }
 }
 
@@ -190,15 +216,26 @@ gram_q_kernel(const int8_t* __restrict__ Q1, const float* __restrict__ s1,
 // operands f32 or bf16 (bf16 products are exact in f32). The chunk's sum is
 // formed in registers and added to the carry once, in the epilogue. Rows
 // and columns are masked, so any (rows, D) shape with row stride ld works.
-template <typename T>
+//
+// ---------------------------------------------------------------- K7 / K9 / K11
+// The weighted form (kWeighted, Y = X): the left operand is X[r, d] * w_r
+// multiplied in f32 and rounded once to T before the product — the
+// reference's (j1 * w).astype(j1.dtype) — with w_r = h[r * hstride + pq].
+// For K11 the grid's y index picks a class pair, pq = cls[blockIdx.y] =
+// p*C + q, and the output block A + pq * ldc * ldc; K7/K9 pass no cls
+// (pq = 0, one output).
+template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, float* __restrict__ A,
+gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* __restrict__ h,
+              int hstride, const int* __restrict__ cls, float* __restrict__ A,
               const int* __restrict__ pairs, int rows, int D, int ld, int ldc, int has_acc) {
   constexpr int BK = 16;
   __shared__ __align__(16) float sX[BK][kTile];
   __shared__ __align__(16) float sY[BK][kTile];
   const int* pr = pairs + 3 * blockIdx.x;
   const int d0 = pr[0] * kTile, e0 = pr[1] * kTile;
+  const int pq = (kWeighted && cls) ? cls[blockIdx.y] : 0;
+  A += (size_t)pq * ldc * ldc;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4];
 #pragma unroll
@@ -211,7 +248,13 @@ gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, float* __restric
     for (int k = 0; k < BK * kTile / kThreads; ++k) {
       const int idx = tid + k * kThreads, rr = idx / kTile, cc = idx % kTile;
       const int r = r0 + rr;
-      sX[rr][cc] = (r < rows && d0 + cc < D) ? to_f32(X[(size_t)r * ld + d0 + cc]) : 0.f;
+      float x = 0.f;
+      if (r < rows && d0 + cc < D) {
+        x = to_f32(X[(size_t)r * ld + d0 + cc]);
+        if constexpr (kWeighted)
+          x = to_f32(from_f32<T>(__fmul_rn(x, h[(size_t)r * hstride + pq])));
+      }
+      sX[rr][cc] = x;
       sY[rr][cc] = (r < rows && e0 + cc < D) ? to_f32(Y[(size_t)r * ld + e0 + cc]) : 0.f;
     }
     __syncthreads();
@@ -267,6 +310,23 @@ int tnf_retile_hmix_f32(const void* J, const void* H, void* Jt, void* Kt,
   return launch_status();
 }
 
+int tnf_retile_rows_bf16(const void* X, const void* h, void* Jt, void* Kt, int rows, int D,
+                         int Dp, void* stream) {
+  dim3 grid((Dp + 255) / 256, rows < 65535 ? rows : 65535);
+  retile_rows_kernel<__nv_bfloat16><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)X, (const float*)h, (__nv_bfloat16*)Jt, (__nv_bfloat16*)Kt, rows,
+      D, Dp);
+  return launch_status();
+}
+
+int tnf_retile_rows_f32(const void* X, const void* h, void* Jt, void* Kt, int rows, int D,
+                        int Dp, void* stream) {
+  dim3 grid((Dp + 255) / 256, rows < 65535 ? rows : 65535);
+  retile_rows_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)h, (float*)Jt, (float*)Kt, rows, D, Dp);
+  return launch_status();
+}
+
 int tnf_quantize_bf16(const void* X, void* Q, void* Sc, int rows, int Dp, int BS,
                       int nb, void* stream) {
   if (Dp % 64) return (int)cudaErrorInvalidValue;
@@ -288,17 +348,41 @@ int tnf_gram_q(const void* Q1, const void* s1, const void* Q2, const void* s2, v
 
 int tnf_gram_f32(const void* X, const void* Y, void* A, const void* pairs, int npairs,
                  int rows, int D, int ld, int ldc, int has_acc, void* stream) {
-  gram_f_kernel<float><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)Y, (float*)A, (const int*)pairs, rows, D, ld, ldc,
-      has_acc);
+  gram_f_kernel<float, false><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)Y, nullptr, 0, nullptr, (float*)A, (const int*)pairs,
+      rows, D, ld, ldc, has_acc);
   return launch_status();
 }
 
 int tnf_gram_bf16(const void* X, const void* Y, void* A, const void* pairs, int npairs,
                   int rows, int D, int ld, int ldc, int has_acc, void* stream) {
-  gram_f_kernel<__nv_bfloat16><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)X, (const __nv_bfloat16*)Y, (float*)A, (const int*)pairs, rows,
-      D, ld, ldc, has_acc);
+  gram_f_kernel<__nv_bfloat16, false><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)X, (const __nv_bfloat16*)Y, nullptr, 0, nullptr, (float*)A,
+      (const int*)pairs, rows, D, ld, ldc, has_acc);
+  return launch_status();
+}
+
+// The weighted Gram: h is (rows, hstride) f32; cls (ncls class pairs, may
+// be null with ncls = 1) selects the h column and output block per grid row.
+int tnf_wgram_f32(const void* X, const void* h, int hstride, const void* cls, int ncls,
+                  void* A, const void* pairs, int npairs, int rows, int D, int ld, int ldc,
+                  int has_acc, void* stream) {
+  if (ncls < 1 || ncls > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(npairs, ncls);
+  gram_f_kernel<float, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)X, (const float*)h, hstride, (const int*)cls, (float*)A,
+      (const int*)pairs, rows, D, ld, ldc, has_acc);
+  return launch_status();
+}
+
+int tnf_wgram_bf16(const void* X, const void* h, int hstride, const void* cls, int ncls,
+                   void* A, const void* pairs, int npairs, int rows, int D, int ld, int ldc,
+                   int has_acc, void* stream) {
+  if (ncls < 1 || ncls > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(npairs, ncls);
+  gram_f_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)X, (const __nv_bfloat16*)X, (const float*)h, hstride,
+      (const int*)cls, (float*)A, (const int*)pairs, rows, D, ld, ldc, has_acc);
   return launch_status();
 }
 

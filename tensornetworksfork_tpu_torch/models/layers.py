@@ -1,6 +1,6 @@
 """Model zoo: tensor-network layer builders (port of
-tensornetworksfork_tpu/models/layers.py: the shared helpers, the conv-TT
-classifier and type-I sums so far).
+tensornetworksfork_tpu/models/layers.py: the shared helpers, the tensor
+train, the conv-TT classifier and type-I sums so far).
 
 Each builder returns a `TNLayer` holding a `Network` (structure) and a params
 dict (state). The topology is built by the same calls as in the JAX package,
@@ -121,6 +121,57 @@ class TNLayer:
 
     def load_node_states(self, states):
         self.params = dict(states)
+
+
+class TensorTrainLayer(TNLayer):
+    """Tensor train over per-carriage feature vectors: N cores A_i (left
+    bond, output slot, feature, right bond), each contracted with its input
+    X_i(s, f). With perturb, the cores start as ~identity on the last
+    feature slice (the bias column) with 2% noise on the boundary cores, so
+    the TT starts as an approximately constant function."""
+
+    def __init__(self, num_carriages: int, bond_dim: int, input_features: int,
+                 output_shape=(), constrict_bond: bool = True,
+                 perturb: bool = False, dtype=torch.float32, seed: int = 0,
+                 device="cpu", use_kernels: Optional[bool] = None):
+        N, r, f = num_carriages, bond_dim, input_features
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        self.num_carriages, self.bond_dim, self.input_features = N, r, f
+        self.output_shape = output_shape
+        b = TopologyBuilder()
+        rng = np.random.default_rng(seed)
+
+        if perturb:
+            if any(o > 1 for o in output_shape):
+                raise ValueError("perturb init requires output dims of 1")
+            inits = perturb_profile(N, 1 if N == 1 else r, f, constrict_bond, rng)
+            profile = [(a.shape[0], a.shape[-1]) for a in inits]
+        else:
+            profile = tt_rank_profile(N, 1 if N == 1 else r, f, constrict_bond)
+            inits = [None] * N
+
+        out_labels = ["s"]
+        for i in range(1, N + 1):
+            left, right = profile[i - 1]
+            if i - 1 < len(output_shape):
+                up, up_label = output_shape[i - 1], f"c{i}"
+                out_labels.append(up_label)
+            else:
+                up, up_label = 1, "c"
+            b.node(f"A{i}", (f"r{i}", up_label, f"p{i}", f"r{i+1}"),
+                   (left, up, f, right), kind=PARAM,
+                   left=(f"r{i}",), right=(f"r{i+1}",), init=inits[i - 1])
+            b.node(f"X{i}", ("s", f"p{i}"), (None, f), kind=INPUT)
+            b.connect(f"A{i}", f"p{i}", f"X{i}")
+            if i > 1:
+                b.connect(f"A{i-1}", f"r{i}", f"A{i}")
+        for i in range(1, N + 1):
+            b.squeeze(f"A{i}", exclude=out_labels)
+        topo = b.finalize([f"X{i}" for i in range(1, N + 1)],
+                          [f"A{i}" for i in range(1, N + 1)],
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
 
 
 class TensorConvolutionTrainLayer(TNLayer):

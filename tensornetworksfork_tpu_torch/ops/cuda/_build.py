@@ -37,6 +37,10 @@ _SIGNATURES = {
     "tnf_gram_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tnf_gram_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tnf_gram_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tnf_retile_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "tnf_retile_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "tnf_wgram_f32": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tnf_wgram_bf16": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tnf_gram_tile": (),
 }
 

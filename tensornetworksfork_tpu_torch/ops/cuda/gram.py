@@ -1,11 +1,12 @@
 """Gram-path kernels: Python wrappers, plain versions, tile plan and finishers.
 
-Port of tensornetworksfork_tpu/ops/pallas/gram.py for the kernels the sweep's
-main path runs. Each wrapper takes the plain PyTorch version (`<fn>_plain`,
-beside it) only for tensors that lie on the CPU; for CUDA tensors it launches
-its kernel from `csrc/gram.cu` or raises — there is no fallback. Each wrapper
-checks device, dtype, shape and contiguity, raises when the launch reports an
-error, and adds one to `LAUNCHES[<name>]` per kernel launch.
+Port of tensornetworksfork_tpu/ops/pallas/gram.py: every Pallas kernel of
+the JAX package has a counterpart here. Each wrapper takes the plain PyTorch
+version (`<fn>_plain`, beside it) only for tensors that lie on the CPU; for
+CUDA tensors it launches its kernel from `csrc/gram.cu` or raises — there is
+no fallback. Each wrapper checks device, dtype, shape and contiguity, raises
+when the launch reports an error, and adds one to `LAUNCHES[<name>]` per
+kernel launch.
 
 Layouts differ from the TPU's where the TPU's were schedule choices: the
 class-major operands are row-major (C*S, Dp) matrices instead of (n, rows,
@@ -26,9 +27,12 @@ import torch
 from . import _build
 
 # Launch counts per kernel, incremented where a wrapper launches its kernel
-# and nowhere else (plain versions do not count).
+# and nowhere else (plain versions do not count). gram_pair counts its flat
+# launches (K10) under "gram_pair" and those into a carry (K6) under
+# "gram_pair_tiled".
 LAUNCHES = {"retile_hmix": 0, "quantize_tiled": 0, "gram_pair_q": 0,
-            "gram_pair": 0}
+            "gram_pair": 0, "gram_pair_tiled": 0, "retile_rows": 0,
+            "weighted_gram_tiled": 0, "weighted_gram": 0, "own_out_gram": 0}
 
 TILE = 512    # the reference plan's D slab (plan_tiles): padding and band map
 BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
@@ -102,12 +106,16 @@ def _stream() -> int:
 def _pair_table_np(ntiles: int, slab_tiles: int, band: bool) -> np.ndarray:
     """(npairs, 3) int32 rows (ti, tj, swap) of the kernel tiles to compute.
 
+    slab_tiles = 0: every tile, natural orientation (K11's whole blocks).
     slab_tiles = 1: the exact upper triangle ti <= tj, natural orientation.
     slab_tiles > 1 (int8): every tile whose 512-slab pair (p, q) has p <= q,
     the diagonal slabs whole, as the reference's int8 kernels compute them;
     with `band`, slab pairs at circular distance > n/2 get swap = 1 — the
     reference band schedule computes those as Q1_qᵀQ2_p (gram.py
     _make_band_kernel_q), and the swap reproduces that rounding."""
+    if slab_tiles == 0:
+        ti, tj = np.divmod(np.arange(ntiles * ntiles), ntiles)
+        return np.stack([ti, tj, 0 * ti], 1).astype(np.int32)
     nslab = ntiles // slab_tiles
     rows = []
     for ti in range(ntiles):
@@ -176,6 +184,49 @@ def retile_hmix_plain(J3: torch.Tensor, H: torch.Tensor, Dp: int):
     Jt = torch.nn.functional.pad(J3.transpose(0, 1), pad).reshape(C * S, Dp)
     Kt = torch.nn.functional.pad(K.to(J3.dtype).transpose(0, 1), pad)
     return Jt.contiguous(), Kt.reshape(C * S, Dp).contiguous()
+
+
+# ---------------------------------------------------------------- K8
+def retile_rows(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None):
+    """(rows, D) -> the tiled layout: (rows, Dp) in X's dtype, columns
+    zero-padded. With h ((rows,) f32) also Kt = X * h[r] multiplied in f32
+    and rounded once to X's dtype (zero in the padding) — the K of the int8
+    diagonal route, formed in the same pass. Returns (Jt, Kt), Kt None
+    without h. Both are bit-equal to retile_rows_plain.
+
+    Replaces tensornetworksfork_tpu/ops/pallas/gram.py:retile_rows
+    (_retile_copy_kernel), with the reference engine's separate K = h*J
+    pass (engine.py packed_gram_rhs, int8 diagonal branch) fused in. Bound
+    on the card: memory — one read of X, one or two writes; threads run
+    along the columns so every read and write is coalesced."""
+    rows, D = X.shape
+    if _on_cpu(X, *(() if h is None else (h,))):
+        return retile_rows_plain(X, Dp, h)
+    _check(X, "X", (torch.bfloat16, torch.float32), 2)
+    if Dp < D:
+        raise ValueError(f"retile_rows: Dp={Dp} < D={D}")
+    if h is not None:
+        _check(h, "h", (torch.float32,), 1)
+        if h.shape[0] != rows:
+            raise ValueError(f"h has {h.shape[0]} rows, X {rows}")
+    Jt = torch.empty((rows, Dp), dtype=X.dtype, device=X.device)
+    Kt = None if h is None else torch.empty_like(Jt)
+    fn = (_build.lib().tnf_retile_rows_bf16 if X.dtype == torch.bfloat16
+          else _build.lib().tnf_retile_rows_f32)
+    _raise_on(fn(X.data_ptr(), None if h is None else h.data_ptr(),
+                 Jt.data_ptr(), None if Kt is None else Kt.data_ptr(),
+                 rows, D, Dp, _stream()), "retile_rows")
+    LAUNCHES["retile_rows"] += 1
+    return Jt, Kt
+
+
+def retile_rows_plain(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None):
+    pad = (0, Dp - X.shape[1])
+    Jt = torch.nn.functional.pad(X, pad)
+    if h is None:
+        return Jt, None
+    Kt = torch.nn.functional.pad((X.float() * h.float()[:, None]).to(X.dtype), pad)
+    return Jt, Kt
 
 
 # ---------------------------------------------------------------- K2
@@ -348,8 +399,156 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
     fn = lib.tnf_gram_bf16 if X.dtype == torch.bfloat16 else lib.tnf_gram_f32
     _raise_on(fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(), pairs.data_ptr(),
                  pairs.shape[0], rows, D, D, D, has_acc, _stream()), "gram_pair")
-    LAUNCHES["gram_pair"] += 1
+    LAUNCHES["gram_pair_tiled" if has_acc else "gram_pair"] += 1
     return out
+
+
+def _weighted_operand(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """X * w per row, multiplied in f32 and rounded to X's dtype, as f32:
+    the reference's (j1 * w).astype(j1.dtype)."""
+    return (X.float() * w.float()[:, None]).to(X.dtype).float()
+
+
+def _check_weighted(X: torch.Tensor, h: torch.Tensor) -> None:
+    _check(X, "X", (torch.bfloat16, torch.float32), 2)
+    _check(h, "h", (torch.float32,), 1)
+    if h.shape[0] != X.shape[0]:
+        raise ValueError(f"h has {h.shape[0]} rows, X {X.shape[0]}")
+
+
+def _launch_wgram(X, h, hstride, cls, out, D, has_acc, key) -> None:
+    rows, ld = X.shape
+    lib = _build.lib()
+    T = lib.tnf_gram_tile()
+    # K11's class-pair blocks are whole; K7/K9 compute the upper tiles
+    pairs = _pair_table((D + T - 1) // T, 0 if cls is not None else 1, False,
+                        X.device)
+    ncls = 1 if cls is None else cls.shape[0]
+    fn = lib.tnf_wgram_bf16 if X.dtype == torch.bfloat16 else lib.tnf_wgram_f32
+    _raise_on(fn(X.data_ptr(), h.data_ptr(), hstride,
+                 None if cls is None else cls.data_ptr(), ncls, out.data_ptr(),
+                 pairs.data_ptr(), pairs.shape[0], rows, D, ld, out.shape[-1],
+                 has_acc, _stream()), key)
+    LAUNCHES[key] += 1
+
+
+# ---------------------------------------------------------------- K7
+def weighted_gram_tiled(Xt: torch.Tensor, h: torch.Tensor,
+                        acc: torch.Tensor) -> torch.Tensor:
+    """acc += Xtᵀ diag(h) Xt over the upper 64x64 tiles, in place; returns
+    acc (raw: finish with mirror_gram).
+
+    Xt (rows, Dp) f32 or bf16 in the tiled layout (retile_rows), h (rows,)
+    f32, acc (Dp, Dp) f32. The left operand is Xt * h rounded once to Xt's
+    dtype, as the reference rounds it; sums are f32 FMAs, never TF32. The
+    chunk's sum is formed in registers and added to the carry once per
+    output tile (carry + chunk sum, the order of the reference's separate
+    add_packed_upper), by the one CTA that owns the tile, so no atomics.
+
+    Replaces tensornetworksfork_tpu/ops/pallas/gram.py:weighted_gram_tiled
+    (_weighted_gram_tiled_jit, _make_weighted_kernel_tiled_acc). Bound on
+    the card: f32 FMA throughput, as gram_pair — the weighting rides the
+    operand load, so the weighted copy of J never reaches device memory."""
+    rows, Dp = Xt.shape
+    if _on_cpu(Xt, h, acc):
+        return weighted_gram_tiled_plain(Xt, h, acc)
+    _check_weighted(Xt, h)
+    _check(acc, "acc", (torch.float32,), 2)
+    if tuple(acc.shape) != (Dp, Dp):
+        raise ValueError(f"acc shape {tuple(acc.shape)} != {(Dp, Dp)}")
+    _launch_wgram(Xt, h, 1, None, acc, Dp, 1, "weighted_gram_tiled")
+    return acc
+
+
+def weighted_gram_tiled_plain(Xt, h, acc):
+    acc.add_(_weighted_operand(Xt, h).T @ Xt.float())
+    return acc
+
+
+# ---------------------------------------------------------------- K9
+def weighted_gram(X: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """A = Xᵀ diag(h) X of a flat (rows, D) operand over the upper 64x64
+    tiles, ragged D masked; returns the raw (D, D) f32 A (finish with
+    mirror_gram). X f32 or bf16, h (rows,) f32; numerics as
+    weighted_gram_tiled.
+
+    Replaces tensornetworksfork_tpu/ops/pallas/gram.py:weighted_gram
+    (_weighted_gram_jit, _weighted_kernel_tiled). Bound on the card: f32 FMA
+    throughput; at a small D (the regression A3: 1,032) the upper triangle
+    is only 153 output tiles, about one CTA per SM, each looping over all
+    rows."""
+    rows, D = X.shape
+    if _on_cpu(X, h):
+        return weighted_gram_plain(X, h)
+    _check_weighted(X, h)
+    out = torch.zeros((D, D), dtype=torch.float32, device=X.device)
+    _launch_wgram(X, h, 1, None, out, D, 0, "weighted_gram")
+    return out
+
+
+def weighted_gram_plain(X, h):
+    return _weighted_operand(X, h).T @ X.float()
+
+
+# ---------------------------------------------------------------- K11
+@functools.lru_cache(maxsize=16)
+def _class_pairs_np(C: int) -> np.ndarray:
+    """p*C + q for the upper class pairs p <= q, in np.triu_indices order."""
+    iu, ju = np.triu_indices(C)
+    return (iu * C + ju).astype(np.int32)
+
+
+def own_out_gram(Jt: torch.Tensor, H: torch.Tensor, C: int,
+                 D: Optional[int] = None) -> torch.Tensor:
+    """Raw own-out Gram A[p, q, d, e] = sum_s H[s, p, q] J[s, d] J[s, e]
+    for the upper class pairs p <= q; the lower pairs are zero (finish with
+    mirror_own_out). Each block is computed whole over (d, e): it is not
+    symmetric in d for p != q.
+
+    Jt (S, Dp) f32 or bf16 in the tiled layout, H (S, C, C) f32; returns
+    (C, C, Dp, Dp) f32. Only the first D columns (default all) are computed;
+    the rest of each block stays zero. J * H[s, p, q] is rounded once to
+    Jt's dtype, as the reference rounds it.
+
+    Replaces tensornetworksfork_tpu/ops/pallas/gram.py:own_out_gram
+    (_own_out_gram_jit, _make_own_out_kernel). Bound on the card: f32 FMA
+    throughput; the same weighted tile body as K7/K9 with the class pair on
+    the grid's y axis, so the (S, C², DJ) weighted copy of J never exists."""
+    S, Dp = Jt.shape
+    D = Dp if D is None else D
+    if _on_cpu(Jt, H):
+        return own_out_gram_plain(Jt, H, C, D)
+    _check(Jt, "Jt", (torch.bfloat16, torch.float32), 2)
+    _check(H, "H", (torch.float32,), 3)
+    if tuple(H.shape) != (S, C, C) or not 0 < D <= Dp:
+        raise ValueError(f"own_out_gram: H {tuple(H.shape)}, Jt {tuple(Jt.shape)}, "
+                         f"C={C}, D={D}")
+    key = ("cls", C, str(Jt.device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(_class_pairs_np(C)).to(Jt.device)
+    out = torch.zeros((C, C, Dp, Dp), dtype=torch.float32, device=Jt.device)
+    _launch_wgram(Jt, H, C * C, _TABLES[key], out, D, 0, "own_out_gram")
+    return out
+
+
+def own_out_gram_plain(Jt, H, C, D=None):
+    S, Dp = Jt.shape
+    D = Dp if D is None else D
+    out = torch.zeros((C, C, Dp, Dp), dtype=torch.float32, device=Jt.device)
+    J = Jt[:, :D]
+    Jf = J.float()
+    for pq in _class_pairs_np(C).tolist():
+        p, q = divmod(pq, C)
+        out[p, q, :D, :D] = _weighted_operand(J, H[:, p, q]).T @ Jf
+    return out
+
+
+def mirror_own_out(A4: torch.Tensor) -> torch.Tensor:
+    """Fill the lower class-pair blocks of a raw own_out_gram output:
+    A[q, p] = A[p, q] with the d axes swapped."""
+    C = A4.shape[0]
+    iu = torch.ones((C, C), dtype=torch.bool, device=A4.device).triu()
+    return torch.where(iu[:, :, None, None], A4, A4.permute(1, 0, 3, 2))
 
 
 def gram_pair_plain(X, Y, acc=None):

@@ -204,7 +204,10 @@ def test_launch_counters_and_kernel_source():
     csrc/gram.cu exists and defines every entry point the loader binds."""
     from tensornetworksfork_tpu_torch.ops.cuda import _build
     assert set(tg.LAUNCHES) == {"retile_hmix", "quantize_tiled",
-                                "gram_pair_q", "gram_pair"}
+                                "gram_pair_q", "gram_pair", "gram_pair_tiled",
+                                "retile_rows",
+                                "weighted_gram_tiled", "weighted_gram",
+                                "own_out_gram"}
     tg.reset_launches()
     assert all(v == 0 for v in tg.LAUNCHES.values())
     J = bf16(np.ones((4, 2, 10), np.float32))
@@ -213,6 +216,11 @@ def test_launch_counters_and_kernel_source():
     Q, s = tg.quantize_tiled(Jt)
     tg.gram_pair_band_q(Q, s, Q, s, torch.zeros((512, 512)))
     tg.gram_pair(Jt, Kt)
+    h = torch.ones(8)
+    Jr, _ = tg.retile_rows(Jt, 512, h)
+    tg.weighted_gram_tiled(Jr, h, torch.zeros((512, 512)))
+    tg.weighted_gram(Jt, h)
+    tg.own_out_gram(Jr, H.repeat(2, 1, 1), 2, 10)
     assert all(v == 0 for v in tg.LAUNCHES.values())
     src = _build.SOURCE
     assert src == PKG / "csrc" / "gram.cu" and src.exists()
