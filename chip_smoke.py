@@ -12,10 +12,14 @@ printing its own lines:
    (nvidia-smi); fails without a CUDA device (it never runs on the CPU);
 2. build — compiles the kernels from `tensornetworksfork_tpu_torch/csrc`;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it, with its tolerance, and the kernel's and
-   the plain version's times (CUDA events, median of 5): K1, K2, K3, K6 and
+   the shapes its path gives it, with its tolerance, and the kernel's, the
+   plain version's and (where one PyTorch call computes the same function)
+   that library call's times (CUDA events, median of 5), beside the kernel's
+   bound: the larger of its operations over the card's peak for their type
+   and its bytes over the memory rate (PEAK, HBM below). K1, K2, K3, K6 and
    K10 at the conv-TT flagship's shapes; K8, K7, K9 and K11 at the
-   regression's (and K11 also at the flagship's first core);
+   regression's (K9 also in bf16, K11 also at the flagship's first core),
+   with the row split the split weighted Gram (K9, K11) plans for each;
 4. slice — one swipe of `Sweeper.run` on the flagship conv-TT
    (N=4, r=18, CB=8, 50 patches x 17 pixels, 9 logits, random weights from a
    seed) over 8192 synthetic samples in the int8 Gram tier (K1, K2, K3,
@@ -60,10 +64,46 @@ REGRESSION = dict(N=3, r=8, d=128, fit=65536, val=16384, batch=512)
 FLAGSHIP_KERNELS = {"int8": ("retile_hmix", "quantize_tiled", "gram_pair_q", "gram_pair"),
                     "f32": ("retile_hmix", "gram_pair_tiled", "gram_pair")}
 REGRESSION_KERNELS = ("retile_rows", "weighted_gram_tiled", "weighted_gram")
+# published peaks of one H100 SXM (dense): f32 on the FMA units, bf16 and
+# int8 on the tensor cores, and the HBM rate; the bound of a kernel's work
+PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM = 3.35e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(ops: float, nbytes: float, kind: str):
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    `ops` operations of type `kind` that move `nbytes` bytes (each input
+    read once, each output written once)."""
+    t_ops, t_bytes = ops / PEAK[kind], nbytes / HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def gram_ops(rows: int, D: int, upper: bool = True) -> float:
+    """Multiply-adds (2 operations each) of a Gram over `rows` rows and D
+    columns: its upper triangle (diagonal included) or the whole block."""
+    return 2.0 * rows * (D * (D + 1) / 2 if upper else D * D)
+
+
+@contextlib.contextmanager
+def bf16_f32_reduction():
+    """cuBLAS sums bf16 products in f32 inside this block (the yardstick for
+    a kernel that does)."""
+    import torch
+    m = torch.backends.cuda.matmul
+    old = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = old
 
 
 @contextlib.contextmanager
@@ -115,8 +155,9 @@ def gram_tol(rows: int) -> float:
 def k9_ratios(A, A64):
     """max |A - A64| / sqrt(A64_dd A64_ee) on the diagonal and off it, for a
     weighted Gram A against its float64 value A64. Each thread of the kernel
-    sums its rows in sequence: a diagonal entry's partial sums grow to A_dd,
-    so it carries about sqrt(rows) f32 roundings of A_dd (held to gram_tol);
+    sums the rows of its row split in sequence: a diagonal entry's partial
+    sums grow to A_dd, so it carries about sqrt(rows) f32 roundings of A_dd
+    (held to gram_tol);
     an off-diagonal entry of independent zero-mean columns random-walks, so
     its error is about 0.75 2^-24 sqrt(A_dd A_ee) (held to 16 2^-24). A
     bf16 rounding of the operands moves every entry by ~2^-9 of a term,
@@ -162,6 +203,8 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         name="retile_hmix", err=float(dK.max()),
         ms=time_ms(lambda: kg.retile_hmix(J3, H, Dp)),
         plain_ms=time_ms(lambda: kg.retile_hmix_plain(J3, H, Dp)),
+        library_ms=None,
+        bound=bound(2.0 * S * C * C * D, nbytes(J3, H, Jt, Kt), "f32"),
         note=f"Jt bit-equal, Kt max {ulps:.3g} bf16 ulp "
              f"({float((dK == 0).float().mean()) * 100:.4f}% bit-equal)"))
     del Jt_p, Kt_p, dK
@@ -180,6 +223,9 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         name="quantize_tiled", err=0.0,
         ms=time_ms(lambda: kg.quantize_tiled(Kt, block)),
         plain_ms=time_ms(lambda: kg.quantize_tiled_plain(Kt, block)),
+        library_ms=None,
+        # |x|, max, x * (1/s), round: 4 operations an element
+        bound=bound(4.0 * Kt.numel(), nbytes(Kt, Q2, s2), "f32"),
         note="Q and s bit-equal"))
     del Q1_p, s1_p, Q2_p, s2_p
 
@@ -196,10 +242,16 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     if not err <= tol:
         raise AssertionError(f"gram_pair_band_q: max|dA| {err} > {tol}")
     del A, A_p, acc_p
+    nslab = Dp // kg.TILE
     results.append(dict(
         name="gram_pair_q", err=err,
         ms=time_ms(lambda: kg.gram_pair_band_q(Q1, s1, Q2, s2, acc)),
         plain_ms=time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc)),
+        library_ms=None,
+        # the upper 512-slab pairs, diagonal slabs whole; the carry read and
+        # written once
+        bound=bound(2.0 * Q1.shape[0] * nslab * (nslab + 1) / 2 * kg.TILE ** 2,
+                    nbytes(Q1, s1, Q2, s2) + 2 * nbytes(acc), "int8"),
         note=f"tol 1e-5*max|A| = {tol:.3g}"))
     del Q1, s1, Q2, s2, acc
 
@@ -214,12 +266,17 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     tol6 = 1e-5 * float(A_p.abs().max())
     if not err6 <= tol6:
         raise AssertionError(f"gram_pair (A2, carry): max|dA| {err6} > {tol6}")
+    del A, A_p, acc_p
+    Jf, Kf = Jt.float(), Kt.float()  # the library call's f32 operands
     results.append(dict(
         name="gram_pair_tiled", err=err6,
         ms=time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc)),
         plain_ms=time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc)),
-        note=f"A2 shape with carry ({Jt.shape[0]}x{Dp} bf16), tol {tol6:.3g}"))
-    del A, A_p, acc, acc_p, Jt, Kt, J3
+        library_ms=time_ms(lambda: acc.addmm_(Jf.T, Kf)),
+        bound=bound(gram_ops(Jt.shape[0], Dp), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
+        note=f"A2 shape with carry ({Jt.shape[0]}x{Dp} bf16), tol {tol6:.3g}; "
+             "library: acc.addmm_ on the operands upcast to f32"))
+    del acc, Jt, Kt, J3, Jf, Kf
 
     # K10: the flat float Gram at the A4 shape, bf16 operands
     rows = rows4 or SLICE_SAMPLES * C
@@ -235,19 +292,25 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     tol10 = 1e-5 * float(A_p.abs().max())
     if not err10 <= tol10:
         raise AssertionError(f"gram_pair (A4): max|dA| {err10} > {tol10}")
+    J4f, K4f = J4.float(), K4.float()
     results.append(dict(
         name="gram_pair", err=err10,
         ms=time_ms(lambda: kg.gram_pair(J4, K4)),
         plain_ms=time_ms(lambda: kg.gram_pair_plain(J4, K4)),
-        note=f"A4 shape ({rows}x{D4} bf16), tol {tol10:.3g}"))
+        library_ms=time_ms(lambda: torch.mm(J4f.T, K4f)),
+        bound=bound(gram_ops(rows, D4), nbytes(J4, K4) + 4 * D4 * D4, "bf16"),
+        note=f"A4 shape ({rows}x{D4} bf16), tol {tol10:.3g}; library: torch.mm "
+             "on the operands upcast to f32"))
     log_kernels(results)
     return results
 
 
 def log_kernels(results) -> None:
     for r in results:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
         log(f"[kernels] {r['name']}: max|err| {r['err']:.3g}, kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms — {r['note']}")
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {lib}, "
+            f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) — {r['note']}")
 
 
 def check_weighted_kernels(device, small=False):
@@ -301,7 +364,10 @@ def check_weighted_kernels(device, small=False):
         name="retile_rows", err=0.0,
         ms=time_ms(lambda: kg.retile_rows(X, Dp2)),
         plain_ms=time_ms(lambda: kg.retile_rows_plain(X, Dp2)),
-        note=f"({rows2}x{D2} -> {Dp2}) f32; Jt and Kt bit-equal in f32 and bf16"))
+        library_ms=time_ms(lambda: torch.nn.functional.pad(X, (0, Dp2 - D2))),
+        bound=bound(0.0, nbytes(X) + rows2 * Dp2 * 4, "f32"),
+        note=f"({rows2}x{D2} -> {Dp2}) f32; Jt and Kt bit-equal in f32 and bf16; "
+             "library: the pad"))
 
     # K7: two chained carries, f32 and bf16
     errs, times = [], None
@@ -318,18 +384,29 @@ def check_weighted_kernels(device, small=False):
                           kg.mirror_gram(acc_p), 2 * rows2)
         errs.append(err)
         if dt == torch.float32:
+            Xw = kg._weighted_operand(Xt, h)  # the library call's operand
             times = (time_ms(lambda: kg.weighted_gram_tiled(Xt, h, acc)),
-                     time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)))
+                     time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)),
+                     time_ms(lambda: acc.addmm_(Xw.T, Xt)),
+                     bound(gram_ops(rows2, Dp2) + rows2 * Dp2,
+                           nbytes(Xt, h) + 2 * nbytes(acc), "f32"))
+            del Xw
         del acc, acc_p
     results.append(dict(
         name="weighted_gram_tiled", err=max(errs), ms=times[0], plain_ms=times[1],
+        library_ms=times[2], bound=times[3],
         note=f"{rows2}x{Dp2} f32 (bf16 max|dA| {errs[1]:.3g}), two chained "
-             f"carries, tol {gram_tol(2 * rows2):.3g}*max|A|"))
+             f"carries, tol {gram_tol(2 * rows2):.3g}*max|A|; library: "
+             "acc.addmm_ on the weighted operand made beforehand"))
 
     # K9: the flat weighted Gram of the merged A3, f32, held entry by entry
     # to a float64 plain version; a bf16-rounded result must fail the check
     X3 = randn(rows3, D3)
     h3 = torch.tensor(rng.uniform(0.5, 2.0, rows3).astype(np.float32), device=device)
+    sms = kg.sm_count(device)
+    _, splits9, rps9 = kg.wgram_plan(rows3, D3, 1, True, sms)
+    log(f"[kernels] weighted_gram plan at {rows3}x{D3}: {splits9} row splits of "
+        f"{rps9} rows on {sms} SMs")
     X64 = X3.double()
     A64 = (X64 * h3.double()[:, None]).T @ X64
     del X64
@@ -347,32 +424,70 @@ def check_weighted_kernels(device, small=False):
     if ctrl[0] <= bounds[0] and ctrl[1] <= bounds[1]:
         raise AssertionError("weighted_gram: the check passes bf16-rounded "
                              f"operands ({ctrl}), so it cannot see precision")
+    # the bf16 tier's K9 (tensor cores) against its plain version
+    Xb = X3.to(torch.bfloat16)
+    err_b, tol_b = within("weighted_gram (bf16)", kg.mirror_gram(kg.weighted_gram(Xb, h3)),
+                          kg.mirror_gram(kg.weighted_gram_plain(Xb, h3)), rows3)
+    ms_b = time_ms(lambda: kg.weighted_gram(Xb, h3))
+    del Xb
+    Xw = kg._weighted_operand(X3, h3)  # the library call's operand
     results.append(dict(
         name="weighted_gram", err=float((A.double() - A64).abs().max()),
         ms=time_ms(lambda: kg.weighted_gram(X3, h3)),
         plain_ms=time_ms(lambda: kg.weighted_gram_plain(X3, h3)),
-        note=f"{rows3}x{D3} f32, random h in [0.5, 2], max|dA| vs float64"))
-    del X3, A, A64
+        library_ms=time_ms(lambda: torch.mm(Xw.T, X3)),
+        bound=bound(gram_ops(rows3, D3) + rows3 * D3, nbytes(X3, h3) + 4 * D3 * D3,
+                    "f32"),
+        note=f"{rows3}x{D3} f32, random h in [0.5, 2], {splits9} row splits, "
+             "max|dA| vs float64; library: torch.mm on the weighted operand "
+             f"made beforehand; bf16: kernel {ms_b:.3f} ms, max|dA| {err_b:.3g} "
+             f"vs plain (tol {tol_b:.3g})"))
+    del X3, A, A64, Xw
 
     # K11: the own-out class-pair Gram at both first cores
-    errs, notes, times = [], [], None
+    errs, notes, first = [], [], None
     for S_, C_, DJ, dt in own:
         Dp = kg.plan_tiles(DJ)[3]
         Jt, _ = kg.retile_rows(randn(S_, DJ, dtype=dt), Dp)
         hh = randn(S_, C_, C_)
         H = ((hh + hh.transpose(1, 2)) / 2).contiguous()
+        npq = C_ * (C_ + 1) // 2
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        # the plan of the launch over the p = q blocks (f32: their upper
+        # tiles) or, in bf16, over all class pairs
+        _, splits, rps = kg.wgram_plan(S_, DJ, C_ if kind == "f32" else npq,
+                                       kind == "f32", kg.sm_count(device))
+        if not small and C_ == 1 and splits < 2:
+            raise AssertionError(f"own_out_gram: the regression A1 plans {splits} split")
         A = kg.mirror_own_out(kg.own_out_gram(Jt, H, C_, DJ))
         A_p = kg.mirror_own_out(kg.own_out_gram_plain(Jt, H, C_, DJ))
         err, tol = within(f"own_out_gram (C={C_})", A, A_p, S_)
         errs.append(err)
+        del A, A_p
         ms = time_ms(lambda: kg.own_out_gram(Jt, H, C_, DJ))
         plain = time_ms(lambda: kg.own_out_gram_plain(Jt, H, C_, DJ))
-        notes.append(f"S={S_} C={C_} DJ={DJ} {str(dt)[6:]}: kernel {ms:.3f} ms, "
-                     f"plain {plain:.3f} ms, max|dA| {err:.3g} (tol {tol:.3g})")
-        times = times or (ms, plain)
-        del A, A_p, Jt
-    results.append(dict(name="own_out_gram", err=max(errs), ms=times[0],
-                        plain_ms=times[1], note="; ".join(notes)))
+        # the library call: one batched product over the pre-weighted pairs
+        J = Jt[:, :DJ]
+        W = torch.stack([(J.float() * H[:, p, q, None]).to(dt)
+                         for p, q in zip(*np.triu_indices(C_))])
+        with bf16_f32_reduction():
+            lib = time_ms(lambda: torch.matmul(W.transpose(-1, -2), J))
+        del W, J
+        # the work the result needs: p = q blocks of f32 J over their upper
+        # triangle (the kernel mirrors them), every other block whole
+        sym = C_ if kind == "f32" else 0
+        bnd = bound(sym * gram_ops(S_, DJ) + (npq - sym) * gram_ops(S_, DJ, upper=False)
+                    + npq * S_ * DJ, nbytes(Jt, H) + 4 * C_ * C_ * Dp * Dp, kind)
+        notes.append(f"S={S_} C={C_} DJ={DJ} {kind}: {splits} row splits of {rps}, "
+                     f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} ms, "
+                     f"bound {bnd[0]:.3f} ms ({bnd[1]}), max|dA| {err:.3g} "
+                     f"(tol {tol:.3g})")
+        first = first or (ms, plain, lib, bnd)
+        del Jt
+    results.append(dict(name="own_out_gram", err=max(errs), ms=first[0],
+                        plain_ms=first[1], library_ms=first[2], bound=first[3],
+                        note="; ".join(notes) + "; library: one batched "
+                             "torch.matmul over the pre-weighted class pairs"))
     log_kernels(results)
     return results
 
@@ -622,16 +737,20 @@ def main() -> int:
                 **{k: fit[k] for k in REGRESSION_KERNELS},
                 "own_out_gram": own["own_out_gram"]}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
+    csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,
                "gram_pair_tiled": 873, "gram_pair": 550, "retile_rows": 657,
                "weighted_gram_tiled": 1439, "weighted_gram": 335,
                "own_out_gram": 1373}
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda",
-         "source": "tensornetworksfork_tpu_torch/csrc/gram.cu",
+         "source": f"{csrc}/wgram.cu" if k["name"] in ("weighted_gram", "own_out_gram")
+                   else f"{csrc}/gram.cu",
          "replaces": f"{pallas}:{sources[k['name']]}",
          "launches": launches[k["name"]],
-         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+         "library_ms": k["library_ms"]}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda import gram as kgram
+from ..utils.device import resolve_device
 from .contract import contract
 from .topology import CONST, INPUT, PARAM, Topology
 
@@ -63,7 +64,8 @@ class Network:
     """Binds a Topology to constant tensors and exposes the compute functions.
 
     `inputs` is a dict {input_node_name: tensor}; `bind_inputs` normalises a
-    single shared tensor or a per-node list. `use_kernels` selects the
+    single shared tensor or a per-node list. `device` is the card unless the
+    caller asks for the CPU (utils/device.py). `use_kernels` selects the
     kernel routes of the Gram stage; it defaults to True exactly when the
     network lives on CUDA (the JAX package's use_pallas defaults to True only
     on a TPU). With use_kernels on CPU tensors the same routes run through
@@ -71,9 +73,9 @@ class Network:
 
     def __init__(self, topology: Topology,
                  consts: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cpu", use_kernels: Optional[bool] = None):
+                 device="cuda", use_kernels: Optional[bool] = None):
         _check_precision_env()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
         self.use_kernels = use_kernels

@@ -1,6 +1,7 @@
 // Gram-path kernels of the sweep trainer, hand-written for Hopper (sm_90a).
 //
-// Port of the Pallas kernels in tensornetworksfork_tpu/ops/pallas/gram.py.
+// Port of the Pallas kernels in tensornetworksfork_tpu/ops/pallas/gram.py
+// (the narrow-output weighted Grams K9 and K11 are in wgram.cu).
 // Five kernels, each behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
 // binds with ctypes. Every entry launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() so the wrapper can raise.
@@ -14,9 +15,7 @@
 //                   into its carry epilogue) and
 //                   _pair_kernel_tiled / gram_pair             (K10); its
 //                   weighted form <- _make_weighted_kernel_tiled_acc /
-//                   weighted_gram_tiled (K7), _weighted_kernel_tiled /
-//                   weighted_gram (K9) and _make_own_out_kernel /
-//                   own_out_gram (K11)
+//                   weighted_gram_tiled (K7)
 //
 // Layouts: a Gram operand is row-major (rows, cols); rows are (class, sample)
 // pairs, columns the node's flattened D. Gram outputs are (cols, cols) f32;
@@ -217,13 +216,13 @@ gram_q_kernel(const int8_t* __restrict__ Q1, const float* __restrict__ s1,
 // formed in registers and added to the carry once, in the epilogue. Rows
 // and columns are masked, so any (rows, D) shape with row stride ld works.
 //
-// ---------------------------------------------------------------- K7 / K9 / K11
+// ---------------------------------------------------------------- K7
 // The weighted form (kWeighted, Y = X): the left operand is X[r, d] * w_r
 // multiplied in f32 and rounded once to T before the product — the
 // reference's (j1 * w).astype(j1.dtype) — with w_r = h[r * hstride + pq].
-// For K11 the grid's y index picks a class pair, pq = cls[blockIdx.y] =
-// p*C + q, and the output block A + pq * ldc * ldc; K7/K9 pass no cls
-// (pq = 0, one output).
+// With a cls table the grid's y index picks a class pair, pq =
+// cls[blockIdx.y] = p*C + q, and the output block A + pq * ldc * ldc; K7
+// passes no cls (pq = 0, one output).
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* __restrict__ h,

@@ -1,0 +1,574 @@
+// The narrow-output weighted Gram, hand-written for Hopper (sm_90a).
+//
+// Replaces two Pallas kernels of tensornetworksfork_tpu/ops/pallas/gram.py:
+//   _weighted_gram_jit (K9: _weighted_kernel_tiled / _syrk_weighted_kernel)
+//   _own_out_gram_jit  (K11: _make_own_out_kernel)
+// Both compute, per class pair pq (K9: one, pq = 0),
+//   A_pq[d, e] = sum_r round_T(X[r, d] * h[r * hstride + pq]) * X[r, e]
+// with the weighted operand multiplied in f32 and rounded once to the operand
+// type T, as the reference's (j1 * w).astype(j1.dtype). K9 needs the upper
+// triangle only; K11's blocks are whole (not symmetric in d for p != q, and
+// for p = q only up to the rounding of the weighted operand).
+//
+// What bounds them on an H100 (132 SMs, 67 TFLOP/s f32 FMA, 989 TFLOP/s bf16
+// tensor cores, 3.35 TB/s):
+//   K9,  65,536 x 1,032 f32, upper: 6.99e10 FLOP -> 1.04 ms (bytes 0.08 ms);
+//   K11, 65,536 rows, C=1, DJ=1,032 f32, whole: 1.40e11 FLOP -> 2.08 ms;
+//   K11, 8,192 rows, C=9 (45 pairs), DJ=900 bf16: 5.97e11 FLOP -> 0.60 ms on
+//        the tensor cores (8.9 ms on f32 FMA); its 81 x Dp^2 f32 output 0.09 ms.
+// So both are bound by operations. What the design does about it:
+//   - Row split. The grid is (output tiles) x (class pairs) x (row splits). A
+//     1,032-wide output has only 45 upper (81 whole) 128x128 tiles, well
+//     under one CTA per SM, so the host splits the rows until the grid fills
+//     the card (ops/cuda/gram.py wgram_plan). Each split writes its partial
+//     sums to an f32 workspace, and wgram_reduce_kernel adds them in fixed
+//     split order: no atomics, the same result on every run. With one split
+//     (the grid already fills the card) the kernel writes the output directly.
+//   - f32 operands stay on f32 FMA, never TF32 (wgram_f32_kernel): 128x128
+//     tiles, 8x8 accumulators per thread (four 4x4 quadrants), 32 rows a
+//     stage in a ring of 3.
+//   - bf16 operands go to the tensor cores (wgram_bf16_kernel): wgmma on bf16
+//     with f32 results, 64 rows a stage in a ring of 4, the weighting of the
+//     next stage overlapping the current stage's wgmmas. The weighted operand
+//     is rounded to bf16 as the reference rounds it, so every product is exact
+//     in f32; each 128-row tensor-core sum is added to the thread's f32 sums
+//     with an IEEE add, so only the order of the f32 sums differs.
+//   - Operands reach shared memory by cp.async (16-byte chunks, zero-filled
+//     past the rows of the split and past D); the weighting is applied once
+//     per staged element, in place, after the stage lands — not once per FMA.
+//   - Padding: D = 1,032 is 8 tiles and 8 columns; the ninth tile is almost
+//     empty. Rather than narrower tiles everywhere, the f32 kernel skips work
+//     past D at 64-column granularity (quadrants), and the quadrant below the
+//     diagonal of a diagonal tile in the upper-triangle mode, so its computed
+//     area at D = 1,032 is ~1.18x the upper triangle (whole 128x128 tiles
+//     would be 1.38x). The bf16 kernel skips rows past D at 64-row granularity
+//     (a warpgroup) and computes its tiles' columns whole.
+//   Rows and columns are masked, so any (rows, D) with row stride ld works;
+//   16-byte loads need ld and X aligned to 16 bytes, else the stage is loaded
+//   element by element (the same arithmetic).
+//
+// Entry points return cudaGetLastError() (or the attribute call's error), as
+// in gram.cu; nothing here allocates or synchronises.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWT = 128;        // output tile, kWT x kWT per CTA
+constexpr int kWThreads = 256;  // 8 warps
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// cp.async with zero fill: src_size 0 writes 16 (4) zero bytes, reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- f32
+constexpr int kFK = 32;                                  // rows a stage
+constexpr int kFStages = 3;                              // ring depth
+constexpr int kFStageBytes = 2 * kFK * kWT * 4 + kFK * 4;  // X, Y, weights
+constexpr int kFSmem = kFStages * kFStageBytes;
+
+// One stage: rows r0 .. r0+kFK-1 (zero past rend) of the d-columns (sX) and
+// the e-columns (sY) of the tile, row-major with kWT columns, and their
+// weights (sW).
+template <bool kVec>
+__device__ __forceinline__ void fload_stage(float* sX, float* sY, float* sW,
+                                            const float* __restrict__ X, int ld,
+                                            const float* __restrict__ h, int hstride, int pq,
+                                            int r0, int rend, int d0, int e0, int D, int tid) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < kFK * kWT / 4 / kWThreads; ++i) {
+      const int idx = tid + i * kWThreads, rr = idx / 32, c = (idx % 32) * 4;
+      const int r = r0 + rr;
+      // a chunk that starts below D lies inside the row (ld % 4 == 0)
+      const bool xin = r < rend && d0 + c < D, yin = r < rend && e0 + c < D;
+      cp_async16(sX + rr * kWT + c, xin ? X + (size_t)r * ld + d0 + c : X, xin);
+      cp_async16(sY + rr * kWT + c, yin ? X + (size_t)r * ld + e0 + c : X, yin);
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = tid; idx < kFK * kWT; idx += kWThreads) {
+      const int rr = idx / kWT, c = idx % kWT, r = r0 + rr;
+      sX[rr * kWT + c] = (r < rend && d0 + c < D) ? X[(size_t)r * ld + d0 + c] : 0.f;
+      sY[rr * kWT + c] = (r < rend && e0 + c < D) ? X[(size_t)r * ld + e0 + c] : 0.f;
+    }
+  }
+  if (tid < kFK) {
+    const int r = r0 + tid;
+    const bool in = r < rend;
+    cp_async4(sW + tid, in ? h + (size_t)r * hstride + pq : h, in);
+  }
+}
+
+// The weighting, once per staged element of the d-columns, in place.
+__device__ __forceinline__ void fweight_stage(float* sX, const float* sW, int tid) {
+#pragma unroll
+  for (int i = 0; i < kFK * kWT / 4 / kWThreads; ++i) {
+    const int idx = tid + i * kWThreads;
+    float4* chunk = reinterpret_cast<float4*>(sX) + idx;
+    const float w = sW[idx / 32];
+    float4 v = *chunk;
+    v.x = __fmul_rn(v.x, w);
+    v.y = __fmul_rn(v.y, w);
+    v.z = __fmul_rn(v.z, w);
+    v.w = __fmul_rn(v.w, w);
+    *chunk = v;
+  }
+}
+
+// f32: thread (ty, tx) = (tid / 16, tid % 16) owns rows {ty*4 + i, 64 + ty*4 + i}
+// and columns {tx*4 + j, 64 + tx*4 + j} of the tile: four 4x4 quadrants,
+// acc[i * 8 + j] with i, j < 4 the low halves. Quadrant q (bit 0: high
+// columns, bit 1: high rows) runs only where Q has bit q.
+template <int Q>
+__device__ __forceinline__ void compute_f32(const float* sX, const float* sY, float (&acc)[64],
+                                            int tid) {
+  constexpr int BK = kFK, P = kWT;
+  const int tx = tid % 16, ty = tid / 16;
+#pragma unroll 8
+  for (int k = 0; k < BK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(sX + k * P + ty * 4);
+    const float4 a1 = *reinterpret_cast<const float4*>(sX + k * P + 64 + ty * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(sY + k * P + tx * 4);
+    const float4 b1 = *reinterpret_cast<const float4*>(sY + k * P + 64 + tx * 4);
+    const float xs[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float ys[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!((Q >> q) & 1)) continue;
+      const int ib = (q >> 1) * 4, jb = (q & 1) * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[(ib + i) * 8 + jb + j] = fmaf(xs[ib + i], ys[jb + j], acc[(ib + i) * 8 + jb + j]);
+    }
+  }
+}
+
+// One stage of f32 work with the quadrant set fixed at compile time: the
+// sets a tile can have (past D: 1, 3, 5; a diagonal tile: 11; inside: 15).
+__device__ __forceinline__ void compute_f32_quads(const float* sX, const float* sY,
+                                                  float (&acc)[64], int quads, int tid) {
+  switch (quads) {
+    case 1: compute_f32<1>(sX, sY, acc, tid); break;
+    case 3: compute_f32<3>(sX, sY, acc, tid); break;
+    case 5: compute_f32<5>(sX, sY, acc, tid); break;
+    case 11: compute_f32<11>(sX, sY, acc, tid); break;
+    default: compute_f32<15>(sX, sY, acc, tid); break;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kWThreads, 2)
+wgram_f32_kernel(const float* __restrict__ X, int ld, const float* __restrict__ h, int hstride,
+                 const int* __restrict__ cls, const int* __restrict__ pairs, int upper, int rows,
+                 int rps, int D, float* __restrict__ out, const int* __restrict__ ocls,
+                 long long ostride, int ldo, long long sstride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto sX = [&](int s) { return reinterpret_cast<float*>(smem + s * kFStageBytes); };
+  auto sY = [&](int s) { return sX(s) + kFK * kWT; };
+  auto sW = [&](int s) { return sX(s) + 2 * kFK * kWT; };
+
+  const int tid = threadIdx.x;
+  const int* pr = pairs + 3 * blockIdx.x;
+  const int d0 = pr[0] * kWT, e0 = pr[1] * kWT;
+  const int pq = cls ? cls[blockIdx.y] : 0;
+  const int ob = ocls ? ocls[blockIdx.y] : blockIdx.y;
+  const int rbeg = blockIdx.z * rps;
+  const int rend = min(rows, rbeg + rps);
+  const int nk = rend > rbeg ? (rend - rbeg + kFK - 1) / kFK : 0;
+  // the quadrants that hold work: below D, and not strictly below the
+  // diagonal of a diagonal tile in the upper-triangle mode
+  const bool dh = d0 + 64 < D, eh = e0 + 64 < D, diag = upper && d0 == e0;
+  const int quads = 1 | (eh ? 2 : 0) | (dh && !diag ? 4 : 0) | (dh && eh ? 8 : 0);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < nk)
+      fload_stage<kVec>(sX(s), sY(s), sW(s), X, ld, h, hstride, pq, rbeg + s * kFK, rend, d0,
+                        e0, D, tid);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // stage k landed for every thread; stage k-1 is consumed
+    const int nxt = k + kFStages - 1;
+    if (nxt < nk) {
+      const int sn = nxt % kFStages;
+      fload_stage<kVec>(sX(sn), sY(sn), sW(sn), X, ld, h, hstride, pq, rbeg + nxt * kFK, rend,
+                        d0, e0, D, tid);
+    }
+    cp_async_commit();
+    const int s = k % kFStages;
+    fweight_stage(sX(s), sW(s), tid);
+    __syncthreads();
+    compute_f32_quads(sX(s), sY(s), acc, quads, tid);
+  }
+  cp_async_wait<0>();
+
+  float* o = out + blockIdx.z * sstride + (long long)ob * ostride;
+  const int tx = tid % 16, ty = tid / 16;
+  const bool v4 = ldo % 4 == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int d = d0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+    if (d >= D) continue;
+    float* row = o + (size_t)d * ldo;
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      const int e = e0 + jh * 64 + tx * 4;
+      const float* a = acc + i * 8 + jh * 4;
+      if (v4 && e + 3 < D) {
+        *reinterpret_cast<float4*>(row + e) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e + j < D) row[e + j] = a[j];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- bf16
+// wgmma (m64n128k16, f32 results) with both operands read from shared memory
+// as MN-major (row, column) tiles: warpgroup g of the CTA computes rows
+// g*64 .. +63 of the 128 x 128 tile, all 128 columns (a diagonal tile of the
+// upper-triangle mode whole). Each stage is 64 rows.
+
+constexpr int kGK = 64;                                 // rows a stage
+constexpr int kGTileBytes = kGK * kWT * 2;              // one 64 x 128 bf16 tile
+constexpr int kGStageBytes = 2 * kGTileBytes + 1024;    // X, Y, weights; 1 KB aligned
+constexpr int kGStages = 4;                             // ring depth
+constexpr int kGSmem = kGStages * kGStageBytes + 1024;  // + slack to align the base
+
+// Byte offset of the 16-byte chunk (row r < 64, chunk c = column / 8 < 16) of
+// a staged tile in wgmma's MN-major 128-byte-swizzle layout: 1 KB atoms of 8
+// rows x 64 columns, atom (c / 8, r / 8) at (c / 8) * 8 KB + (r / 8) * 1 KB,
+// row r % 8 at 128-byte steps, chunk c % 8 stored at slot (c % 8) ^ (r % 8).
+__device__ __forceinline__ int gsw_offset(int r, int c) {
+  return ((c >> 3) << 13) + ((r >> 3) << 10) + ((r & 7) << 7) + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Shared-memory matrix descriptor of that layout at byte address `saddr`:
+// leading byte offset 8 KB (the next 64 columns), stride byte offset 1 KB
+// (the next 8 rows), 128-byte swizzle.
+__device__ __forceinline__ uint64_t gdesc(uint32_t saddr) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)(8192 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A^T-tile x B-tile over 16 rows: A 64 columns (d), B 128 columns (e),
+// both MN-major (transposed) bf16; d is zeroed first unless `accumulate`.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory (cp.async, st.shared) made visible to
+// wgmma's reads, which go through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One thread's part of loading a stage: four 16-byte chunks of X's d- and
+// e-columns (rows 16 i + tid / 16, chunk tid % 16) and, for the first 64
+// threads, one weight. What does not change from stage to stage (shared
+// memory offsets, column bounds, pointers) is set up once.
+struct GLoader {
+  int soff[4];                      // byte offsets of the chunks in a tile
+  int rr[4];                        // rows within the stage
+  const __nv_bfloat16* px[4];       // row 0 of the chunks' d- and e-columns
+  const __nv_bfloat16* py[4];
+  bool xin[4], yin[4];              // chunk starts below D
+  __device__ __forceinline__ GLoader(const __nv_bfloat16* X, int ld, int d0, int e0, int D,
+                                     int tid) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = tid + i * kWThreads, c = idx % 16;
+      rr[i] = idx / 16;
+      soff[i] = gsw_offset(rr[i], c);
+      xin[i] = d0 + c * 8 < D;
+      yin[i] = e0 + c * 8 < D;
+      px[i] = X + (size_t)rr[i] * ld + d0 + c * 8;
+      py[i] = X + (size_t)rr[i] * ld + e0 + c * 8;
+    }
+  }
+};
+
+template <bool kVec>
+__device__ __forceinline__ void gload_stage(const GLoader& L, unsigned char* sX,
+                                            unsigned char* sY, float* sW,
+                                            const __nv_bfloat16* __restrict__ X, int ld,
+                                            const float* __restrict__ h, int hstride, int pq,
+                                            int r0, int rend, int d0, int e0, int D, int tid) {
+  if constexpr (kVec) {
+    const size_t step = (size_t)r0 * ld;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool rin = r0 + L.rr[i] < rend;
+      // a chunk that starts below D lies inside the row (ld % 8 == 0)
+      cp_async16(sX + L.soff[i], rin && L.xin[i] ? L.px[i] + step : X, rin && L.xin[i]);
+      cp_async16(sY + L.soff[i], rin && L.yin[i] ? L.py[i] + step : X, rin && L.yin[i]);
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = tid; idx < kGK * kWT; idx += kWThreads) {
+      const int rr = idx / kWT, col = idx % kWT, r = r0 + rr;
+      const int o = gsw_offset(rr, col >> 3) + (col & 7) * 2;
+      *reinterpret_cast<__nv_bfloat16*>(sX + o) =
+          (r < rend && d0 + col < D) ? X[(size_t)r * ld + d0 + col] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<__nv_bfloat16*>(sY + o) =
+          (r < rend && e0 + col < D) ? X[(size_t)r * ld + e0 + col] : __float2bfloat16_rn(0.f);
+    }
+  }
+  if (tid < kGK) {
+    const int r = r0 + tid;
+    const bool in = r < rend;
+    cp_async4(sW + tid, in ? h + (size_t)r * hstride + pq : h, in);
+  }
+}
+
+// The weighting of a staged X tile, in place, 16 bytes (8 values of one row)
+// at a time: chunk q of the layout holds row ((q >> 6) & 7) * 8 + ((q >> 3) & 7).
+__device__ __forceinline__ void gweight_stage(unsigned char* sX, const float* sW, int tid) {
+#pragma unroll
+  for (int i = 0; i < kGTileBytes / 16 / kWThreads; ++i) {
+    const int q = tid + i * kWThreads;
+    uint4* chunk = reinterpret_cast<uint4*>(sX + q * 16);
+    const float w = sW[((q >> 6) & 7) * 8 + ((q >> 3) & 7)];
+    uint4 v = *chunk;
+    uint32_t* u = &v.x;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(u + k));
+      const __nv_bfloat162 b = __floats2bfloat162_rn(__fmul_rn(f.x, w), __fmul_rn(f.y, w));
+      u[k] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *chunk = v;
+  }
+}
+
+// The pipeline: while the wgmmas of stage k run, stage k+3 loads and stage
+// k+1 is weighted. The wgmmas of two stages (128 rows) sum inside the tensor
+// core from zero, and that sum is added to acc with __fadd_rn: summing inside
+// the tensor core over thousands of rows loses bits on every step (its f32
+// accumulation does not round to nearest), an error that grows with the row
+// count.
+template <bool kVec>
+__global__ void __launch_bounds__(kWThreads, 1)
+wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __restrict__ h,
+                  int hstride, const int* __restrict__ cls, const int* __restrict__ pairs,
+                  int rows, int rps, int D, float* __restrict__ out, const int* __restrict__ ocls,
+                  long long ostride, int ldo, long long sstride) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto sX = [&](int s) { return smem + s * kGStageBytes; };
+  auto sY = [&](int s) { return smem + s * kGStageBytes + kGTileBytes; };
+  auto sW = [&](int s) { return reinterpret_cast<float*>(smem + s * kGStageBytes + 2 * kGTileBytes); };
+
+  const int tid = threadIdx.x, g = tid / 128;
+  const int* pr = pairs + 3 * blockIdx.x;
+  const int d0 = pr[0] * kWT, e0 = pr[1] * kWT;
+  const int pq = cls ? cls[blockIdx.y] : 0;
+  const int ob = ocls ? ocls[blockIdx.y] : blockIdx.y;
+  const int rbeg = blockIdx.z * rps;
+  const int rend = min(rows, rbeg + rps);
+  const int nk = rend > rbeg ? (rend - rbeg + kGK - 1) / kGK : 0;
+  const GLoader L(X, ld, d0, e0, D, tid);
+  auto load = [&](int k) {
+    const int s = k % kGStages;
+    gload_stage<kVec>(L, sX(s), sY(s), sW(s), X, ld, h, hstride, pq, rbeg + k * kGK, rend, d0,
+                      e0, D, tid);
+  };
+
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<kGStages - 2>();
+  __syncthreads();
+  if (nk > 0) gweight_stage(sX(0), sW(0), tid);
+  fence_proxy_async();
+  for (int k = 0; k < nk; ++k) {
+    __syncthreads();  // stage k weighted and visible
+    const int s = k % kGStages;
+    const uint32_t xa = smem_u32(sX(s)) + g * 8192, ya = smem_u32(sY(s));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kGK / 16; ++ks)
+      wgmma_m64n128(d, gdesc(xa + ks * 2048), gdesc(ya + ks * 2048), (k & 1) || ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // this warpgroup's wgmmas of stage k-1
+    cp_async_wait<1>();  // this thread's copies of stage k+1 landed
+    __syncthreads();  // ... and everyone's; stage k-1's buffer is free
+    if (k + kGStages - 1 < nk) load(k + kGStages - 1);
+    cp_async_commit();
+    if (k + 1 < nk) gweight_stage(sX((k + 1) % kGStages), sW((k + 1) % kGStages), tid);
+    fence_proxy_async();
+    if ((k & 1) || k + 1 == nk) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+    }
+  }
+  cp_async_wait<0>();
+  if (d0 + g * 64 >= D) return;  // this warpgroup's rows lie past D
+
+  // acc[4j + v]: row 16 w + lane / 4 (+8 for v >= 2), column 8 j + 2 (lane % 4)
+  // (+1 for odd v), w the warp within the warpgroup
+  float* o = out + blockIdx.z * sstride + (long long)ob * ostride;
+  const bool v2 = ldo % 2 == 0 && (reinterpret_cast<uintptr_t>(o) & 7) == 0;
+  const int lane = tid % 32, w = (tid % 128) / 32;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int dd = d0 + g * 64 + w * 16 + hf * 8 + lane / 4;
+    if (dd >= D) continue;
+    float* row = o + (size_t)dd * ldo;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int e = e0 + j * 8 + (lane % 4) * 2;
+      const float* a = acc + 4 * j + 2 * hf;
+      if (v2 && e + 1 < D) {
+        *reinterpret_cast<float2*>(row + e) = make_float2(a[0], a[1]);
+      } else {
+        if (e < D) row[e] = a[0];
+        if (e + 1 < D) row[e + 1] = a[1];
+      }
+    }
+  }
+}
+
+// out[ocls[c]][d, e] = sum over splits z, in order, of ws[z][c][d, e] (ws is
+// (splits, ncls, D, D)); in the upper mode only the tiles the kernel computed
+// (d / kWT <= e / kWT) are written. One thread per (c, d, e).
+__global__ void wgram_reduce_kernel(const float* __restrict__ ws, int splits, long long sstride,
+                                    int D, int upper, float* __restrict__ out,
+                                    const int* __restrict__ ocls, long long ostride, int ldo) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, d = blockIdx.y, c = blockIdx.z;
+  if (e >= D || (upper && d / kWT > e / kWT)) return;
+  const float* src = ws + ((long long)c * D + d) * D + e;
+  float s = src[0];
+  for (int z = 1; z < splits; ++z) s = __fadd_rn(s, src[z * sstride]);
+  out[(long long)(ocls ? ocls[c] : c) * ostride + (long long)d * ldo + e] = s;
+}
+
+int launch_f32(const float* X, int ld, const float* h, int hstride, const int* cls, dim3 grid,
+               const int* pairs, int upper, int rows, int rps, int D, float* out,
+               const int* ocls, long long ostride, int ldo, long long sstride,
+               cudaStream_t stream) {
+  const bool vec = ld % 4 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0;
+  auto kern = vec ? wgram_f32_kernel<true> : wgram_f32_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kWThreads, kFSmem, stream>>>(X, ld, h, hstride, cls, pairs, upper, rows, rps, D,
+                                            out, ocls, ostride, ldo, sstride);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const __nv_bfloat16* X, int ld, const float* h, int hstride, const int* cls,
+                dim3 grid, const int* pairs, int rows, int rps, int D, float* out,
+                const int* ocls, long long ostride, int ldo, long long sstride,
+                cudaStream_t stream) {
+  const bool vec = ld % 8 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0;
+  auto kern = vec ? wgram_bf16_kernel<true> : wgram_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kWThreads, kGSmem, stream>>>(X, ld, h, hstride, cls, pairs, rows, rps, D, out,
+                                            ocls, ostride, ldo, sstride);
+  return (int)cudaGetLastError();
+}
+
+bool bad_split_args(int ncls, int npairs, int rows, int rps, int splits, int D, int ld) {
+  return ncls < 1 || ncls > 65535 || splits < 1 || splits > 65535 || npairs < 1 || rps < 1 ||
+         (long long)(splits - 1) * rps >= (rows > 0 ? rows : 1) || D > ld;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The split weighted Gram (K9, K11). X (rows, ld) with D <= ld columns used;
+// h (rows, hstride) f32; cls (ncls class pairs, may be null with ncls = 1)
+// picks the h column pq = cls[y] of grid row y; pairs (npairs, 3) int32 lists
+// the kWT-tiles (ti, tj, -) to compute; `upper` marks the upper-triangle
+// mode (the f32 kernel then skips the quadrant below a diagonal tile's
+// diagonal). Split z covers rows [z*rps, min(rows, (z+1)*rps)). Output block
+// of grid row y and split z: out + z*sstride + (ocls ? ocls[y] : y)*ostride,
+// row stride ldo.
+int tnf_wgram_split_f32(const void* X, int ld, const void* h, int hstride, const void* cls,
+                        int ncls, const void* pairs, int npairs, int upper, int rows, int rps,
+                        int splits, int D, void* out, const void* ocls, long long ostride, int ldo,
+                        long long sstride, void* stream) {
+  if (bad_split_args(ncls, npairs, rows, rps, splits, D, ld)) return (int)cudaErrorInvalidValue;
+  return launch_f32((const float*)X, ld, (const float*)h, hstride, (const int*)cls,
+                    dim3(npairs, ncls, splits), (const int*)pairs, upper, rows, rps, D,
+                    (float*)out, (const int*)ocls, ostride, ldo, sstride, (cudaStream_t)stream);
+}
+
+int tnf_wgram_split_bf16(const void* X, int ld, const void* h, int hstride, const void* cls,
+                         int ncls, const void* pairs, int npairs, int upper, int rows, int rps,
+                         int splits, int D, void* out, const void* ocls, long long ostride,
+                         int ldo, long long sstride, void* stream) {
+  if (bad_split_args(ncls, npairs, rows, rps, splits, D, ld)) return (int)cudaErrorInvalidValue;
+  return launch_bf16((const __nv_bfloat16*)X, ld, (const float*)h, hstride, (const int*)cls,
+                     dim3(npairs, ncls, splits), (const int*)pairs, rows, rps, D, (float*)out,
+                     (const int*)ocls, ostride, ldo, sstride, (cudaStream_t)stream);
+}
+
+// Sum the split workspace ws (splits, ncls, D, D) in split order into
+// out + (ocls ? ocls[c] : c) * ostride, row stride ldo.
+int tnf_wgram_reduce(const void* ws, int splits, int ncls, int D, int upper, void* out,
+                     const void* ocls, long long ostride, int ldo, void* stream) {
+  if (splits < 1 || ncls < 1 || ncls > 65535 || D < 1 || D > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((D + 255) / 256, D, ncls);
+  wgram_reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, splits, (long long)ncls * D * D, D, upper, (float*)out, (const int*)ocls,
+      ostride, ldo);
+  return (int)cudaGetLastError();
+}
+
+int tnf_wgram_tile() { return kWT; }
+
+}  // extern "C"

@@ -8,6 +8,9 @@ datasets (the GPU machine has no sklearn).
 
 Run:  python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset synthetic
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset path/to/name_tensor.npz
+
+It runs on the card; `--device cpu` runs it on the CPU. Without a visible
+card and without `--device cpu` it raises RuntimeError.
 """
 from __future__ import annotations
 
@@ -22,18 +25,13 @@ from ..data.tabular import load_tabular_data, split_train_val_test
 from ..models.estimators import TensorTrainRegressor
 from ..ops.bregman import XEBregman
 from ..utils.config import RunConfig
+from ..utils.device import resolve_device
 from ..utils.metrics import accuracy, append_results_csv, r2_score, rmse
 
 # model families of the JAX package's CLI that are not ported yet
 _NOT_PORTED = {"cpd": 14, "cpd_type1": 14, "tnml": 15, "tt_batch": 15,
                "mlp": 15, "xgboost": 15, "svm": 15, "polynomial": 15}
 SKLEARN_DATASETS = ("iris", "wine", "breast_cancer", "diabetes", "digits")
-
-
-def resolve_device(cfg: RunConfig) -> torch.device:
-    if cfg.device is not None:
-        return torch.device(cfg.device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def build_model(cfg: RunConfig, input_dim: int):
@@ -55,7 +53,7 @@ def build_model(cfg: RunConfig, input_dim: int):
         train_operator=cfg.train_operator, cum_sum=cfg.cum_sum,
         early_stopping=cfg.early_stopping, verbose=cfg.verbose,
         timeout=cfg.timeout, precision=cfg.precision, refine=cfg.refine,
-        solve_dtype=cfg.solve_dtype, device=resolve_device(cfg))
+        solve_dtype=cfg.solve_dtype, device=resolve_device(cfg.device))
 
 
 def load_data(cfg: RunConfig, data=None):

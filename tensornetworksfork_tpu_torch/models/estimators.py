@@ -5,8 +5,9 @@ tensornetworksfork_tpu/models/estimators.py).
 degree-1..N tensor trains): bias-column augmentation, validation split,
 `EarlyStopping` with abs/rel improvement thresholds and best-state
 restore, the C-1-logit classification convention (a zero logit appended at
-evaluation), and numerics tiers. It runs on an explicit `device`; data
-goes there once per fit.
+evaluation), and numerics tiers. It runs on `device`, the card unless the
+caller passes device="cpu" (no card raises, see utils/device.py); data goes
+there once per fit.
 
 Not ported yet, each raising NotImplementedError: model_type `cpd` /
 `cpd_type1`, `cum_sum` and `linear_dim` (ROADMAP item 14), the float64
@@ -22,6 +23,7 @@ import torch
 
 from ..core.sweep import Member, SweepConfig, Sweeper
 from ..ops.bregman import SquareBregFunction, XEBregman
+from ..utils.device import resolve_device
 from ..utils.metrics import r2_score as r2_score_np, rmse
 from ..utils.precision import numerics_tier, validate_tier
 from .layers import SumLayer, TensorTrainLayer, TNLayer
@@ -164,7 +166,7 @@ class TensorTrainRegressor(BaseEstimator, RegressorMixin):
                  task="regression", train_operator=False, cum_sum=False,
                  early_stopping=0, dtype=torch.float32, verbose=0,
                  timeout=None, precision=None, refine=False,
-                 solve_dtype=None, device="cpu"):
+                 solve_dtype=None, device="cuda"):
         self.N = N
         self.r = r
         self.output_dim = output_dim
@@ -194,7 +196,7 @@ class TensorTrainRegressor(BaseEstimator, RegressorMixin):
         self.precision = validate_tier(precision)
         self.refine = refine
         self.solve_dtype = solve_dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._model = None
         self.input_dim = None
         if model_type not in ("tt", "tt_type1"):

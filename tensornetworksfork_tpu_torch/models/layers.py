@@ -133,7 +133,7 @@ class TensorTrainLayer(TNLayer):
     def __init__(self, num_carriages: int, bond_dim: int, input_features: int,
                  output_shape=(), constrict_bond: bool = True,
                  perturb: bool = False, dtype=torch.float32, seed: int = 0,
-                 device="cpu", use_kernels: Optional[bool] = None):
+                 device="cuda", use_kernels: Optional[bool] = None):
         N, r, f = num_carriages, bond_dim, input_features
         output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
         self.num_carriages, self.bond_dim, self.input_features = N, r, f
@@ -182,7 +182,7 @@ class TensorConvolutionTrainLayer(TNLayer):
     def __init__(self, num_carriages: int, bond_dim: int, num_patches: int,
                  patch_pixels: int, output_shape=(), convolution_bond: int = -1,
                  constrict_bond: bool = True, perturb: bool = False,
-                 dtype=torch.float32, seed: int = 0, device="cpu",
+                 dtype=torch.float32, seed: int = 0, device="cuda",
                  use_kernels: Optional[bool] = None):
         N, r = num_carriages, bond_dim
         output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)

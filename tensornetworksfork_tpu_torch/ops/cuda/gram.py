@@ -3,10 +3,10 @@
 Port of tensornetworksfork_tpu/ops/pallas/gram.py: every Pallas kernel of
 the JAX package has a counterpart here. Each wrapper takes the plain PyTorch
 version (`<fn>_plain`, beside it) only for tensors that lie on the CPU; for
-CUDA tensors it launches its kernel from `csrc/gram.cu` or raises — there is
-no fallback. Each wrapper checks device, dtype, shape and contiguity, raises
-when the launch reports an error, and adds one to `LAUNCHES[<name>]` per
-kernel launch.
+CUDA tensors it launches its kernel from `csrc/gram.cu` (K9 and K11:
+`csrc/wgram.cu`) or raises — there is no fallback. Each wrapper checks
+device, dtype, shape and contiguity, raises when the launch reports an
+error, and adds one to `LAUNCHES[<name>]` per call that launches its kernel.
 
 Layouts differ from the TPU's where the TPU's were schedule choices: the
 class-major operands are row-major (C*S, Dp) matrices instead of (n, rows,
@@ -36,6 +36,14 @@ LAUNCHES = {"retile_hmix": 0, "quantize_tiled": 0, "gram_pair_q": 0,
 
 TILE = 512    # the reference plan's D slab (plan_tiles): padding and band map
 BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
+
+# The split weighted Gram (K9, K11; csrc/wgram.cu): its output tile, the
+# shortest split it plans, and how many of its f32 kernel's CTAs one SM
+# holds at once (256 threads of at most 128 registers, ~99 KB of shared
+# memory each; the bf16 kernel's hold one and take the same plan).
+WTILE = 128
+SPLIT_MIN_ROWS = 4096
+WGRAM_RESIDENT = 2
 
 
 def reset_launches() -> None:
@@ -71,6 +79,44 @@ def quant_block(rows: int, block: int = BLOCK) -> int:
     return block if rows >= block else ((rows + 31) // 32) * 32
 
 
+def wgram_splits(ctas: int, rows: int, sms: int) -> int:
+    """Row splits for a split weighted Gram grid of `ctas` CTAs (output
+    tiles x class pairs) on `sms` SMs. 1 when the grid already holds 4 CTAs
+    per SM. Otherwise the count, at most rows // SPLIT_MIN_ROWS, whose
+    waves of WGRAM_RESIDENT CTAs per SM take the least time per row —
+    ceil(ctas * s / (WGRAM_RESIDENT * sms)) / s, the smaller s on a tie —
+    so a near-empty last wave is avoided."""
+    if ctas >= 4 * sms:
+        return 1
+    slots = WGRAM_RESIDENT * sms
+    best, best_waves = 1, None
+    for s in range(1, max(1, rows // SPLIT_MIN_ROWS) + 1):
+        waves = -(-ctas * s // slots)
+        if best_waves is None or waves * best < best_waves * s:
+            best, best_waves = s, waves
+    return best
+
+
+def split_rows(rows: int, splits: int) -> Tuple[int, int]:
+    """(splits, rows per split) for cutting `rows` into at most `splits`
+    ranges [z * rps, min(rows, (z + 1) * rps)): every range non-empty, the
+    last one ragged."""
+    rps = -(-max(rows, 1) // max(splits, 1))
+    return max(1, -(-rows // rps)), rps
+
+
+def wgram_plan(rows: int, D: int, ncls: int, upper: bool, sms: int,
+               splits: Optional[int] = None) -> Tuple[int, int, int]:
+    """(output tiles, splits, rows per split) of the split weighted Gram:
+    WTILE-wide tiles over D (the upper triangle, or all of them), `ncls`
+    class pairs; the split count from wgram_splits unless given."""
+    nt = -(-D // WTILE)
+    npairs = nt * (nt + 1) // 2 if upper else nt * nt
+    if splits is None:
+        splits = wgram_splits(npairs * ncls, rows, sms)
+    return (npairs,) + split_rows(rows, splits)
+
+
 # ------------------------------------------------------------------ checks
 def _on_cpu(*ts) -> bool:
     devs = {t.device.type for t in ts}
@@ -99,6 +145,17 @@ def _raise_on(status: int, kernel: str) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ----------------------------------------------------------- pair tables
@@ -131,13 +188,18 @@ def _pair_table_np(ntiles: int, slab_tiles: int, band: bool) -> np.ndarray:
 _TABLES = {}
 
 
+def _table(key, values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """int32 `values` on `device`, cached under `key`."""
+    key = (*key, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(np.ascontiguousarray(values, np.int32)).to(device)
+    return _TABLES[key]
+
+
 def _pair_table(ntiles: int, slab_tiles: int, band: bool,
                 device: torch.device) -> torch.Tensor:
-    key = (ntiles, slab_tiles, band, str(device))
-    if key not in _TABLES:
-        _TABLES[key] = torch.from_numpy(
-            _pair_table_np(ntiles, slab_tiles, band)).to(device)
-    return _TABLES[key]
+    return _table(("pairs", ntiles, slab_tiles, band),
+                  _pair_table_np(ntiles, slab_tiles, band), device)
 
 
 # ---------------------------------------------------------------- K1
@@ -416,20 +478,33 @@ def _check_weighted(X: torch.Tensor, h: torch.Tensor) -> None:
         raise ValueError(f"h has {h.shape[0]} rows, X {X.shape[0]}")
 
 
-def _launch_wgram(X, h, hstride, cls, out, D, has_acc, key) -> None:
+def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key) -> None:
+    """The split weighted Gram of csrc/wgram.cu into `out` (its last two
+    dims the block; `key` names the wrapper in errors)."""
     rows, ld = X.shape
     lib = _build.lib()
-    T = lib.tnf_gram_tile()
-    # K11's class-pair blocks are whole; K7/K9 compute the upper tiles
-    pairs = _pair_table((D + T - 1) // T, 0 if cls is not None else 1, False,
-                        X.device)
+    if lib.tnf_wgram_tile() != WTILE:
+        raise RuntimeError("csrc/wgram.cu and ops/cuda/gram.py disagree on "
+                           "the output tile")
     ncls = 1 if cls is None else cls.shape[0]
-    fn = lib.tnf_wgram_bf16 if X.dtype == torch.bfloat16 else lib.tnf_wgram_f32
-    _raise_on(fn(X.data_ptr(), h.data_ptr(), hstride,
-                 None if cls is None else cls.data_ptr(), ncls, out.data_ptr(),
-                 pairs.data_ptr(), pairs.shape[0], rows, D, ld, out.shape[-1],
-                 has_acc, _stream()), key)
-    LAUNCHES[key] += 1
+    npairs, splits, rps = wgram_plan(rows, D, ncls, upper, sm_count(X.device), splits)
+    pairs = _pair_table(-(-D // WTILE), 1 if upper else 0, False, X.device)
+    ldc = out.shape[-1]
+    cls_p = None if cls is None else cls.data_ptr()
+    if splits == 1:  # straight into the output blocks
+        ws, tgt, ocls, ostride, ldo, sstride = None, out, cls_p, ldc * ldc, ldc, 0
+    else:
+        ws = torch.empty((splits, ncls, D, D), dtype=torch.float32, device=X.device)
+        tgt, ocls, ostride, ldo, sstride = ws, None, D * D, D, ncls * D * D
+    fn = (lib.tnf_wgram_split_bf16 if X.dtype == torch.bfloat16
+          else lib.tnf_wgram_split_f32)
+    _raise_on(fn(X.data_ptr(), ld, h.data_ptr(), hstride, cls_p, ncls,
+                 pairs.data_ptr(), npairs, int(upper), rows, rps, splits, D,
+                 tgt.data_ptr(), ocls, ostride, ldo, sstride, _stream()), key)
+    if ws is not None:
+        _raise_on(lib.tnf_wgram_reduce(ws.data_ptr(), splits, ncls, D, int(upper),
+                                       out.data_ptr(), cls_p, ldc * ldc, ldc,
+                                       _stream()), key)
 
 
 # ---------------------------------------------------------------- K7
@@ -456,7 +531,14 @@ def weighted_gram_tiled(Xt: torch.Tensor, h: torch.Tensor,
     _check(acc, "acc", (torch.float32,), 2)
     if tuple(acc.shape) != (Dp, Dp):
         raise ValueError(f"acc shape {tuple(acc.shape)} != {(Dp, Dp)}")
-    _launch_wgram(Xt, h, 1, None, acc, Dp, 1, "weighted_gram_tiled")
+    lib = _build.lib()
+    T = lib.tnf_gram_tile()
+    pairs = _pair_table((Dp + T - 1) // T, 1, False, Xt.device)
+    fn = lib.tnf_wgram_bf16 if Xt.dtype == torch.bfloat16 else lib.tnf_wgram_f32
+    _raise_on(fn(Xt.data_ptr(), h.data_ptr(), 1, None, 1, acc.data_ptr(),
+                 pairs.data_ptr(), pairs.shape[0], rows, Dp, Dp, Dp, 1,
+                 _stream()), "weighted_gram_tiled")
+    LAUNCHES["weighted_gram_tiled"] += 1
     return acc
 
 
@@ -466,23 +548,28 @@ def weighted_gram_tiled_plain(Xt, h, acc):
 
 
 # ---------------------------------------------------------------- K9
-def weighted_gram(X: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """A = Xᵀ diag(h) X of a flat (rows, D) operand over the upper 64x64
-    tiles, ragged D masked; returns the raw (D, D) f32 A (finish with
-    mirror_gram). X f32 or bf16, h (rows,) f32; numerics as
-    weighted_gram_tiled.
+def weighted_gram(X: torch.Tensor, h: torch.Tensor,
+                  splits: Optional[int] = None) -> torch.Tensor:
+    """A = Xᵀ diag(h) X of a flat (rows, D) operand over the upper 128x128
+    tiles, ragged D masked; returns the raw (D, D) f32 A (upper triangle
+    valid, lower tiles zero; finish with mirror_gram). X f32 or bf16, h
+    (rows,) f32. The left operand is X * h rounded once to X's dtype, as the
+    reference rounds it; f32 operands sum on f32 FMA (never TF32), bf16 ones
+    on the bf16 tensor cores with f32 sums. `splits` fixes the row split
+    (default: wgram_plan's).
 
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:weighted_gram
-    (_weighted_gram_jit, _weighted_kernel_tiled). Bound on the card: f32 FMA
-    throughput; at a small D (the regression A3: 1,032) the upper triangle
-    is only 153 output tiles, about one CTA per SM, each looping over all
-    rows."""
+    (_weighted_gram_jit, _weighted_kernel_tiled). Bound on the card: f32
+    FMA throughput (the regression A3, 65,536 x 1,032: 1.04 ms); the upper
+    triangle of so narrow an output is 45 tiles, so the rows are split
+    across CTAs and the partial sums added in split order (csrc/wgram.cu)."""
     rows, D = X.shape
     if _on_cpu(X, h):
         return weighted_gram_plain(X, h)
     _check_weighted(X, h)
     out = torch.zeros((D, D), dtype=torch.float32, device=X.device)
-    _launch_wgram(X, h, 1, None, out, D, 0, "weighted_gram")
+    _launch_wgram_split(X, h, 1, None, out, D, True, splits, "weighted_gram")
+    LAUNCHES["weighted_gram"] += 1
     return out
 
 
@@ -499,21 +586,28 @@ def _class_pairs_np(C: int) -> np.ndarray:
 
 
 def own_out_gram(Jt: torch.Tensor, H: torch.Tensor, C: int,
-                 D: Optional[int] = None) -> torch.Tensor:
+                 D: Optional[int] = None,
+                 splits: Optional[int] = None) -> torch.Tensor:
     """Raw own-out Gram A[p, q, d, e] = sum_s H[s, p, q] J[s, d] J[s, e]
     for the upper class pairs p <= q; the lower pairs are zero (finish with
-    mirror_own_out). Each block is computed whole over (d, e): it is not
-    symmetric in d for p != q.
+    mirror_own_out). Each block is whole over (d, e): it is not symmetric in
+    d for p != q. With f32 J a p = q block is computed over its upper tiles
+    and mirrored (it is symmetric up to the f32 rounding of J * H).
 
     Jt (S, Dp) f32 or bf16 in the tiled layout, H (S, C, C) f32; returns
     (C, C, Dp, Dp) f32. Only the first D columns (default all) are computed;
     the rest of each block stays zero. J * H[s, p, q] is rounded once to
-    Jt's dtype, as the reference rounds it.
+    Jt's dtype, as the reference rounds it. `splits` fixes the row split
+    (default: wgram_plan's).
 
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:own_out_gram
     (_own_out_gram_jit, _make_own_out_kernel). Bound on the card: f32 FMA
-    throughput; the same weighted tile body as K7/K9 with the class pair on
-    the grid's y axis, so the (S, C², DJ) weighted copy of J never exists."""
+    throughput for f32 J (the regression A1, C=1, DJ=1,032: 1.04 ms for its
+    one, symmetric, block; 2.08 ms whole), bf16 tensor-core throughput for
+    bf16 J (the conv-TT flagship A1, 45 class pairs, DJ=900: 0.60 ms). The
+    split weighted Gram of csrc/wgram.cu with the class pair on the grid's
+    y axis, so the (S, C², DJ) weighted copy of J never exists; a narrow
+    C=1 grid is split over the rows."""
     S, Dp = Jt.shape
     D = Dp if D is None else D
     if _on_cpu(Jt, H):
@@ -523,11 +617,25 @@ def own_out_gram(Jt: torch.Tensor, H: torch.Tensor, C: int,
     if tuple(H.shape) != (S, C, C) or not 0 < D <= Dp:
         raise ValueError(f"own_out_gram: H {tuple(H.shape)}, Jt {tuple(Jt.shape)}, "
                          f"C={C}, D={D}")
-    key = ("cls", C, str(Jt.device))
-    if key not in _TABLES:
-        _TABLES[key] = torch.from_numpy(_class_pairs_np(C)).to(Jt.device)
     out = torch.zeros((C, C, Dp, Dp), dtype=torch.float32, device=Jt.device)
-    _launch_wgram(Jt, H, C * C, _TABLES[key], out, D, 0, "own_out_gram")
+    pq = _class_pairs_np(C)
+    if Jt.dtype == torch.float32:
+        # a p = q block is symmetric up to the f32 rounding of J * H (a
+        # reordering's worth), so only its upper tiles are computed and then
+        # mirrored; in bf16 the rounding (~2^-9 of a term) would show, so
+        # there every block is computed whole, as the reference does
+        diag = pq % (C + 1) == 0
+        _launch_wgram_split(Jt, H, C * C, _table(("cls_diag", C), pq[diag], Jt.device),
+                            out, D, True, splits, "own_out_gram")
+        if not diag.all():
+            _launch_wgram_split(Jt, H, C * C, _table(("cls_off", C), pq[~diag], Jt.device),
+                                out, D, False, splits, "own_out_gram")
+        ii = torch.arange(C, device=Jt.device)
+        out[ii, ii, :D, :D] = mirror_gram(out[ii, ii, :D, :D])
+    else:
+        _launch_wgram_split(Jt, H, C * C, _table(("cls", C), pq, Jt.device), out, D,
+                            False, splits, "own_out_gram")
+    LAUNCHES["own_out_gram"] += 1
     return out
 
 
@@ -561,5 +669,5 @@ def gram_pair_plain(X, Y, acc=None):
 
 def mirror_gram(A: torch.Tensor) -> torch.Tensor:
     """Full symmetric A from a raw upper-valid Gram (exact no-op on a
-    symmetric A)."""
-    return torch.triu(A) + torch.triu(A, 1).T
+    symmetric A); over the last two dims of a batch."""
+    return torch.triu(A) + torch.triu(A, 1).transpose(-1, -2)

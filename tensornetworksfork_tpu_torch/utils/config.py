@@ -4,8 +4,9 @@ One dataclass for the tabular CLI, loadable from argparse flags
 (`from_args`) or an override dict (`merge`), with the JAX package's key
 names for the fields the port's CLIs read. The fields of code not ported
 yet (the image CLI's CB/kernel_*, tt_batch's swipe_method/stream, the
-iterative solvers' max_iter/tol) come with that code (ROADMAP item 18). The port adds `device` (None: "cuda" when a card is visible, else
-"cpu"), and writes its results under `build/` by default.
+iterative solvers' max_iter/tol) come with that code (ROADMAP item 18). The
+port adds `device` ("cuda" by default; "cpu" only when asked for, and no
+visible card raises), and writes its results under `build/` by default.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ class RunConfig:
     verbose: int = 1
     timeout: Optional[float] = None    # wall-clock abort of the sweep, s
     results_file: str = "build/tabular_results.csv"
-    device: Optional[str] = None       # None: cuda when visible, else cpu
+    device: str = "cuda"               # "cpu" only when asked for
 
     @classmethod
     def field_names(cls):

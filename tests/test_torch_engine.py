@@ -33,7 +33,7 @@ N, R, CB, P, PP, C, S = 4, 4, 2, 6, 5, 3, 40
 def tiny_layers():
     jl = JLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0)
     tl = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0,
-                use_kernels=True)
+                use_kernels=True, device="cpu")
     return jl, tl
 
 
@@ -65,7 +65,8 @@ def test_params_roundtrip_and_init():
     p = {k: np.asarray(v) for k, v in jl.params.items()}
     back = params_to_numpy(params_from_numpy(p))
     assert all(np.array_equal(back[k], p[k]) for k in p)
-    again = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0)
+    again = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0,
+                   device="cpu")
     for k, v in tl.params.items():
         assert torch.equal(v, again.params[k])
         assert abs(float(torch.linalg.vector_norm(v)) - 1.0) < 1e-5

@@ -201,7 +201,8 @@ def test_port_never_imports_jax():
 
 def test_launch_counters_and_kernel_source():
     """Every wrapper has a counter; plain versions (CPU tensors) never count;
-    csrc/gram.cu exists and defines every entry point the loader binds."""
+    the kernel sources (csrc/gram.cu, csrc/wgram.cu) exist and define every
+    entry point the loader binds."""
     from tensornetworksfork_tpu_torch.ops.cuda import _build
     assert set(tg.LAUNCHES) == {"retile_hmix", "quantize_tiled",
                                 "gram_pair_q", "gram_pair", "gram_pair_tiled",
@@ -222,9 +223,9 @@ def test_launch_counters_and_kernel_source():
     tg.weighted_gram(Jt, h)
     tg.own_out_gram(Jr, H.repeat(2, 1, 1), 2, 10)
     assert all(v == 0 for v in tg.LAUNCHES.values())
-    src = _build.SOURCE
-    assert src == PKG / "csrc" / "gram.cu" and src.exists()
-    text = src.read_text()
+    srcs = _build.sources()
+    assert {PKG / "csrc" / "gram.cu", PKG / "csrc" / "wgram.cu"} <= set(srcs)
+    text = "".join(src.read_text() for src in srcs)
     for name in _build._SIGNATURES:
         assert re.search(rf"\bint {name}\(", text), name
     assert "--use_fast_math" not in _build.NVCC_FLAGS

@@ -36,7 +36,7 @@ CFG = dict(num_swipes=1, batch_size=B, method="ridge_cholesky", eps=5.0,
 def swipe_both(X, Y, seed=0):
     jl = JLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=seed)
     tl = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB,
-                seed=seed, use_kernels=True)
+                seed=seed, use_kernels=True, device="cpu")
     p0 = {k: np.asarray(v) for k, v in jl.params.items()}
     pj, okj = JSweeper(JNetwork(jl.topology, use_pallas=True), JXE(1.0),
                        JConfig(**CFG)).run([jl.params], jnp.asarray(X),
@@ -136,7 +136,8 @@ def test_sum_of_conv_tts_swipe_matches_jax(monkeypatch):
     jls = [JLayer(n, R, p, pp, output_shape=(C,), convolution_bond=CB, seed=i)
            for i, (n, p, pp) in enumerate(shapes)]
     tls = [TLayer(n, R, p, pp, output_shape=(C,), convolution_bond=CB, seed=i,
-                  use_kernels=True) for i, (n, p, pp) in enumerate(shapes)]
+                  use_kernels=True, device="cpu")
+           for i, (n, p, pp) in enumerate(shapes)]
     jsum, tsum = JSum(jls), SumLayer(tls)
     jm = [JMember(JNetwork(l.topology, use_pallas=True), f)
           for l, f in zip(jls, jsum.input_fns)]
@@ -159,7 +160,8 @@ def test_sweep_timers_report_every_phase(monkeypatch):
     monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
     monkeypatch.setenv("TNF_SWEEP_TIMERS", "1")
     X, Y = data()
-    tl = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0)
+    tl = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0,
+                device="cpu")
     sw = Sweeper(tl.network, TXE(1.0), SweepConfig(**CFG))
     _, ok = sw.run([tl.params], torch.tensor(X), torch.tensor(Y))
     assert ok

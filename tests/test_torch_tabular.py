@@ -66,7 +66,8 @@ def swipe_both(X, Y, C=1, seed=0):
     """One swipe of the same TT through both packages; returns the
     predictions after it and both ok flags."""
     jl = JLayer(N, R, F, output_shape=(C,), seed=seed)
-    tl = TLayer(N, R, F, output_shape=(C,), seed=seed, use_kernels=True)
+    tl = TLayer(N, R, F, output_shape=(C,), seed=seed, use_kernels=True,
+                device="cpu")
     jloss, tloss = ((jb.SquareBregFunction(), tb.SquareBregFunction()) if C == 1
                     else (jb.XEBregman(1.0), tb.XEBregman(1.0)))
     p0 = {k: np.asarray(v) for k, v in jl.params.items()}
@@ -146,7 +147,8 @@ def test_ownout_kernel_returns_full_gram(monkeypatch):
     deferred form expanded."""
     monkeypatch.setenv("TNF_OWNOUT_KERNEL_MIN_DJ", "1")
     X, Y = table(2, C=3)
-    tl = TLayer(N, R, F, output_shape=(3,), seed=0, use_kernels=True)
+    tl = TLayer(N, R, F, output_shape=(3,), seed=0, use_kernels=True,
+                device="cpu")
     net = tl.network
     Xt = torch.tensor(X)
     inputs = net.bind_inputs(Xt)
@@ -175,7 +177,7 @@ def build_estimators(model_type, **kw):
         TensorTrainRegressor as TEst)
     args = dict(N=N, r=R, batch_size=B, num_swipes=1, model_type=model_type,
                 eps_start=1.0, eps_decay=0.5, seed=3, **kw)
-    je, te = JEst(**args), TEst(**args)
+    je, te = JEst(**args), TEst(**args, device="cpu")
     for e in (je, te):
         e.input_dim = F  # F - 1 features and the bias column
         e._initialize_model()
@@ -253,7 +255,7 @@ def test_train_tabular_synthetic_matches_jax(tmp_path, monkeypatch):
     res_j = jtt.run(JRunConfig(dataset="synthetic", num_swipes=1, verbose=0))
     out = tmp_path / "results.csv"
     ttt.main(["--dataset", "synthetic", "--num_swipes", "1", "--verbose", "0",
-              "--results_file", str(out)])
+              "--results_file", str(out), "--device", "cpu"])
     with open(out, newline="") as f:
         rows = list(csv.DictReader(f))
     assert len(rows) == 1 and rows[0]["singular"] == "False"
@@ -312,7 +314,7 @@ def test_run_config_fields_reach_the_cli():
 def test_unported_estimator_options_raise(kw):
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        TensorTrainRegressor(**kw)
+        TensorTrainRegressor(**kw, device="cpu")
 
 
 def test_fast_tiers_refused():
@@ -324,5 +326,88 @@ def test_fast_tiers_refused():
     X, Y = table(6, S=32, F=4)
     before = os.environ.get("TNF_AUX_PRECISION")
     with pytest.raises(NotImplementedError):
-        TensorTrainRegressor(N=2, r=2, precision="fast").fit(X, Y)
+        TensorTrainRegressor(N=2, r=2, precision="fast",
+                             device="cpu").fit(X, Y)
     assert os.environ.get("TNF_AUX_PRECISION") == before
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["estimator", "tt_layer", "conv_tt_layer",
+                                   "network", "cli"])
+def test_entry_points_need_the_card_unless_asked(entry, tmp_path, monkeypatch):
+    """Without a device argument every entry point asks for the card; where
+    none is visible it raises RuntimeError telling the caller to pass the
+    CPU explicitly, instead of running there silently."""
+    from tensornetworksfork_tpu_torch.core.engine import Network
+    from tensornetworksfork_tpu_torch.experiments import train_tabular as ttt
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
+    _no_card(monkeypatch)
+    out = tmp_path / "results.csv"
+    build = {
+        "estimator": lambda: TensorTrainRegressor(N=2, r=2),
+        "tt_layer": lambda: TLayer(N, R, F),
+        "conv_tt_layer": lambda: TensorConvolutionTrainLayer(2, 2, 3, 4),
+        "network": lambda: Network(TLayer(N, R, F, device="cpu").topology),
+        "cli": lambda: ttt.main(["--dataset", "synthetic", "--num_swipes", "1",
+                                 "--verbose", "0", "--results_file", str(out)]),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    assert not out.exists()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(tmp_path, monkeypatch):
+    """device="cpu" and --device cpu run the estimator and the CLI on the
+    CPU with no card visible."""
+    from tensornetworksfork_tpu_torch.experiments import train_tabular as ttt
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    _no_card(monkeypatch)
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
+    X, Y = table(7, S=64, F=4)
+    est = TensorTrainRegressor(N=2, r=2, num_swipes=1, device="cpu")
+    est.fit(X[:, :-1], Y)
+    assert est.fit_ok_ and est.device.type == "cpu"
+    assert est._model.params["A1"].device.type == "cpu"
+    out = tmp_path / "results.csv"
+    ttt.main(["--dataset", "synthetic", "--num_swipes", "1", "--verbose", "0",
+              "--results_file", str(out), "--device", "cpu"])
+    assert out.exists()
+
+
+def test_continued_fit_matches_jax(monkeypatch):
+    """A fit of 2 swipes, then a continued fit of 1 more, in both packages
+    from the JAX init: `fit` restarts eps at eps_start in both (the
+    reference's estimators.py keeps eps_start as self.eps and hands it to
+    every sweep), so the continued fit's first, large-eps swipe raises the
+    val RMSE in both. Predictions agree after each fit to 1e-4 of max|pred|
+    (f32 sums in another order; measured ~3e-7)."""
+    from tensornetworksfork_tpu.models.estimators import (
+        TensorTrainRegressor as JEst)
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.estimators import (
+        TensorTrainRegressor as TEst)
+    monkeypatch.setenv("TNF_FIT_PRECOMPILE", "0")
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
+    X, y = make_regression(S=1024, d=6, degree=3, seed=0)
+    Xtr, ytr, Xva, yva = X[:819], y[:819], X[819:], y[819:]
+    args = dict(N=3, r=4, batch_size=512, num_swipes=2, eps_start=5.0,
+                eps_decay=0.25, seed=0)
+    je, te = JEst(**args), TEst(**args, device="cpu")
+    for e in (je, te):
+        e.input_dim = X.shape[1] + 1
+        e._initialize_model()
+    te._model.params = params_from_numpy(je._model.params)
+    rmse = []
+    for swipes in (2, 1):
+        je.num_swipes = te.num_swipes = swipes
+        je.fit(Xtr, ytr, X_val=Xva, y_val=yva)
+        te.fit(Xtr, ytr, X_val=Xva, y_val=yva)
+        pj, pt = np.asarray(je.predict(Xva)), te.predict(Xva)
+        np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4 * np.abs(pj).max())
+        rmse.append([float(np.sqrt(np.mean((p - yva) ** 2))) for p in (pj, pt)])
+    for i in range(2):
+        assert rmse[1][i] > 2 * rmse[0][i], rmse

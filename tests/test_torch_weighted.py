@@ -155,3 +155,92 @@ def test_weighted_wrappers_check_operands():
         tg.retile_rows(X.to("meta"), 32)
     with pytest.raises(ValueError):  # operands on mixed devices
         tg.own_out_gram(X, torch.zeros((8, 1, 1), device="meta"), 1)
+
+
+def split_sum(X, w, splits):
+    """The split kernel's arithmetic in plain PyTorch: weighted Grams of the
+    row ranges that tg.split_rows plans, added in split order in f32."""
+    n, rps = tg.split_rows(X.shape[0], splits)
+    A = None
+    for z in range(n):
+        rs = slice(z * rps, (z + 1) * rps)
+        part = tg._weighted_operand(X[rs], w[rs]).T @ X[rs].float()
+        A = part if A is None else A + part
+    return A, n
+
+
+def test_split_rows_cover_every_row_once():
+    """Every row lies in exactly one split, no split is empty, and no more
+    splits than asked for are made."""
+    for rows in (1, 63, 64, 333, 5000, 65536):
+        for splits in (1, 2, 3, 4, 7, 11, 64):
+            n, rps = tg.split_rows(rows, splits)
+            assert 1 <= n <= splits
+            seen = np.zeros(rows, int)
+            for z in range(n):
+                lo, hi = z * rps, min(rows, (z + 1) * rps)
+                assert lo < hi
+                seen[lo:hi] += 1
+            assert (seen == 1).all(), (rows, splits)
+
+
+def test_split_plan_fills_the_card():
+    """On 132 SMs: no split where the grid already holds 4 CTAs per SM (the
+    conv-TT flagship's first core: 64 tiles x 45 class pairs), none for a
+    table too short to split, and at the regression's 1,032-wide outputs
+    (K9's 45 upper tiles, K11's 81 whole ones) enough splits for about 4
+    CTAs per SM, none shorter than SPLIT_MIN_ROWS."""
+    sms = 132
+    assert tg.wgram_plan(8192, 900, 45, False, sms)[1] == 1
+    assert tg.wgram_splits(4 * sms, 10 ** 6, sms) == 1
+    assert tg.wgram_plan(333, 137, 1, True, sms)[1] == 1
+    for upper, tiles in ((True, 45), (False, 81)):
+        npairs, n, rps = tg.wgram_plan(65536, 1032, 1, upper, sms)
+        assert npairs == tiles
+        assert n > 1 and rps >= tg.SPLIT_MIN_ROWS
+        assert npairs * n >= 3.5 * sms
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_split_weighted_gram_matches_pallas(dtype, splits):
+    """K9 as the split kernel sums it (partial Grams over the planned row
+    ranges, added in split order) against the Pallas weighted_gram at a
+    ragged shape: 333 rows, D=137."""
+    rng = np.random.default_rng(20 + splits)
+    rows, D = 333, 137
+    jd, td = DTYPES[dtype]
+    Xn, Xt = operand(rng, rows, D, D, dtype)
+    h = rng.uniform(0.5, 2.0, rows).astype(np.float32)
+    A_j = np.asarray(jg.weighted_gram(jnp.asarray(Xn, jd), jnp.asarray(h),
+                                      interpret=True))
+    A_t, n = split_sum(Xt, torch.tensor(h), splits)
+    assert n == splits
+    # the rounded operand makes XwᵀX asymmetric at its rounding: both sides
+    # keep the upper triangle and mirror it
+    assert_close_rel(tg.mirror_gram(A_t).numpy(), A_j)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 3])
+def test_split_own_out_gram_matches_pallas(C, dtype, splits):
+    """K11 as the split kernel sums it, class pair by class pair, against
+    the Pallas own_out_gram (mirrored) at 333 rows, DJ=137."""
+    rng = np.random.default_rng(30 + 4 * C + splits)
+    S, DJ, n = 333, 137, 2
+    Dp = n * TILE
+    jd, td = DTYPES[dtype]
+    Jn, Jt = operand(rng, S, DJ, Dp, dtype)
+    h = rng.standard_normal((S, C, C)).astype(np.float32)
+    H = torch.tensor((h + h.transpose(0, 2, 1)) / 2)
+    A_j = np.asarray(jg.mirror_own_out(jg.own_out_gram(
+        jnp.asarray(rows_to_slabs(Jn), jd), jnp.asarray(H.numpy()), C,
+        interpret=True, tile=TILE, block=16)))[:, :, :DJ, :DJ]
+    A_t = np.zeros_like(A_j)
+    for p, q in zip(*np.triu_indices(C)):
+        blk, nz = split_sum(Jt[:, :DJ], H[:, p, q], splits)
+        assert nz == splits
+        A_t[q, p] = blk.numpy().T  # mirror_own_out's lower pairs
+        A_t[p, q] = blk.numpy()     # a diagonal pair stays whole
+    assert_close_rel(A_t, A_j)
