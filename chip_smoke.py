@@ -16,23 +16,32 @@ printing its own lines:
    plain version's and (where one PyTorch call computes the same function)
    that library call's times (CUDA events, median of 5), beside the kernel's
    bound: the larger of its operations over the card's peak for their type
-   and its bytes over the memory rate (PEAK, HBM below). K1, K2, K3, K6 and
-   K10 at the conv-TT flagship's shapes; K8, K7, K9 and K11 at the
-   regression's (K9 also in bf16, K11 also at the flagship's first core),
-   with the row split the split weighted Gram (K9, K11) plans for each;
+   and its bytes over the memory rate (PEAK, HBM below). K1, K2, K3, K6 (f32,
+   bf16 beside it) and K10 (bf16 and f32; the f32 operands full-mantissa and
+   held to float64, with bf16- and TF32-rounded controls that must fail) at
+   the conv-TT flagship's shapes; K8, K7, K9 and K11
+   at the regression's (K7 and K9 also in bf16, K11 also at the flagship's
+   first core), with the row split the split Gram (K10, K9, K11) plans for
+   each. The kernels of `csrc/gram.cu`: K1 `retile_hmix_kernel`, K2
+   `quantize_kernel`, K3 `gram_q_kernel`, K6 `gram_f_kernel` (with its
+   carry), K8 `retile_rows_kernel`; of `csrc/wgram.cu`, the split Gram
+   (`wgram_f32_kernel` for f32 operands, `wgram_bf16_kernel` on the tensor
+   cores for bf16 ones, `wgram_reduce_kernel` adding the splits): K10
+   unweighted, K7 with a carry, K9, K11;
 4. slice — one swipe of `Sweeper.run` on the flagship conv-TT
    (N=4, r=18, CB=8, 50 patches x 17 pixels, 9 logits, random weights from a
-   seed) over 8192 synthetic samples in the int8 Gram tier (K1, K2, K3,
-   K10), then one in the f32 tier (K1, K6, K10); the launch counters show
-   every kernel of each run ran, and each swipe must lower the training
-   loss, keep every parameter finite and report no singular solve;
+   seed) over 8192 synthetic samples in the int8 Gram tier (K1, K2, K3;
+   K10 on bf16 operands), then one in the f32 tier (K1, K6; K10 on f32
+   operands); the launch counters show every kernel of each run ran, and
+   each swipe must lower the training loss, keep every parameter finite and
+   report no singular solve;
 5. regression — `TensorTrainRegressor(N=3, r=8)` fitted for two swipes on
    `make_regression` (128 features, 65,536 rows to fit, 16,384 to
    validate) in the f32 tier, which must report no singular solve, keep
    every parameter finite, beat predicting the mean on the validation rows
-   and launch K8, K7 and K9; then one more swipe with the opt-in own-out
-   kernel (K11), which must agree with the default route, and one in the
-   int8 tier (K8, K2, K3);
+   and launch K8, K7 (at least 128 times) and K9; then one more swipe with
+   the opt-in own-out kernel (K11), which must agree with the default
+   route, and one in the int8 tier (K8, K2, K3);
 6. reference — a tiny conv-TT swipe (f32, int8) and a tiny TT-regression
    swipe (f32, bf16, int8) with the kernels on the card agree with the same
    swipes through the plain versions on the CPU (which the CPU tests hold
@@ -168,6 +177,43 @@ def k9_ratios(A, A64):
     return float(r.diagonal().max()), float(r.fill_diagonal_(0).max())
 
 
+# K10's float64 check: the largest error of an entry over its natural size
+PAIR_BOUND = 16 * 2.0 ** -24
+
+
+def tf32_round(x):
+    """x (float32) rounded to TF32's 10 mantissa bits (to nearest, ties
+    away from zero): the operands a kernel that ran f32 on the TF32 tensor
+    cores would multiply."""
+    import torch
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pair_float64(X, Y):
+    """(A64, scale) of a Gram XᵀY: its float64 value, in which every product
+    of bf16 or f32 operands is exact, and each entry's natural size
+    sqrt(|X_d|² |Y_e|²), which bounds the entry (Cauchy-Schwarz)."""
+    import torch
+    X64, Y64 = X.double(), Y.double()
+    return X64.T @ Y64, torch.sqrt(torch.outer(X64.square().sum(0),
+                                               Y64.square().sum(0)))
+
+
+def pair_errors(B, A64, scale):
+    """(max |B - A64|, max |B - A64| / scale) over the upper triangle of a
+    Gram B. A kernel rounds each add of an entry's sum once in f32; for
+    independent zero-mean columns the sum random-walks, so its error is a
+    fraction of 2^-24 of the scale (held to PAIR_BOUND, K9's off-diagonal
+    bound). Operands rounded to bf16 or TF32 move each product by ~2^-9 or
+    ~2^-12 of itself (typical size), so a sum of `rows` random terms by
+    ~2^-9 / sqrt(rows) or ~2^-12 / sqrt(rows) of the scale: at the A4's
+    73,728 rows a typical entry is off by ~120 or ~15 2^-24, the largest of
+    its 405,450 upper entries by several times that."""
+    d = (B.double() - A64).abs().triu()
+    return float(d.max()), float((d / scale).max())
+
+
 def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     """Phase 3: every kernel against its plain version, by default at the
     flagship shapes: A2/A3 (S=2048 per chunk, C=9, D=r*P*r=16,200) for K1,
@@ -200,7 +246,7 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     if ulps > 1.0:
         raise AssertionError(f"retile_hmix: Kt off by {ulps} bf16 ulp (> 1)")
     results.append(dict(
-        name="retile_hmix", err=float(dK.max()),
+        name="retile_hmix", dtype="bf16", err=float(dK.max()),
         ms=time_ms(lambda: kg.retile_hmix(J3, H, Dp)),
         plain_ms=time_ms(lambda: kg.retile_hmix_plain(J3, H, Dp)),
         library_ms=None,
@@ -220,7 +266,7 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         if not torch.equal(a, b):
             raise AssertionError(f"quantize_tiled: {what} differs from plain")
     results.append(dict(
-        name="quantize_tiled", err=0.0,
+        name="quantize_tiled", dtype="bf16", err=0.0,
         ms=time_ms(lambda: kg.quantize_tiled(Kt, block)),
         plain_ms=time_ms(lambda: kg.quantize_tiled_plain(Kt, block)),
         library_ms=None,
@@ -244,7 +290,7 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     del A, A_p, acc_p
     nslab = Dp // kg.TILE
     results.append(dict(
-        name="gram_pair_q", err=err,
+        name="gram_pair_q", dtype="int8", err=err,
         ms=time_ms(lambda: kg.gram_pair_band_q(Q1, s1, Q2, s2, acc)),
         plain_ms=time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc)),
         library_ms=None,
@@ -255,52 +301,128 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         note=f"tol 1e-5*max|A| = {tol:.3g}"))
     del Q1, s1, Q2, s2, acc
 
-    # K6: the float Gram with carry at the A2 shape (bf16 tier's operands)
-    acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
-    acc_p = torch.zeros_like(acc)
-    kg.gram_pair(Jt, Kt, acc=acc)
-    kg.gram_pair_plain(Jt, Kt, acc=acc_p)
-    A, A_p = kg.mirror_gram(acc), kg.mirror_gram(acc_p)
-    torch.cuda.synchronize()
-    err6 = float((A - A_p).abs().max())
-    tol6 = 1e-5 * float(A_p.abs().max())
-    if not err6 <= tol6:
-        raise AssertionError(f"gram_pair (A2, carry): max|dA| {err6} > {tol6}")
-    del A, A_p, acc_p
-    Jf, Kf = Jt.float(), Kt.float()  # the library call's f32 operands
-    results.append(dict(
-        name="gram_pair_tiled", err=err6,
-        ms=time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc)),
-        plain_ms=time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc)),
-        library_ms=time_ms(lambda: acc.addmm_(Jf.T, Kf)),
-        bound=bound(gram_ops(Jt.shape[0], Dp), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
-        note=f"A2 shape with carry ({Jt.shape[0]}x{Dp} bf16), tol {tol6:.3g}; "
-             "library: acc.addmm_ on the operands upcast to f32"))
-    del acc, Jt, Kt, J3, Jf, Kf
+    # K6: the float Gram with carry at the A2 shape. Its main path, the f32
+    # swipe, gives it f32 operands: held and timed on full-mantissa f32 ones
+    # (its `kernels` entry); the bf16 tier's operands are held and timed
+    # beside them
+    def carry_gram(X, Y):
+        """K6 and its plain version from a zero carry: (err, tol, acc)."""
+        acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
+        acc_p = torch.zeros_like(acc)
+        kg.gram_pair(X, Y, acc=acc)
+        kg.gram_pair_plain(X, Y, acc=acc_p)
+        A, A_p = kg.mirror_gram(acc), kg.mirror_gram(acc_p)
+        torch.cuda.synchronize()
+        err = float((A - A_p).abs().max())
+        tol = 1e-5 * float(A_p.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"gram_pair (A2, carry, {X.dtype}): max|dA| {err} > {tol}")
+        return err, tol, acc
 
-    # K10: the flat float Gram at the A4 shape, bf16 operands
+    rows2 = Jt.shape[0]
+    err6b, tol6b, acc = carry_gram(Jt, Kt)
+    Jf, Kf = Jt.float(), Kt.float()  # the library call's f32 operands
+    ms6b = time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc))
+    plain6b = time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc))
+    lib6b = time_ms(lambda: acc.addmm_(Jf.T, Kf))
+    bnd6b = bound(gram_ops(rows2, Dp), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16")
+    del acc, Jt, Kt, J3, Jf, Kf
+    gen = torch.Generator(device=device).manual_seed(6)
+    J6, K6 = (torch.nn.functional.pad(
+        torch.randn((rows2, D), generator=gen, device=device) * 0.05, (0, Dp - D))
+        for _ in range(2))
+    err6, tol6, acc = carry_gram(J6, K6)
+    results.append(dict(
+        name="gram_pair_tiled", dtype="f32", err=err6,
+        ms=time_ms(lambda: kg.gram_pair(J6, K6, acc=acc)),
+        plain_ms=time_ms(lambda: kg.gram_pair_plain(J6, K6, acc=acc)),
+        library_ms=time_ms(lambda: acc.addmm_(J6.T, K6)),
+        bound=bound(gram_ops(rows2, Dp), nbytes(J6, K6) + 2 * nbytes(acc), "f32"),
+        note=f"A2 shape with carry ({rows2}x{Dp} full-mantissa f32), tol {tol6:.3g}; "
+             f"library: acc.addmm_; bf16 operands: kernel {ms6b:.3f} ms, plain "
+             f"{plain6b:.3f} ms, library {lib6b:.3f} ms (acc.addmm_ on them upcast "
+             f"to f32), bound {bnd6b[0]:.3f} ms ({bnd6b[1]}), max|dA| {err6b:.3g} "
+             f"(tol {tol6b:.3g})"))
+    del acc, J6, K6
+
+    # K10: the flat float Gram at the A4 shape (the split Gram of
+    # csrc/wgram.cu), on bf16 operands (the int8 and bf16 swipes) and on
+    # full-mantissa f32 ones (the f32 swipe), each held to its plain version
+    # and to float64 of its operands (pair_errors); in f32, the operands
+    # rounded to bf16 or to TF32 must fail the float64 check, so the check
+    # sees a kernel that rounds f32 operands
     rows = rows4 or SLICE_SAMPLES * C
     D4 = D4 or FLAGSHIP["r"] * FLAGSHIP["P"]
-    J4 = torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
-                      device=device).to(torch.bfloat16)
-    K4 = torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
-                      device=device).to(torch.bfloat16)
-    A = kg.mirror_gram(kg.gram_pair(J4, K4))
-    A_p = kg.mirror_gram(kg.gram_pair_plain(J4, K4))
-    torch.cuda.synchronize()
-    err10 = float((A - A_p).abs().max())
-    tol10 = 1e-5 * float(A_p.abs().max())
-    if not err10 <= tol10:
-        raise AssertionError(f"gram_pair (A4): max|dA| {err10} > {tol10}")
-    J4f, K4f = J4.float(), K4.float()
-    results.append(dict(
-        name="gram_pair", err=err10,
-        ms=time_ms(lambda: kg.gram_pair(J4, K4)),
-        plain_ms=time_ms(lambda: kg.gram_pair_plain(J4, K4)),
-        library_ms=time_ms(lambda: torch.mm(J4f.T, K4f)),
-        bound=bound(gram_ops(rows, D4), nbytes(J4, K4) + 4 * D4 * D4, "bf16"),
-        note=f"A4 shape ({rows}x{D4} bf16), tol {tol10:.3g}; library: torch.mm "
-             "on the operands upcast to f32"))
+    sms = kg.sm_count(device)
+    _, splits, rps = kg.wgram_plan(rows, D4, 1, True, sms)
+    log(f"[kernels] gram_pair plan at {rows}x{D4}: {splits} row splits of {rps} "
+        f"rows on {sms} SMs")
+    u = 2.0 ** -24
+    for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        X, Y = (torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
+                             device=device).to(dt) for _ in range(2))
+        A64, scale64 = pair_float64(X, Y)
+        A = kg.mirror_gram(kg.gram_pair(X, Y))
+        A_p = kg.mirror_gram(kg.gram_pair_plain(X, Y))
+        torch.cuda.synchronize()
+        err10 = float((A - A_p).abs().max())
+        scale = float(A_p.abs().max())
+        (e64, r64), (e64_p, r64_p) = (pair_errors(B, A64, scale64) for B in (A, A_p))
+        log(f"[kernels] gram_pair ({kind}) max|dA| vs plain {err10:.3g} "
+            f"(1e-5*max|A| = {1e-5 * scale:.3g}); vs float64 (max|dA|, and its "
+            f"largest over the entry's scale in 2^-24, bound {PAIR_BOUND / u:.3g}): "
+            f"kernel {e64:.3g} ({r64 / u:.3g}), plain f32 {e64_p:.3g} ({r64_p / u:.3g})")
+        if not r64 <= PAIR_BOUND:
+            raise AssertionError(f"gram_pair (A4, {kind}): float64 error {r64 / u} "
+                                 f"2^-24 of the scale > {PAIR_BOUND / u}")
+        controls = ""
+        if kind == "f32":
+            ctl = {what: pair_errors(kg.gram_pair_plain(rnd(X), rnd(Y)), A64, scale64)[1]
+                   for what, rnd in (("bf16", lambda t: t.to(torch.bfloat16)),
+                                     ("TF32", tf32_round))}
+            controls = ", ".join(f"{w}-rounded {r / u:.3g}" for w, r in ctl.items())
+            log(f"[kernels] gram_pair (f32) float64 controls (must exceed "
+                f"{PAIR_BOUND / u:.3g}): {controls}")
+            passed = [w for w, r in ctl.items() if r <= PAIR_BOUND]
+            if passed:
+                raise AssertionError(f"gram_pair (f32): the float64 check passes "
+                                     f"operands rounded to {passed}, so it cannot "
+                                     "see precision")
+            controls = f"; controls {controls}"
+        del A64, scale64
+        tol10, rule = 1e-5 * scale, "1e-5*max|A|"
+        if not err10 <= tol10:
+            # the kernel's order of sums, not a looser check: held to
+            # gram_tol (as K7, K9, K11) and to the exact sum, whose error it
+            # may not exceed twice the plain version's
+            tol10, rule = gram_tol(rows) * scale, "gram_tol(rows)*max|A| and float64"
+            if not (err10 <= tol10 and e64 <= 2 * e64_p):
+                raise AssertionError(
+                    f"gram_pair (A4, {kind}): max|dA| {err10} (tol {tol10}), "
+                    f"float64 error {e64} vs plain {e64_p}")
+            log(f"[kernels] gram_pair ({kind}) above 1e-5*max|A|: held to {rule}")
+        del A, A_p
+        ms = time_ms(lambda: kg.gram_pair(X, Y))
+        note = (f"A4 shape ({rows}x{D4} {kind}), {splits} row splits, tol {tol10:.3g} "
+                f"({rule}), float64 error {e64:.3g} (plain f32 {e64_p:.3g}), "
+                f"{r64 / u:.3g} 2^-24 of the scale{controls}; ")
+        if kind == "bf16":
+            with bf16_f32_reduction():
+                lib = time_ms(lambda: torch.mm(X.T, Y))
+            Xf, Yf = X.float(), Y.float()
+            mm32 = time_ms(lambda: torch.mm(Xf.T, Yf))
+            del Xf, Yf
+            note += (f"library: torch.mm on the bf16 operands (bf16 out, f32 "
+                     f"sums); torch.mm on them widened to f32 {mm32:.3f} ms")
+        else:
+            lib = time_ms(lambda: torch.mm(X.T, Y))
+            note += "library: torch.mm on the f32 operands"
+        results.append(dict(
+            name="gram_pair", dtype=kind, err=err10, ms=ms,
+            plain_ms=time_ms(lambda: kg.gram_pair_plain(X, Y)), library_ms=lib,
+            bound=bound(gram_ops(rows, D4), nbytes(X, Y) + 4 * D4 * D4, kind),
+            note=note))
+        del X, Y
     log_kernels(results)
     return results
 
@@ -361,7 +483,7 @@ def check_weighted_kernels(device, small=False):
                                      "differs from the plain version")
     X = randn(rows2, D2)
     results.append(dict(
-        name="retile_rows", err=0.0,
+        name="retile_rows", dtype="f32", err=0.0,
         ms=time_ms(lambda: kg.retile_rows(X, Dp2)),
         plain_ms=time_ms(lambda: kg.retile_rows_plain(X, Dp2)),
         library_ms=time_ms(lambda: torch.nn.functional.pad(X, (0, Dp2 - D2))),
@@ -369,7 +491,8 @@ def check_weighted_kernels(device, small=False):
         note=f"({rows2}x{D2} -> {Dp2}) f32; Jt and Kt bit-equal in f32 and bf16; "
              "library: the pad"))
 
-    # K7: two chained carries, f32 and bf16
+    # K7: two chained carries over the node's D < Dp, f32 and bf16; the
+    # carry's padding stays zero
     errs, times = [], None
     for dt in (torch.float32, torch.bfloat16):
         acc = torch.zeros((Dp2, Dp2), dtype=torch.float32, device=device)
@@ -378,26 +501,34 @@ def check_weighted_kernels(device, small=False):
             Xt, _ = kg.retile_rows(randn(rows2, D2, dtype=dt), Dp2)
             h = torch.tensor(rng.uniform(0.5, 2.0, rows2).astype(np.float32),
                              device=device)
-            kg.weighted_gram_tiled(Xt, h, acc)
+            kg.weighted_gram_tiled(Xt, h, acc, D2)
             kg.weighted_gram_tiled_plain(Xt, h, acc_p)
-        err, tol = within(f"weighted_gram_tiled ({dt})", kg.mirror_gram(acc),
-                          kg.mirror_gram(acc_p), 2 * rows2)
+        if acc[D2:].any() or acc[:, D2:].any():
+            raise AssertionError(f"weighted_gram_tiled ({dt}) wrote past D={D2}")
+        err, tol = within(f"weighted_gram_tiled ({dt})", kg.mirror_gram(acc[:D2, :D2]),
+                          kg.mirror_gram(acc_p[:D2, :D2]), 2 * rows2)
         errs.append(err)
+        ms = time_ms(lambda: kg.weighted_gram_tiled(Xt, h, acc, D2))
         if dt == torch.float32:
             Xw = kg._weighted_operand(Xt, h)  # the library call's operand
-            times = (time_ms(lambda: kg.weighted_gram_tiled(Xt, h, acc)),
-                     time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)),
-                     time_ms(lambda: acc.addmm_(Xw.T, Xt)),
-                     bound(gram_ops(rows2, Dp2) + rows2 * Dp2,
-                           nbytes(Xt, h) + 2 * nbytes(acc), "f32"))
-            del Xw
+            full = time_ms(lambda: acc.addmm_(Xw.T, Xt))
+            # over the node's D, as the kernel computes it
+            accD, XwD, XtD = acc[:D2, :D2], Xw[:, :D2], Xt[:, :D2]
+            times = (ms, time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)),
+                     time_ms(lambda: accD.addmm_(XwD.T, XtD)), full,
+                     bound(gram_ops(rows2, D2) + rows2 * D2,
+                           rows2 * D2 * 4 + nbytes(h) + 2 * 4 * D2 * D2, "f32"))
+            del Xw, accD, XwD, XtD
+        else:
+            ms_b = ms
         del acc, acc_p
     results.append(dict(
-        name="weighted_gram_tiled", err=max(errs), ms=times[0], plain_ms=times[1],
-        library_ms=times[2], bound=times[3],
-        note=f"{rows2}x{Dp2} f32 (bf16 max|dA| {errs[1]:.3g}), two chained "
-             f"carries, tol {gram_tol(2 * rows2):.3g}*max|A|; library: "
-             "acc.addmm_ on the weighted operand made beforehand"))
+        name="weighted_gram_tiled", dtype="f32", err=max(errs), ms=times[0],
+        plain_ms=times[1], library_ms=times[2], bound=times[4],
+        note=f"{rows2}x{D2} (Dp {Dp2}) f32, two chained carries, tol "
+             f"{gram_tol(2 * rows2):.3g}*max|A|; bf16: kernel {ms_b:.3f} ms, "
+             f"max|dA| {errs[1]:.3g}; library: acc[:D, :D].addmm_ over D on the "
+             f"weighted operand made beforehand (over Dp: {times[3]:.3f} ms)"))
 
     # K9: the flat weighted Gram of the merged A3, f32, held entry by entry
     # to a float64 plain version; a bf16-rounded result must fail the check
@@ -424,15 +555,26 @@ def check_weighted_kernels(device, small=False):
     if ctrl[0] <= bounds[0] and ctrl[1] <= bounds[1]:
         raise AssertionError("weighted_gram: the check passes bf16-rounded "
                              f"operands ({ctrl}), so it cannot see precision")
-    # the bf16 tier's K9 (tensor cores) against its plain version
+    # the bf16 tier's K9 (tensor cores) against its plain version, beside
+    # its bound and one library call: a bf16 product on the pre-weighted
+    # operand with f32 sums
     Xb = X3.to(torch.bfloat16)
     err_b, tol_b = within("weighted_gram (bf16)", kg.mirror_gram(kg.weighted_gram(Xb, h3)),
                           kg.mirror_gram(kg.weighted_gram_plain(Xb, h3)), rows3)
     ms_b = time_ms(lambda: kg.weighted_gram(Xb, h3))
-    del Xb
+    plain_b = time_ms(lambda: kg.weighted_gram_plain(Xb, h3))
+    Xwb = kg._weighted_operand(Xb, h3).to(torch.bfloat16)
+    with bf16_f32_reduction():
+        lib_b = time_ms(lambda: torch.mm(Xwb.T, Xb))
+    bnd_b = bound(gram_ops(rows3, D3) + rows3 * D3, nbytes(Xb, h3) + 4 * D3 * D3, "bf16")
+    log(f"[kernels] weighted_gram (bf16, {splits9} row splits): kernel {ms_b:.3f} ms, "
+        f"plain {plain_b:.3f} ms, library {lib_b:.3f} ms (torch.mm on the bf16 "
+        f"pre-weighted operand, f32 sums), bound {bnd_b[0]:.3f} ms ({bnd_b[1]}), "
+        f"max|dA| {err_b:.3g} (tol {tol_b:.3g})")
+    del Xb, Xwb
     Xw = kg._weighted_operand(X3, h3)  # the library call's operand
     results.append(dict(
-        name="weighted_gram", err=float((A.double() - A64).abs().max()),
+        name="weighted_gram", dtype="f32", err=float((A.double() - A64).abs().max()),
         ms=time_ms(lambda: kg.weighted_gram(X3, h3)),
         plain_ms=time_ms(lambda: kg.weighted_gram_plain(X3, h3)),
         library_ms=time_ms(lambda: torch.mm(Xw.T, X3)),
@@ -440,8 +582,9 @@ def check_weighted_kernels(device, small=False):
                     "f32"),
         note=f"{rows3}x{D3} f32, random h in [0.5, 2], {splits9} row splits, "
              "max|dA| vs float64; library: torch.mm on the weighted operand "
-             f"made beforehand; bf16: kernel {ms_b:.3f} ms, max|dA| {err_b:.3g} "
-             f"vs plain (tol {tol_b:.3g})"))
+             f"made beforehand; bf16 ({splits9} splits): kernel {ms_b:.3f} ms, "
+             f"plain {plain_b:.3f} ms, library {lib_b:.3f} ms, bound {bnd_b[0]:.3f} ms, "
+             f"max|dA| {err_b:.3g} vs plain (tol {tol_b:.3g})"))
     del X3, A, A64, Xw
 
     # K11: the own-out class-pair Gram at both first cores
@@ -484,7 +627,7 @@ def check_weighted_kernels(device, small=False):
                      f"(tol {tol:.3g})")
         first = first or (ms, plain, lib, bnd)
         del Jt
-    results.append(dict(name="own_out_gram", err=max(errs), ms=first[0],
+    results.append(dict(name="own_out_gram", dtype="f32", err=max(errs), ms=first[0],
                         plain_ms=first[1], library_ms=first[2], bound=first[3],
                         note="; ".join(notes) + "; library: one batched "
                              "torch.matmul over the pre-weighted class pairs"))
@@ -730,24 +873,29 @@ def main() -> int:
     check_reference(device)
 
     # each kernel's launches come from the run of the path that drives it:
-    # the flagship's int8 swipe, its f32 swipe (K6), the regression fit and
-    # its own-out swipe (K11)
-    launches = {**{k: flagship[k] for k in FLAGSHIP_KERNELS["int8"]},
-                "gram_pair_tiled": flagship32["gram_pair_tiled"],
-                **{k: fit[k] for k in REGRESSION_KERNELS},
-                "own_out_gram": own["own_out_gram"]}
+    # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
+    # and K10 on f32 operands), the regression fit and its own-out swipe
+    # (K11)
+    launches = {("retile_hmix", "bf16"): flagship["retile_hmix"],
+                ("quantize_tiled", "bf16"): flagship["quantize_tiled"],
+                ("gram_pair_q", "int8"): flagship["gram_pair_q"],
+                ("gram_pair", "bf16"): flagship["gram_pair"],
+                ("gram_pair_tiled", "f32"): flagship32["gram_pair_tiled"],
+                ("gram_pair", "f32"): flagship32["gram_pair"],
+                **{(k, "f32"): fit[k] for k in REGRESSION_KERNELS},
+                ("own_out_gram", "f32"): own["own_out_gram"]}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,
                "gram_pair_tiled": 873, "gram_pair": 550, "retile_rows": 657,
                "weighted_gram_tiled": 1439, "weighted_gram": 335,
                "own_out_gram": 1373}
+    split_gram = ("gram_pair", "weighted_gram_tiled", "weighted_gram", "own_out_gram")
     print(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda",
-         "source": f"{csrc}/wgram.cu" if k["name"] in ("weighted_gram", "own_out_gram")
-                   else f"{csrc}/gram.cu",
+        {"name": k["name"], "dtype": k["dtype"], "route": "cuda",
+         "source": f"{csrc}/wgram.cu" if k["name"] in split_gram else f"{csrc}/gram.cu",
          "replaces": f"{pallas}:{sources[k['name']]}",
-         "launches": launches[k["name"]],
+         "launches": launches[k["name"], k["dtype"]],
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
          "library_ms": k["library_ms"]}

@@ -528,8 +528,9 @@ class Network:
                 del Jt, Kt
                 kgram.gram_pair_band_q(Q1, s1, Q2, s2, acc)
             elif diag:
-                # the weighting rides the Gram kernel's operand load
-                kgram.weighted_gram_tiled(Jt, h, acc)
+                # the weighting rides the Gram kernel's operand load; tiles
+                # past the node's D (the layout's zero padding) are skipped
+                kgram.weighted_gram_tiled(Jt, h, acc, D)
             else:
                 kgram.gram_pair(Jt, Kt, acc=acc)
             if finish:

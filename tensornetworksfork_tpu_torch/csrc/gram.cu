@@ -1,8 +1,8 @@
 // Gram-path kernels of the sweep trainer, hand-written for Hopper (sm_90a).
 //
 // Port of the Pallas kernels in tensornetworksfork_tpu/ops/pallas/gram.py
-// (the narrow-output weighted Grams K9 and K11 are in wgram.cu).
-// Five kernels, each behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
+// (the split Grams K7, K9, K10 and K11 are in wgram.cu). Five kernels, each
+// behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
 // binds with ctypes. Every entry launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() so the wrapper can raise.
 //
@@ -12,10 +12,7 @@
 //   gram_q       <- _make_band_kernel_q / gram_pair_band_q    (K3) and
 //                   _pair_kernel_tiled_q / gram_pair_tiled_q  (K4)
 //   gram_f       <- _pair_kernel_tiled / gram_pair_tiled      (K6, K5 folded
-//                   into its carry epilogue) and
-//                   _pair_kernel_tiled / gram_pair             (K10); its
-//                   weighted form <- _make_weighted_kernel_tiled_acc /
-//                   weighted_gram_tiled (K7)
+//                   into its carry epilogue)
 //
 // Layouts: a Gram operand is row-major (rows, cols); rows are (class, sample)
 // pairs, columns the node's flattened D. Gram outputs are (cols, cols) f32;
@@ -210,31 +207,20 @@ gram_q_kernel(const int8_t* __restrict__ Q1, const float* __restrict__ s1,
       A[(size_t)(d0 + ty * 4 + i) * Dp + e0 + tx * 4 + j] = acc_f[i][j];
 }
 
-// ---------------------------------------------------------------- K6 / K10
+// ---------------------------------------------------------------- K6
 // A[d, e] = (carry[d, e] +) sum_r X[r, d] * Y[r, e] in f32 FMA (never TF32),
 // operands f32 or bf16 (bf16 products are exact in f32). The chunk's sum is
 // formed in registers and added to the carry once, in the epilogue. Rows
 // and columns are masked, so any (rows, D) shape with row stride ld works.
-//
-// ---------------------------------------------------------------- K7
-// The weighted form (kWeighted, Y = X): the left operand is X[r, d] * w_r
-// multiplied in f32 and rounded once to T before the product — the
-// reference's (j1 * w).astype(j1.dtype) — with w_r = h[r * hstride + pq].
-// With a cls table the grid's y index picks a class pair, pq =
-// cls[blockIdx.y] = p*C + q, and the output block A + pq * ldc * ldc; K7
-// passes no cls (pq = 0, one output).
-template <typename T, bool kWeighted>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* __restrict__ h,
-              int hstride, const int* __restrict__ cls, float* __restrict__ A,
+gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, float* __restrict__ A,
               const int* __restrict__ pairs, int rows, int D, int ld, int ldc, int has_acc) {
   constexpr int BK = 16;
   __shared__ __align__(16) float sX[BK][kTile];
   __shared__ __align__(16) float sY[BK][kTile];
   const int* pr = pairs + 3 * blockIdx.x;
   const int d0 = pr[0] * kTile, e0 = pr[1] * kTile;
-  const int pq = (kWeighted && cls) ? cls[blockIdx.y] : 0;
-  A += (size_t)pq * ldc * ldc;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4];
 #pragma unroll
@@ -247,13 +233,7 @@ gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* __r
     for (int k = 0; k < BK * kTile / kThreads; ++k) {
       const int idx = tid + k * kThreads, rr = idx / kTile, cc = idx % kTile;
       const int r = r0 + rr;
-      float x = 0.f;
-      if (r < rows && d0 + cc < D) {
-        x = to_f32(X[(size_t)r * ld + d0 + cc]);
-        if constexpr (kWeighted)
-          x = to_f32(from_f32<T>(__fmul_rn(x, h[(size_t)r * hstride + pq])));
-      }
-      sX[rr][cc] = x;
+      sX[rr][cc] = (r < rows && d0 + cc < D) ? to_f32(X[(size_t)r * ld + d0 + cc]) : 0.f;
       sY[rr][cc] = (r < rows && e0 + cc < D) ? to_f32(Y[(size_t)r * ld + e0 + cc]) : 0.f;
     }
     __syncthreads();
@@ -347,41 +327,17 @@ int tnf_gram_q(const void* Q1, const void* s1, const void* Q2, const void* s2, v
 
 int tnf_gram_f32(const void* X, const void* Y, void* A, const void* pairs, int npairs,
                  int rows, int D, int ld, int ldc, int has_acc, void* stream) {
-  gram_f_kernel<float, false><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)Y, nullptr, 0, nullptr, (float*)A, (const int*)pairs,
-      rows, D, ld, ldc, has_acc);
+  gram_f_kernel<float><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)Y, (float*)A, (const int*)pairs, rows, D, ld, ldc,
+      has_acc);
   return launch_status();
 }
 
 int tnf_gram_bf16(const void* X, const void* Y, void* A, const void* pairs, int npairs,
                   int rows, int D, int ld, int ldc, int has_acc, void* stream) {
-  gram_f_kernel<__nv_bfloat16, false><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)X, (const __nv_bfloat16*)Y, nullptr, 0, nullptr, (float*)A,
-      (const int*)pairs, rows, D, ld, ldc, has_acc);
-  return launch_status();
-}
-
-// The weighted Gram: h is (rows, hstride) f32; cls (ncls class pairs, may
-// be null with ncls = 1) selects the h column and output block per grid row.
-int tnf_wgram_f32(const void* X, const void* h, int hstride, const void* cls, int ncls,
-                  void* A, const void* pairs, int npairs, int rows, int D, int ld, int ldc,
-                  int has_acc, void* stream) {
-  if (ncls < 1 || ncls > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(npairs, ncls);
-  gram_f_kernel<float, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)X, (const float*)h, hstride, (const int*)cls, (float*)A,
-      (const int*)pairs, rows, D, ld, ldc, has_acc);
-  return launch_status();
-}
-
-int tnf_wgram_bf16(const void* X, const void* h, int hstride, const void* cls, int ncls,
-                   void* A, const void* pairs, int npairs, int rows, int D, int ld, int ldc,
-                   int has_acc, void* stream) {
-  if (ncls < 1 || ncls > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(npairs, ncls);
-  gram_f_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)X, (const __nv_bfloat16*)X, (const float*)h, hstride,
-      (const int*)cls, (float*)A, (const int*)pairs, rows, D, ld, ldc, has_acc);
+  gram_f_kernel<__nv_bfloat16><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)X, (const __nv_bfloat16*)Y, (float*)A, (const int*)pairs, rows, D,
+      ld, ldc, has_acc);
   return launch_status();
 }
 

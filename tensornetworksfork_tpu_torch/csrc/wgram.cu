@@ -1,51 +1,73 @@
-// The narrow-output weighted Gram, hand-written for Hopper (sm_90a).
+// The split Gram kernels, hand-written for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of tensornetworksfork_tpu/ops/pallas/gram.py:
-//   _weighted_gram_jit (K9: _weighted_kernel_tiled / _syrk_weighted_kernel)
-//   _own_out_gram_jit  (K11: _make_own_out_kernel)
-// Both compute, per class pair pq (K9: one, pq = 0),
-//   A_pq[d, e] = sum_r round_T(X[r, d] * h[r * hstride + pq]) * X[r, e]
+// Replaces four Pallas kernels of tensornetworksfork_tpu/ops/pallas/gram.py:
+//   _weighted_gram_jit       (K9: _weighted_kernel_tiled / _syrk_weighted_kernel)
+//   _own_out_gram_jit        (K11: _make_own_out_kernel)
+//   _gram_pair_jit           (K10: _pair_kernel_tiled, the flat symmetric Gram)
+//   _weighted_gram_tiled_jit (K7: _make_weighted_kernel_tiled_acc)
+// All compute, per class pair pq (K9, K10, K7: one, pq = 0),
+//   A_pq[d, e] (+)= sum_r round_T(X[r, d] * h[r * hstride + pq]) * Y[r, e]
 // with the weighted operand multiplied in f32 and rounded once to the operand
-// type T, as the reference's (j1 * w).astype(j1.dtype). K9 needs the upper
-// triangle only; K11's blocks are whole (not symmetric in d for p != q, and
-// for p = q only up to the rounding of the weighted operand).
+// type T, as the reference's (j1 * w).astype(j1.dtype); Y = X for K9, K11 and
+// K7, Y = K = H.J for K10, which has no weights (h null: X as it is). K9, K10
+// and K7 need the upper triangle only; K11's blocks are whole (not symmetric
+// in d for p != q, and for p = q only up to the rounding of the weighted
+// operand). K7 adds into a carry (has_acc): out = out + chunk sum.
 //
 // What bounds them on an H100 (132 SMs, 67 TFLOP/s f32 FMA, 989 TFLOP/s bf16
 // tensor cores, 3.35 TB/s):
 //   K9,  65,536 x 1,032 f32, upper: 6.99e10 FLOP -> 1.04 ms (bytes 0.08 ms);
 //   K11, 65,536 rows, C=1, DJ=1,032 f32, whole: 1.40e11 FLOP -> 2.08 ms;
 //   K11, 8,192 rows, C=9 (45 pairs), DJ=900 bf16: 5.97e11 FLOP -> 0.60 ms on
-//        the tensor cores (8.9 ms on f32 FMA); its 81 x Dp^2 f32 output 0.09 ms.
-// So both are bound by operations. What the design does about it:
+//        the tensor cores (8.9 ms on f32 FMA); its 81 x Dp^2 f32 output 0.09 ms;
+//   K10, 73,728 x 900 (the conv-TT flagship's A4), upper: 5.98e10 FLOP. bf16:
+//        bytes, 0.080 ms for the two operands (0.060 ms of tensor-core work);
+//        f32: operations, 0.89 ms (bytes 0.16 ms);
+//   K7,  512 x 8,256 (Dp 8,704; the regression's A2 chunk) f32 with a carry,
+//        upper over D: 3.49e10 FLOP -> 0.52 ms (bytes, the carry read and
+//        written once, 0.17 ms).
+// So all but K10 in bf16 are bound by operations. What the design does:
 //   - Row split. The grid is (output tiles) x (class pairs) x (row splits). A
-//     1,032-wide output has only 45 upper (81 whole) 128x128 tiles, well
-//     under one CTA per SM, so the host splits the rows until the grid fills
-//     the card (ops/cuda/gram.py wgram_plan). Each split writes its partial
-//     sums to an f32 workspace, and wgram_reduce_kernel adds them in fixed
-//     split order: no atomics, the same result on every run. With one split
-//     (the grid already fills the card) the kernel writes the output directly.
+//     1,032-wide output has only 45 upper (81 whole) 128x128 tiles and K10's
+//     900-wide one 36 upper tiles, well under one CTA per SM, so the host
+//     splits the rows until the grid fills the card (ops/cuda/gram.py
+//     wgram_plan). Each split writes its partial sums to an f32 workspace,
+//     and wgram_reduce_kernel adds the carry (if any), then split 0, 1, ...
+//     in that fixed order: no atomics, the same result on every run. With one
+//     split (the grid already fills the card: K7's 2,145 upper tiles, K11 on
+//     the flagship) the kernel writes the output directly, adding the carry
+//     in its epilogue; each output tile is owned by one CTA.
 //   - f32 operands stay on f32 FMA, never TF32 (wgram_f32_kernel): 128x128
 //     tiles, 8x8 accumulators per thread (four 4x4 quadrants), 32 rows a
 //     stage in a ring of 3.
 //   - bf16 operands go to the tensor cores (wgram_bf16_kernel): wgmma on bf16
 //     with f32 results, 64 rows a stage in a ring of 4, the weighting of the
-//     next stage overlapping the current stage's wgmmas. The weighted operand
-//     is rounded to bf16 as the reference rounds it, so every product is exact
-//     in f32; each 128-row tensor-core sum is added to the thread's f32 sums
-//     with an IEEE add, so only the order of the f32 sums differs.
+//     next stage (if any) overlapping the current stage's wgmmas. The
+//     weighted operand is rounded to bf16 as the reference rounds it, so
+//     every product is exact in f32; each 128-row tensor-core sum is added to
+//     the thread's f32 sums with an IEEE add, so only the order of the f32
+//     sums differs. K10 in bf16 is bound by its operand reads: each of its 36
+//     tiles reads two 128-column strips of every row (1.36 GB from L2, the
+//     operands themselves once from device memory), so its splits run in
+//     step over the same rows.
 //   - Operands reach shared memory by cp.async (16-byte chunks, zero-filled
-//     past the rows of the split and past D); the weighting is applied once
-//     per staged element, in place, after the stage lands — not once per FMA.
+//     past the rows of the split and past D; 8-byte chunks for a bf16 row
+//     stride that is a multiple of 4 values but not of 8, as K10's 900); the
+//     weighting is applied once per staged element, in place, after the stage
+//     lands — not once per FMA.
 //   - Padding: D = 1,032 is 8 tiles and 8 columns; the ninth tile is almost
-//     empty. Rather than narrower tiles everywhere, the f32 kernel skips work
-//     past D at 64-column granularity (quadrants), and the quadrant below the
-//     diagonal of a diagonal tile in the upper-triangle mode, so its computed
-//     area at D = 1,032 is ~1.18x the upper triangle (whole 128x128 tiles
-//     would be 1.38x). The bf16 kernel skips rows past D at 64-row granularity
-//     (a warpgroup) and computes its tiles' columns whole.
+//     empty (K10's 900 = 7 tiles and 4 columns, K7's 8,256 = 64 tiles and 64
+//     columns). Rather than narrower tiles everywhere, the f32 kernel skips
+//     work past D at 64-column granularity (quadrants), and the quadrant below
+//     the diagonal of a diagonal tile in the upper-triangle mode, so its
+//     computed area at D = 1,032 is ~1.18x the upper triangle (whole 128x128
+//     tiles would be 1.38x). The bf16 kernel skips rows past D at 64-row
+//     granularity (a warpgroup) and computes its tiles' columns whole. Tiles
+//     past D (K7's tiled layout pads 8,256 to 8,704) are not in the grid.
 //   Rows and columns are masked, so any (rows, D) with row stride ld works;
-//   16-byte loads need ld and X aligned to 16 bytes, else the stage is loaded
-//   element by element (the same arithmetic).
+//   vector loads need ld and X, Y aligned to the chunk, else the stage is
+//   loaded element by element (the same arithmetic). Columns past D are
+//   never part of a written result.
 //
 // Entry points return cudaGetLastError() (or the attribute call's error), as
 // in gram.cu; nothing here allocates or synchronises.
@@ -62,14 +84,15 @@ constexpr int kWThreads = 256;  // 8 warps
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-// cp.async with zero fill: src_size 0 writes 16 (4) zero bytes, reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0) : "memory");
+// cp.async with zero fill: src_size 0 writes N zero bytes, reads nothing
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(pred ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(N), "r"(pred ? N : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -84,12 +107,13 @@ constexpr int kFStages = 3;                              // ring depth
 constexpr int kFStageBytes = 2 * kFK * kWT * 4 + kFK * 4;  // X, Y, weights
 constexpr int kFSmem = kFStages * kFStageBytes;
 
-// One stage: rows r0 .. r0+kFK-1 (zero past rend) of the d-columns (sX) and
-// the e-columns (sY) of the tile, row-major with kWT columns, and their
-// weights (sW).
-template <bool kVec>
+// One stage: rows r0 .. r0+kFK-1 (zero past rend) of X's d-columns (sX) and
+// Y's e-columns (sY) of the tile, row-major with kWT columns, and, weighted,
+// their weights (sW).
+template <bool kVec, bool kWeighted>
 __device__ __forceinline__ void fload_stage(float* sX, float* sY, float* sW,
-                                            const float* __restrict__ X, int ld,
+                                            const float* __restrict__ X,
+                                            const float* __restrict__ Y, int ld,
                                             const float* __restrict__ h, int hstride, int pq,
                                             int r0, int rend, int d0, int e0, int D, int tid) {
   if constexpr (kVec) {
@@ -99,21 +123,21 @@ __device__ __forceinline__ void fload_stage(float* sX, float* sY, float* sW,
       const int r = r0 + rr;
       // a chunk that starts below D lies inside the row (ld % 4 == 0)
       const bool xin = r < rend && d0 + c < D, yin = r < rend && e0 + c < D;
-      cp_async16(sX + rr * kWT + c, xin ? X + (size_t)r * ld + d0 + c : X, xin);
-      cp_async16(sY + rr * kWT + c, yin ? X + (size_t)r * ld + e0 + c : X, yin);
+      cp_async<16>(sX + rr * kWT + c, xin ? X + (size_t)r * ld + d0 + c : X, xin);
+      cp_async<16>(sY + rr * kWT + c, yin ? Y + (size_t)r * ld + e0 + c : Y, yin);
     }
   } else {
 #pragma unroll 4
     for (int idx = tid; idx < kFK * kWT; idx += kWThreads) {
       const int rr = idx / kWT, c = idx % kWT, r = r0 + rr;
       sX[rr * kWT + c] = (r < rend && d0 + c < D) ? X[(size_t)r * ld + d0 + c] : 0.f;
-      sY[rr * kWT + c] = (r < rend && e0 + c < D) ? X[(size_t)r * ld + e0 + c] : 0.f;
+      sY[rr * kWT + c] = (r < rend && e0 + c < D) ? Y[(size_t)r * ld + e0 + c] : 0.f;
     }
   }
-  if (tid < kFK) {
+  if (kWeighted && tid < kFK) {
     const int r = r0 + tid;
     const bool in = r < rend;
-    cp_async4(sW + tid, in ? h + (size_t)r * hstride + pq : h, in);
+    cp_async<4>(sW + tid, in ? h + (size_t)r * hstride + pq : h, in);
   }
 }
 
@@ -176,16 +200,20 @@ __device__ __forceinline__ void compute_f32_quads(const float* sX, const float* 
   }
 }
 
-template <bool kVec>
+// kWeighted: X weighted by h, and Y is X (K9, K11, K7), so one operand
+// pointer is live; else no h (K10).
+template <bool kVec, bool kWeighted>
 __global__ void __launch_bounds__(kWThreads, 2)
-wgram_f32_kernel(const float* __restrict__ X, int ld, const float* __restrict__ h, int hstride,
-                 const int* __restrict__ cls, const int* __restrict__ pairs, int upper, int rows,
-                 int rps, int D, float* __restrict__ out, const int* __restrict__ ocls,
-                 long long ostride, int ldo, long long sstride) {
+wgram_f32_kernel(const float* __restrict__ X, const float* __restrict__ Yarg, int ld,
+                 const float* __restrict__ h, int hstride, const int* __restrict__ cls,
+                 const int* __restrict__ pairs, int upper, int rows, int rps, int D,
+                 float* __restrict__ out, const int* __restrict__ ocls, long long ostride,
+                 int ldo, long long sstride, int has_acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto sX = [&](int s) { return reinterpret_cast<float*>(smem + s * kFStageBytes); };
   auto sY = [&](int s) { return sX(s) + kFK * kWT; };
   auto sW = [&](int s) { return sX(s) + 2 * kFK * kWT; };
+  const float* __restrict__ Y = kWeighted ? X : Yarg;
 
   const int tid = threadIdx.x;
   const int* pr = pairs + 3 * blockIdx.x;
@@ -207,8 +235,8 @@ wgram_f32_kernel(const float* __restrict__ X, int ld, const float* __restrict__ 
 #pragma unroll
   for (int s = 0; s < kFStages - 1; ++s) {
     if (s < nk)
-      fload_stage<kVec>(sX(s), sY(s), sW(s), X, ld, h, hstride, pq, rbeg + s * kFK, rend, d0,
-                        e0, D, tid);
+      fload_stage<kVec, kWeighted>(sX(s), sY(s), sW(s), X, Y, ld, h, hstride, pq,
+                                   rbeg + s * kFK, rend, d0, e0, D, tid);
     cp_async_commit();
   }
   for (int k = 0; k < nk; ++k) {
@@ -217,17 +245,20 @@ wgram_f32_kernel(const float* __restrict__ X, int ld, const float* __restrict__ 
     const int nxt = k + kFStages - 1;
     if (nxt < nk) {
       const int sn = nxt % kFStages;
-      fload_stage<kVec>(sX(sn), sY(sn), sW(sn), X, ld, h, hstride, pq, rbeg + nxt * kFK, rend,
-                        d0, e0, D, tid);
+      fload_stage<kVec, kWeighted>(sX(sn), sY(sn), sW(sn), X, Y, ld, h, hstride, pq,
+                                   rbeg + nxt * kFK, rend, d0, e0, D, tid);
     }
     cp_async_commit();
     const int s = k % kFStages;
-    fweight_stage(sX(s), sW(s), tid);
-    __syncthreads();
+    if constexpr (kWeighted) {
+      fweight_stage(sX(s), sW(s), tid);
+      __syncthreads();
+    }
     compute_f32_quads(sX(s), sY(s), acc, quads, tid);
   }
   cp_async_wait<0>();
 
+  // the carry: out = out + chunk sum, by the one CTA that owns the tile
   float* o = out + blockIdx.z * sstride + (long long)ob * ostride;
   const int tx = tid % 16, ty = tid / 16;
   const bool v4 = ldo % 4 == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0;
@@ -241,11 +272,17 @@ wgram_f32_kernel(const float* __restrict__ X, int ld, const float* __restrict__ 
       const int e = e0 + jh * 64 + tx * 4;
       const float* a = acc + i * 8 + jh * 4;
       if (v4 && e + 3 < D) {
-        *reinterpret_cast<float4*>(row + e) = make_float4(a[0], a[1], a[2], a[3]);
+        float4* p = reinterpret_cast<float4*>(row + e);
+        float4 v = make_float4(a[0], a[1], a[2], a[3]);
+        if (has_acc) {
+          const float4 c = *p;
+          v = make_float4(c.x + v.x, c.y + v.y, c.z + v.z, c.w + v.w);
+        }
+        *p = v;
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (e + j < D) row[e + j] = a[j];
+          if (e + j < D) row[e + j] = has_acc ? row[e + j] + a[j] : a[j];
       }
     }
   }
@@ -306,45 +343,53 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// One thread's part of loading a stage: four 16-byte chunks of X's d- and
-// e-columns (rows 16 i + tid / 16, chunk tid % 16) and, for the first 64
-// threads, one weight. What does not change from stage to stage (shared
-// memory offsets, column bounds, pointers) is set up once.
+// One thread's part of loading a stage by kChunk-byte copies (16, or 8 for a
+// row stride that is a multiple of 4 values but not of 8): kN chunks of X's
+// d-columns and as many of Y's e-columns, all in one column chunk, kStep rows
+// apart. What does not change from stage to stage (shared memory offset,
+// column bounds, pointers) is set up once.
+template <int kChunk>
 struct GLoader {
-  int soff[4];                      // byte offsets of the chunks in a tile
-  int rr[4];                        // rows within the stage
-  const __nv_bfloat16* px[4];       // row 0 of the chunks' d- and e-columns
-  const __nv_bfloat16* py[4];
-  bool xin[4], yin[4];              // chunk starts below D
-  __device__ __forceinline__ GLoader(const __nv_bfloat16* X, int ld, int d0, int e0, int D,
-                                     int tid) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kWThreads, c = idx % 16;
-      rr[i] = idx / 16;
-      soff[i] = gsw_offset(rr[i], c);
-      xin[i] = d0 + c * 8 < D;
-      yin[i] = e0 + c * 8 < D;
-      px[i] = X + (size_t)rr[i] * ld + d0 + c * 8;
-      py[i] = X + (size_t)rr[i] * ld + e0 + c * 8;
-    }
+  static constexpr int kCols = kChunk / 2;                  // bf16 values a chunk
+  static constexpr int kStep = kWThreads * kCols / kWT;     // 16 or 8 rows
+  static constexpr int kN = kGK / kStep;                    // 4 or 8 chunks
+  int soff, rr;                     // first chunk's byte offset in a tile, row
+  const __nv_bfloat16* px;          // row rr of the chunk's d- and e-columns
+  const __nv_bfloat16* py;
+  bool xin, yin;                    // chunk starts below D
+  __device__ __forceinline__ GLoader(const __nv_bfloat16* X, const __nv_bfloat16* Y, int ld,
+                                     int d0, int e0, int D, int tid) {
+    const int c = (tid % (kWT / kCols)) * kCols;  // the chunk's first column
+    rr = tid / (kWT / kCols);
+    // kStep is a multiple of 8, so chunk i lies i * kStep / 8 atoms further
+    soff = gsw_offset(rr, c >> 3) + (c & 7) * 2;
+    xin = d0 + c < D;
+    yin = e0 + c < D;
+    px = X + (size_t)rr * ld + d0 + c;
+    py = Y + (size_t)rr * ld + e0 + c;
   }
 };
 
-template <bool kVec>
-__device__ __forceinline__ void gload_stage(const GLoader& L, unsigned char* sX,
-                                            unsigned char* sY, float* sW,
-                                            const __nv_bfloat16* __restrict__ X, int ld,
+// kChunk = 0: element by element (any ld, any alignment).
+template <int kChunk, bool kWeighted>
+__device__ __forceinline__ void gload_stage(const GLoader<kChunk ? kChunk : 16>& L,
+                                            unsigned char* sX, unsigned char* sY, float* sW,
+                                            const __nv_bfloat16* __restrict__ X,
+                                            const __nv_bfloat16* __restrict__ Y, int ld,
                                             const float* __restrict__ h, int hstride, int pq,
                                             int r0, int rend, int d0, int e0, int D, int tid) {
-  if constexpr (kVec) {
-    const size_t step = (size_t)r0 * ld;
+  if constexpr (kChunk > 0) {
+    using G = GLoader<kChunk>;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool rin = r0 + L.rr[i] < rend;
-      // a chunk that starts below D lies inside the row (ld % 8 == 0)
-      cp_async16(sX + L.soff[i], rin && L.xin[i] ? L.px[i] + step : X, rin && L.xin[i]);
-      cp_async16(sY + L.soff[i], rin && L.yin[i] ? L.py[i] + step : X, rin && L.yin[i]);
+    for (int i = 0; i < G::kN; ++i) {
+      const int rrow = L.rr + i * G::kStep;
+      const bool rin = r0 + rrow < rend;
+      const size_t o = (size_t)(r0 + i * G::kStep) * ld;
+      const int so = L.soff + i * G::kStep * 128;
+      // a chunk that starts below D lies inside the row (ld a multiple of
+      // the chunk's values)
+      cp_async<kChunk>(sX + so, rin && L.xin ? L.px + o : X, rin && L.xin);
+      cp_async<kChunk>(sY + so, rin && L.yin ? L.py + o : Y, rin && L.yin);
     }
   } else {
 #pragma unroll 4
@@ -354,13 +399,13 @@ __device__ __forceinline__ void gload_stage(const GLoader& L, unsigned char* sX,
       *reinterpret_cast<__nv_bfloat16*>(sX + o) =
           (r < rend && d0 + col < D) ? X[(size_t)r * ld + d0 + col] : __float2bfloat16_rn(0.f);
       *reinterpret_cast<__nv_bfloat16*>(sY + o) =
-          (r < rend && e0 + col < D) ? X[(size_t)r * ld + e0 + col] : __float2bfloat16_rn(0.f);
+          (r < rend && e0 + col < D) ? Y[(size_t)r * ld + e0 + col] : __float2bfloat16_rn(0.f);
     }
   }
-  if (tid < kGK) {
+  if (kWeighted && tid < kGK) {
     const int r = r0 + tid;
     const bool in = r < rend;
-    cp_async4(sW + tid, in ? h + (size_t)r * hstride + pq : h, in);
+    cp_async<4>(sW + tid, in ? h + (size_t)r * hstride + pq : h, in);
   }
 }
 
@@ -384,23 +429,25 @@ __device__ __forceinline__ void gweight_stage(unsigned char* sX, const float* sW
   }
 }
 
-// The pipeline: while the wgmmas of stage k run, stage k+3 loads and stage
-// k+1 is weighted. The wgmmas of two stages (128 rows) sum inside the tensor
-// core from zero, and that sum is added to acc with __fadd_rn: summing inside
-// the tensor core over thousands of rows loses bits on every step (its f32
-// accumulation does not round to nearest), an error that grows with the row
-// count.
-template <bool kVec>
+// The pipeline: while the wgmmas of stage k run, stage k+3 loads and
+// (weighted) stage k+1 is weighted. The wgmmas of two stages (128 rows) sum inside the
+// tensor core from zero, and that sum is added to acc with __fadd_rn: summing
+// inside the tensor core over thousands of rows loses bits on every step (its
+// f32 accumulation does not round to nearest), an error that grows with the
+// row count. kWeighted as for the f32 kernel.
+template <int kChunk, bool kWeighted>
 __global__ void __launch_bounds__(kWThreads, 1)
-wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __restrict__ h,
-                  int hstride, const int* __restrict__ cls, const int* __restrict__ pairs,
-                  int rows, int rps, int D, float* __restrict__ out, const int* __restrict__ ocls,
-                  long long ostride, int ldo, long long sstride) {
+wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ Yarg,
+                  int ld, const float* __restrict__ h, int hstride, const int* __restrict__ cls,
+                  const int* __restrict__ pairs, int rows, int rps, int D,
+                  float* __restrict__ out, const int* __restrict__ ocls, long long ostride,
+                  int ldo, long long sstride, int has_acc) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   auto sX = [&](int s) { return smem + s * kGStageBytes; };
   auto sY = [&](int s) { return smem + s * kGStageBytes + kGTileBytes; };
   auto sW = [&](int s) { return reinterpret_cast<float*>(smem + s * kGStageBytes + 2 * kGTileBytes); };
+  const __nv_bfloat16* __restrict__ Y = kWeighted ? X : Yarg;
 
   const int tid = threadIdx.x, g = tid / 128;
   const int* pr = pairs + 3 * blockIdx.x;
@@ -410,11 +457,11 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __re
   const int rbeg = blockIdx.z * rps;
   const int rend = min(rows, rbeg + rps);
   const int nk = rend > rbeg ? (rend - rbeg + kGK - 1) / kGK : 0;
-  const GLoader L(X, ld, d0, e0, D, tid);
+  const GLoader<kChunk ? kChunk : 16> L(X, Y, ld, d0, e0, D, tid);
   auto load = [&](int k) {
     const int s = k % kGStages;
-    gload_stage<kVec>(L, sX(s), sY(s), sW(s), X, ld, h, hstride, pq, rbeg + k * kGK, rend, d0,
-                      e0, D, tid);
+    gload_stage<kChunk, kWeighted>(L, sX(s), sY(s), sW(s), X, Y, ld, h, hstride, pq,
+                                   rbeg + k * kGK, rend, d0, e0, D, tid);
   };
 
   float acc[64], d[64];
@@ -428,10 +475,10 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __re
   }
   cp_async_wait<kGStages - 2>();
   __syncthreads();
-  if (nk > 0) gweight_stage(sX(0), sW(0), tid);
+  if (kWeighted && nk > 0) gweight_stage(sX(0), sW(0), tid);
   fence_proxy_async();
   for (int k = 0; k < nk; ++k) {
-    __syncthreads();  // stage k weighted and visible
+    __syncthreads();  // stage k landed (and weighted) and visible
     const int s = k % kGStages;
     const uint32_t xa = smem_u32(sX(s)) + g * 8192, ya = smem_u32(sY(s));
     wgmma_fence();
@@ -444,7 +491,8 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __re
     __syncthreads();  // ... and everyone's; stage k-1's buffer is free
     if (k + kGStages - 1 < nk) load(k + kGStages - 1);
     cp_async_commit();
-    if (k + 1 < nk) gweight_stage(sX((k + 1) % kGStages), sW((k + 1) % kGStages), tid);
+    if (kWeighted && k + 1 < nk)
+      gweight_stage(sX((k + 1) % kGStages), sW((k + 1) % kGStages), tid);
     fence_proxy_async();
     if ((k & 1) || k + 1 == nk) {
       wgmma_wait<0>();
@@ -456,7 +504,8 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __re
   if (d0 + g * 64 >= D) return;  // this warpgroup's rows lie past D
 
   // acc[4j + v]: row 16 w + lane / 4 (+8 for v >= 2), column 8 j + 2 (lane % 4)
-  // (+1 for odd v), w the warp within the warpgroup
+  // (+1 for odd v), w the warp within the warpgroup. With the carry:
+  // out = out + chunk sum, by the one CTA that owns the tile.
   float* o = out + blockIdx.z * sstride + (long long)ob * ostride;
   const bool v2 = ldo % 2 == 0 && (reinterpret_cast<uintptr_t>(o) & 7) == 0;
   const int lane = tid % 32, w = (tid % 128) / 32;
@@ -470,102 +519,139 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, int ld, const float* __re
       const int e = e0 + j * 8 + (lane % 4) * 2;
       const float* a = acc + 4 * j + 2 * hf;
       if (v2 && e + 1 < D) {
-        *reinterpret_cast<float2*>(row + e) = make_float2(a[0], a[1]);
+        float2* p = reinterpret_cast<float2*>(row + e);
+        float2 v = make_float2(a[0], a[1]);
+        if (has_acc) {
+          const float2 c = *p;
+          v = make_float2(c.x + v.x, c.y + v.y);
+        }
+        *p = v;
       } else {
-        if (e < D) row[e] = a[0];
-        if (e + 1 < D) row[e + 1] = a[1];
+        if (e < D) row[e] = has_acc ? row[e] + a[0] : a[0];
+        if (e + 1 < D) row[e + 1] = has_acc ? row[e + 1] + a[1] : a[1];
       }
     }
   }
 }
 
-// out[ocls[c]][d, e] = sum over splits z, in order, of ws[z][c][d, e] (ws is
-// (splits, ncls, D, D)); in the upper mode only the tiles the kernel computed
-// (d / kWT <= e / kWT) are written. One thread per (c, d, e).
+// out[ocls[c]][d, e] = (carry +) sum over splits z, in order, of ws[z][c][d, e]
+// (ws is (splits, ncls, D, D)); in the upper mode only the tiles the kernel
+// computed (d / kWT <= e / kWT) are written. One thread per (c, d, e).
 __global__ void wgram_reduce_kernel(const float* __restrict__ ws, int splits, long long sstride,
-                                    int D, int upper, float* __restrict__ out,
+                                    int D, int upper, int has_acc, float* __restrict__ out,
                                     const int* __restrict__ ocls, long long ostride, int ldo) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x, d = blockIdx.y, c = blockIdx.z;
   if (e >= D || (upper && d / kWT > e / kWT)) return;
   const float* src = ws + ((long long)c * D + d) * D + e;
-  float s = src[0];
+  float* dst = out + (long long)(ocls ? ocls[c] : c) * ostride + (long long)d * ldo + e;
+  float s = has_acc ? __fadd_rn(*dst, src[0]) : src[0];
   for (int z = 1; z < splits; ++z) s = __fadd_rn(s, src[z * sstride]);
-  out[(long long)(ocls ? ocls[c] : c) * ostride + (long long)d * ldo + e] = s;
+  *dst = s;
 }
 
-int launch_f32(const float* X, int ld, const float* h, int hstride, const int* cls, dim3 grid,
-               const int* pairs, int upper, int rows, int rps, int D, float* out,
-               const int* ocls, long long ostride, int ldo, long long sstride,
-               cudaStream_t stream) {
-  const bool vec = ld % 4 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0;
-  auto kern = vec ? wgram_f32_kernel<true> : wgram_f32_kernel<false>;
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <bool kWeighted>
+int launch_f32(const float* X, const float* Y, int ld, const float* h, int hstride,
+               const int* cls, dim3 grid, const int* pairs, int upper, int rows, int rps, int D,
+               float* out, const int* ocls, long long ostride, int ldo, long long sstride,
+               int has_acc, cudaStream_t stream) {
+  const bool vec = ld % 4 == 0 && aligned(X, 16) && aligned(Y, 16);
+  auto kern = vec ? wgram_f32_kernel<true, kWeighted> : wgram_f32_kernel<false, kWeighted>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kWThreads, kFSmem, stream>>>(X, ld, h, hstride, cls, pairs, upper, rows, rps, D,
-                                            out, ocls, ostride, ldo, sstride);
+  kern<<<grid, kWThreads, kFSmem, stream>>>(X, Y, ld, h, hstride, cls, pairs, upper, rows, rps,
+                                            D, out, ocls, ostride, ldo, sstride, has_acc);
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const __nv_bfloat16* X, int ld, const float* h, int hstride, const int* cls,
-                dim3 grid, const int* pairs, int rows, int rps, int D, float* out,
-                const int* ocls, long long ostride, int ldo, long long sstride,
-                cudaStream_t stream) {
-  const bool vec = ld % 8 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0;
-  auto kern = vec ? wgram_bf16_kernel<true> : wgram_bf16_kernel<false>;
+template <bool kWeighted>
+int launch_bf16(const __nv_bfloat16* X, const __nv_bfloat16* Y, int ld, const float* h,
+                int hstride, const int* cls, dim3 grid, const int* pairs, int rows, int rps,
+                int D, float* out, const int* ocls, long long ostride, int ldo,
+                long long sstride, int has_acc, cudaStream_t stream) {
+  auto kern = wgram_bf16_kernel<0, kWeighted>;
+  if (ld % 8 == 0 && aligned(X, 16) && aligned(Y, 16))
+    kern = wgram_bf16_kernel<16, kWeighted>;
+  else if (ld % 4 == 0 && aligned(X, 8) && aligned(Y, 8))
+    kern = wgram_bf16_kernel<8, kWeighted>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kWThreads, kGSmem, stream>>>(X, ld, h, hstride, cls, pairs, rows, rps, D, out,
-                                            ocls, ostride, ldo, sstride);
+  kern<<<grid, kWThreads, kGSmem, stream>>>(X, Y, ld, h, hstride, cls, pairs, rows, rps, D, out,
+                                            ocls, ostride, ldo, sstride, has_acc);
   return (int)cudaGetLastError();
 }
 
-bool bad_split_args(int ncls, int npairs, int rows, int rps, int splits, int D, int ld) {
+// a weighted Gram is of X with itself (Y = X)
+bool bad_split_args(const void* X, const void* Y, const void* h, int ncls, int npairs, int rows,
+                    int rps, int splits, int D, int ld) {
   return ncls < 1 || ncls > 65535 || splits < 1 || splits > 65535 || npairs < 1 || rps < 1 ||
-         (long long)(splits - 1) * rps >= (rows > 0 ? rows : 1) || D > ld;
+         (long long)(splits - 1) * rps >= (rows > 0 ? rows : 1) || D > ld || (h && Y != X);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The split weighted Gram (K9, K11). X (rows, ld) with D <= ld columns used;
-// h (rows, hstride) f32; cls (ncls class pairs, may be null with ncls = 1)
+// The split Gram (K9, K11, K10, K7). X and Y (rows, ld) with D <= ld columns
+// used; h (rows, hstride) f32 with Y = X (the weighted Grams), or null for
+// K10's unweighted Gram; cls (ncls class pairs, may be null with ncls = 1)
 // picks the h column pq = cls[y] of grid row y; pairs (npairs, 3) int32 lists
-// the kWT-tiles (ti, tj, -) to compute; `upper` marks the upper-triangle
-// mode (the f32 kernel then skips the quadrant below a diagonal tile's
-// diagonal). Split z covers rows [z*rps, min(rows, (z+1)*rps)). Output block
-// of grid row y and split z: out + z*sstride + (ocls ? ocls[y] : y)*ostride,
-// row stride ldo.
-int tnf_wgram_split_f32(const void* X, int ld, const void* h, int hstride, const void* cls,
-                        int ncls, const void* pairs, int npairs, int upper, int rows, int rps,
-                        int splits, int D, void* out, const void* ocls, long long ostride, int ldo,
-                        long long sstride, void* stream) {
-  if (bad_split_args(ncls, npairs, rows, rps, splits, D, ld)) return (int)cudaErrorInvalidValue;
-  return launch_f32((const float*)X, ld, (const float*)h, hstride, (const int*)cls,
-                    dim3(npairs, ncls, splits), (const int*)pairs, upper, rows, rps, D,
-                    (float*)out, (const int*)ocls, ostride, ldo, sstride, (cudaStream_t)stream);
+// the kWT-tiles (ti, tj, -) to compute; `upper` marks the upper-triangle mode
+// (the f32 kernel then skips the quadrant below a diagonal tile's diagonal).
+// Split z covers rows [z*rps, min(rows, (z+1)*rps)). Output block of grid row
+// y and split z: out + z*sstride + (ocls ? ocls[y] : y)*ostride, row stride
+// ldo; with has_acc (one split only) the sums are added to it.
+//
+//   K9  <- _weighted_gram_jit gram.py:335: h, Y = X, upper, split to fill
+//          the card (operations: 1.04 ms at 65,536 x 1,032 f32);
+//   K11 <- _own_out_gram_jit :1373: h with a class pair per grid row;
+//   K10 <- _gram_pair_jit :550: no h, Y = K, upper, split to fill the card
+//          (73,728 x 900: 0.080 ms bf16, by bytes; 0.89 ms f32, by
+//          operations); 8-byte chunks for bf16 rows of 900 values;
+//   K7  <- _weighted_gram_tiled_jit :1439: h, Y = X, upper over the node's
+//          D < Dp, has_acc into the (Dp, Dp) carry, one split (512 x 8,256
+//          f32: 0.52 ms, by operations; its 2,145 tiles fill the card).
+int tnf_wgram_split_f32(const void* X, const void* Y, int ld, const void* h, int hstride,
+                        const void* cls, int ncls, const void* pairs, int npairs, int upper,
+                        int rows, int rps, int splits, int D, void* out, const void* ocls,
+                        long long ostride, int ldo, long long sstride, int has_acc,
+                        void* stream) {
+  if (bad_split_args(X, Y, h, ncls, npairs, rows, rps, splits, D, ld))
+    return (int)cudaErrorInvalidValue;
+  auto launch = h ? launch_f32<true> : launch_f32<false>;
+  return launch((const float*)X, (const float*)Y, ld, (const float*)h, hstride, (const int*)cls,
+                dim3(npairs, ncls, splits), (const int*)pairs, upper, rows, rps, D, (float*)out,
+                (const int*)ocls, ostride, ldo, sstride, has_acc, (cudaStream_t)stream);
 }
 
-int tnf_wgram_split_bf16(const void* X, int ld, const void* h, int hstride, const void* cls,
-                         int ncls, const void* pairs, int npairs, int upper, int rows, int rps,
-                         int splits, int D, void* out, const void* ocls, long long ostride,
-                         int ldo, long long sstride, void* stream) {
-  if (bad_split_args(ncls, npairs, rows, rps, splits, D, ld)) return (int)cudaErrorInvalidValue;
-  return launch_bf16((const __nv_bfloat16*)X, ld, (const float*)h, hstride, (const int*)cls,
-                     dim3(npairs, ncls, splits), (const int*)pairs, rows, rps, D, (float*)out,
-                     (const int*)ocls, ostride, ldo, sstride, (cudaStream_t)stream);
+int tnf_wgram_split_bf16(const void* X, const void* Y, int ld, const void* h, int hstride,
+                         const void* cls, int ncls, const void* pairs, int npairs, int upper,
+                         int rows, int rps, int splits, int D, void* out, const void* ocls,
+                         long long ostride, int ldo, long long sstride, int has_acc,
+                         void* stream) {
+  if (bad_split_args(X, Y, h, ncls, npairs, rows, rps, splits, D, ld))
+    return (int)cudaErrorInvalidValue;
+  auto launch = h ? launch_bf16<true> : launch_bf16<false>;
+  return launch((const __nv_bfloat16*)X, (const __nv_bfloat16*)Y, ld, (const float*)h, hstride,
+                (const int*)cls, dim3(npairs, ncls, splits), (const int*)pairs, rows, rps, D,
+                (float*)out, (const int*)ocls, ostride, ldo, sstride, has_acc,
+                (cudaStream_t)stream);
 }
 
 // Sum the split workspace ws (splits, ncls, D, D) in split order into
-// out + (ocls ? ocls[c] : c) * ostride, row stride ldo.
-int tnf_wgram_reduce(const void* ws, int splits, int ncls, int D, int upper, void* out,
-                     const void* ocls, long long ostride, int ldo, void* stream) {
+// out + (ocls ? ocls[c] : c) * ostride, row stride ldo; with has_acc the sum
+// starts from what out holds (the carry), then adds split 0, 1, ...
+int tnf_wgram_reduce(const void* ws, int splits, int ncls, int D, int upper, int has_acc,
+                     void* out, const void* ocls, long long ostride, int ldo, void* stream) {
   if (splits < 1 || ncls < 1 || ncls > 65535 || D < 1 || D > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((D + 255) / 256, D, ncls);
   wgram_reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, splits, (long long)ncls * D * D, D, upper, (float*)out, (const int*)ocls,
-      ostride, ldo);
+      (const float*)ws, splits, (long long)ncls * D * D, D, upper, has_acc, (float*)out,
+      (const int*)ocls, ostride, ldo);
   return (int)cudaGetLastError();
 }
 

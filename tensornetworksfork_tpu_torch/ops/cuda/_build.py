@@ -40,14 +40,12 @@ _SIGNATURES = {
     "tnf_gram_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tnf_retile_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "tnf_retile_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "tnf_wgram_f32": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "tnf_wgram_bf16": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tnf_gram_tile": (),
-    "tnf_wgram_split_f32": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _L, _I, _L, _P),
-    "tnf_wgram_split_bf16": (_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _L, _I, _L, _P),
-    "tnf_wgram_reduce": (_P, _I, _I, _I, _I, _P, _P, _L, _I, _P),
+    "tnf_wgram_split_f32": (_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                            _I, _P, _P, _L, _I, _L, _I, _P),
+    "tnf_wgram_split_bf16": (_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                             _I, _P, _P, _L, _I, _L, _I, _P),
+    "tnf_wgram_reduce": (_P, _I, _I, _I, _I, _I, _P, _P, _L, _I, _P),
     "tnf_wgram_tile": (),
 }
 

@@ -3,10 +3,11 @@
 Port of tensornetworksfork_tpu/ops/pallas/gram.py: every Pallas kernel of
 the JAX package has a counterpart here. Each wrapper takes the plain PyTorch
 version (`<fn>_plain`, beside it) only for tensors that lie on the CPU; for
-CUDA tensors it launches its kernel from `csrc/gram.cu` (K9 and K11:
-`csrc/wgram.cu`) or raises — there is no fallback. Each wrapper checks
-device, dtype, shape and contiguity, raises when the launch reports an
-error, and adds one to `LAUNCHES[<name>]` per call that launches its kernel.
+CUDA tensors it launches its kernel from `csrc/gram.cu` (the split Grams
+K7, K9, K10 and K11: `csrc/wgram.cu`) or raises — there is no fallback.
+Each wrapper checks device, dtype, shape and contiguity, raises when the
+launch reports an error, and adds one to `LAUNCHES[<name>]` per call that
+launches its kernel.
 
 Layouts differ from the TPU's where the TPU's were schedule choices: the
 class-major operands are row-major (C*S, Dp) matrices instead of (n, rows,
@@ -37,10 +38,11 @@ LAUNCHES = {"retile_hmix": 0, "quantize_tiled": 0, "gram_pair_q": 0,
 TILE = 512    # the reference plan's D slab (plan_tiles): padding and band map
 BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
 
-# The split weighted Gram (K9, K11; csrc/wgram.cu): its output tile, the
-# shortest split it plans, and how many of its f32 kernel's CTAs one SM
-# holds at once (256 threads of at most 128 registers, ~99 KB of shared
-# memory each; the bf16 kernel's hold one and take the same plan).
+# The split Gram (K7, K9, K10, K11; csrc/wgram.cu): its output tile, the
+# shortest split it plans, and how many of its f32 kernel's CTAs one SM holds
+# at once (256 threads of at most 128 registers, ~99 KB of shared memory
+# each). The bf16 kernel's hold one (a 133 KB ring) but take the same plan:
+# planned for one an SM, K10 and K9 in bf16 split more and ran no faster.
 WTILE = 128
 SPLIT_MIN_ROWS = 4096
 WGRAM_RESIDENT = 2
@@ -80,12 +82,12 @@ def quant_block(rows: int, block: int = BLOCK) -> int:
 
 
 def wgram_splits(ctas: int, rows: int, sms: int) -> int:
-    """Row splits for a split weighted Gram grid of `ctas` CTAs (output
-    tiles x class pairs) on `sms` SMs. 1 when the grid already holds 4 CTAs
-    per SM. Otherwise the count, at most rows // SPLIT_MIN_ROWS, whose
-    waves of WGRAM_RESIDENT CTAs per SM take the least time per row —
-    ceil(ctas * s / (WGRAM_RESIDENT * sms)) / s, the smaller s on a tie —
-    so a near-empty last wave is avoided."""
+    """Row splits for a split Gram grid of `ctas` CTAs (output tiles x
+    class pairs) on `sms` SMs. 1 when the grid already holds 4 CTAs per SM.
+    Otherwise the count, at most rows // SPLIT_MIN_ROWS, whose waves of
+    WGRAM_RESIDENT CTAs per SM take the least time per row —
+    ceil(ctas * s / (WGRAM_RESIDENT * sms)) / s, the smaller s on a tie — so
+    a near-empty last wave is avoided."""
     if ctas >= 4 * sms:
         return 1
     slots = WGRAM_RESIDENT * sms
@@ -107,9 +109,9 @@ def split_rows(rows: int, splits: int) -> Tuple[int, int]:
 
 def wgram_plan(rows: int, D: int, ncls: int, upper: bool, sms: int,
                splits: Optional[int] = None) -> Tuple[int, int, int]:
-    """(output tiles, splits, rows per split) of the split weighted Gram:
-    WTILE-wide tiles over D (the upper triangle, or all of them), `ncls`
-    class pairs; the split count from wgram_splits unless given."""
+    """(output tiles, splits, rows per split) of the split Gram: WTILE-wide
+    tiles over D (the upper triangle, or all of them), `ncls` class pairs;
+    the split count from wgram_splits unless given."""
     nt = -(-D // WTILE)
     npairs = nt * (nt + 1) // 2 if upper else nt * nt
     if splits is None:
@@ -425,7 +427,8 @@ def mirror_band(A: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 
 # ---------------------------------------------------------------- K6 / K10
 def gram_pair(X: torch.Tensor, Y: torch.Tensor,
-              acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+              acc: Optional[torch.Tensor] = None,
+              splits: Optional[int] = None) -> torch.Tensor:
     """Symmetric Gram A = Xᵀ Y over the upper triangle, f32 accumulation.
 
     X, Y (rows, D), f32 or bf16. Returns the raw (D, D) A (upper triangle
@@ -433,12 +436,21 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
     added to acc in place and acc is returned — the carry epilogue that
     replaces the reference's separate add_packed_upper pass.
 
-    Replaces tensornetworksfork_tpu/ops/pallas/gram.py:gram_pair (K10,
-    _gram_pair_jit) and gram_pair_tiled (K6, _pair_kernel_tiled), with
-    add_packed_upper (K5) folded in. Bound on the card: f32 FMA throughput
-    (f32 operands must match HIGHEST, so no TF32); 64x64 output tiles, one
-    CTA each over the upper triangle only, shared-memory operand tiles
-    reused 64x, the sum kept in registers until one epilogue write."""
+    Without acc (K10: replaces tensornetworksfork_tpu/ops/pallas/gram.py
+    gram_pair, _gram_pair_jit): the split Gram of csrc/wgram.cu, unweighted,
+    with Y as the e-operand. Bound on the card, at the conv-TT flagship's A4
+    (73,728 x 900): bf16, the bytes of the two operands (0.080 ms); f32, f32
+    FMA throughput (0.89 ms; never TF32). 900 columns are 36 upper 128²
+    tiles, so the rows are split until the grid fills the card (wgram_plan;
+    `splits` overrides it) and the partial sums added in split order; bf16
+    operands run on the tensor cores (wgmma) with each 128-row sum added in
+    f32, f32 ones on f32 FMA with 8x8 accumulators a thread.
+
+    With acc (K6: gram_pair_tiled, _pair_kernel_tiled, with add_packed_upper,
+    K5, folded in): bound by f32 FMA throughput; 64x64 output tiles of
+    csrc/gram.cu, one CTA each over the upper triangle only, shared-memory
+    operand tiles reused 64x, the sum kept in registers until one epilogue
+    write."""
     rows, D = X.shape
     if _on_cpu(X, Y, *(() if acc is None else (acc,))):
         return gram_pair_plain(X, Y, acc)
@@ -448,21 +460,21 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
                          f"{X.dtype}{tuple(X.shape)}")
     _check(Y, "Y", (X.dtype,), 2)
     if acc is None:
-        out, has_acc = torch.zeros((D, D), dtype=torch.float32,
-                                   device=X.device), 0
-    else:
-        _check(acc, "acc", (torch.float32,), 2)
-        if tuple(acc.shape) != (D, D):
-            raise ValueError(f"acc shape {tuple(acc.shape)} != {(D, D)}")
-        out, has_acc = acc, 1
+        out = torch.zeros((D, D), dtype=torch.float32, device=X.device)
+        _launch_wgram_split(X, None, 0, None, out, D, True, splits, "gram_pair", Y=Y)
+        LAUNCHES["gram_pair"] += 1
+        return out
+    _check(acc, "acc", (torch.float32,), 2)
+    if tuple(acc.shape) != (D, D):
+        raise ValueError(f"acc shape {tuple(acc.shape)} != {(D, D)}")
     lib = _build.lib()
     T = lib.tnf_gram_tile()
     pairs = _pair_table((D + T - 1) // T, 1, False, X.device)
     fn = lib.tnf_gram_bf16 if X.dtype == torch.bfloat16 else lib.tnf_gram_f32
-    _raise_on(fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(), pairs.data_ptr(),
-                 pairs.shape[0], rows, D, D, D, has_acc, _stream()), "gram_pair")
-    LAUNCHES["gram_pair_tiled" if has_acc else "gram_pair"] += 1
-    return out
+    _raise_on(fn(X.data_ptr(), Y.data_ptr(), acc.data_ptr(), pairs.data_ptr(),
+                 pairs.shape[0], rows, D, D, D, 1, _stream()), "gram_pair")
+    LAUNCHES["gram_pair_tiled"] += 1
+    return acc
 
 
 def _weighted_operand(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -478,10 +490,15 @@ def _check_weighted(X: torch.Tensor, h: torch.Tensor) -> None:
         raise ValueError(f"h has {h.shape[0]} rows, X {X.shape[0]}")
 
 
-def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key) -> None:
-    """The split weighted Gram of csrc/wgram.cu into `out` (its last two
-    dims the block; `key` names the wrapper in errors)."""
+def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key,
+                        Y=None, has_acc=False) -> None:
+    """The split Gram of csrc/wgram.cu into `out` (its last two dims the
+    block; `key` names the wrapper in errors): X weighted by h against X,
+    or, with h None, X against Y. With has_acc the sums are added to what
+    `out` holds — by the kernel's epilogue in one split, else by the
+    reduction, carry first and then the splits in order."""
     rows, ld = X.shape
+    Y = X if Y is None else Y
     lib = _build.lib()
     if lib.tnf_wgram_tile() != WTILE:
         raise RuntimeError("csrc/wgram.cu and ops/cuda/gram.py disagree on "
@@ -491,6 +508,7 @@ def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key) -> None:
     pairs = _pair_table(-(-D // WTILE), 1 if upper else 0, False, X.device)
     ldc = out.shape[-1]
     cls_p = None if cls is None else cls.data_ptr()
+    h_p = None if h is None else h.data_ptr()
     if splits == 1:  # straight into the output blocks
         ws, tgt, ocls, ostride, ldo, sstride = None, out, cls_p, ldc * ldc, ldc, 0
     else:
@@ -498,46 +516,51 @@ def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key) -> None:
         tgt, ocls, ostride, ldo, sstride = ws, None, D * D, D, ncls * D * D
     fn = (lib.tnf_wgram_split_bf16 if X.dtype == torch.bfloat16
           else lib.tnf_wgram_split_f32)
-    _raise_on(fn(X.data_ptr(), ld, h.data_ptr(), hstride, cls_p, ncls,
+    _raise_on(fn(X.data_ptr(), Y.data_ptr(), ld, h_p, hstride, cls_p, ncls,
                  pairs.data_ptr(), npairs, int(upper), rows, rps, splits, D,
-                 tgt.data_ptr(), ocls, ostride, ldo, sstride, _stream()), key)
+                 tgt.data_ptr(), ocls, ostride, ldo, sstride,
+                 int(has_acc and ws is None), _stream()), key)
     if ws is not None:
         _raise_on(lib.tnf_wgram_reduce(ws.data_ptr(), splits, ncls, D, int(upper),
-                                       out.data_ptr(), cls_p, ldc * ldc, ldc,
-                                       _stream()), key)
+                                       int(has_acc), out.data_ptr(), cls_p,
+                                       ldc * ldc, ldc, _stream()), key)
 
 
 # ---------------------------------------------------------------- K7
 def weighted_gram_tiled(Xt: torch.Tensor, h: torch.Tensor,
-                        acc: torch.Tensor) -> torch.Tensor:
-    """acc += Xtᵀ diag(h) Xt over the upper 64x64 tiles, in place; returns
+                        acc: torch.Tensor, D: Optional[int] = None) -> torch.Tensor:
+    """acc += Xtᵀ diag(h) Xt over the upper 128x128 tiles, in place; returns
     acc (raw: finish with mirror_gram).
 
     Xt (rows, Dp) f32 or bf16 in the tiled layout (retile_rows), h (rows,)
-    f32, acc (Dp, Dp) f32. The left operand is Xt * h rounded once to Xt's
-    dtype, as the reference rounds it; sums are f32 FMAs, never TF32. The
-    chunk's sum is formed in registers and added to the carry once per
-    output tile (carry + chunk sum, the order of the reference's separate
-    add_packed_upper), by the one CTA that owns the tile, so no atomics.
+    f32, acc (Dp, Dp) f32. D (default Dp) is the node's real width: tiles
+    and quadrants past it are skipped and acc[D:, :] and acc[:, D:] are left
+    as they are (the tiled layout's columns past D are zero, so the result
+    over [:D, :D] is the same). The left operand is Xt * h rounded once to
+    Xt's dtype, as the reference rounds it; f32 sums are f32 FMAs, never
+    TF32, bf16 operands run on the tensor cores with f32 sums. The chunk's
+    sum is added to the carry once per element (carry + chunk sum, the order
+    of the reference's separate add_packed_upper), by the one CTA that owns
+    the tile, so no atomics.
 
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:weighted_gram_tiled
     (_weighted_gram_tiled_jit, _make_weighted_kernel_tiled_acc). Bound on
-    the card: f32 FMA throughput, as gram_pair — the weighting rides the
-    operand load, so the weighted copy of J never reaches device memory."""
+    the card: f32 FMA throughput (the regression's A2 chunk, 512 x 8,256:
+    0.52 ms). The split Gram of csrc/wgram.cu with a carry: 2,145 upper
+    tiles fill the card without a row split; the weighting is applied once
+    per staged element, so the weighted copy of J never reaches device
+    memory."""
     rows, Dp = Xt.shape
+    D = Dp if D is None else D
     if _on_cpu(Xt, h, acc):
         return weighted_gram_tiled_plain(Xt, h, acc)
     _check_weighted(Xt, h)
     _check(acc, "acc", (torch.float32,), 2)
-    if tuple(acc.shape) != (Dp, Dp):
-        raise ValueError(f"acc shape {tuple(acc.shape)} != {(Dp, Dp)}")
-    lib = _build.lib()
-    T = lib.tnf_gram_tile()
-    pairs = _pair_table((Dp + T - 1) // T, 1, False, Xt.device)
-    fn = lib.tnf_wgram_bf16 if Xt.dtype == torch.bfloat16 else lib.tnf_wgram_f32
-    _raise_on(fn(Xt.data_ptr(), h.data_ptr(), 1, None, 1, acc.data_ptr(),
-                 pairs.data_ptr(), pairs.shape[0], rows, Dp, Dp, Dp, 1,
-                 _stream()), "weighted_gram_tiled")
+    if tuple(acc.shape) != (Dp, Dp) or not 0 < D <= Dp:
+        raise ValueError(f"weighted_gram_tiled: acc {tuple(acc.shape)}, "
+                         f"Xt {tuple(Xt.shape)}, D={D}")
+    _launch_wgram_split(Xt, h, 1, None, acc, D, True, None, "weighted_gram_tiled",
+                        has_acc=True)
     LAUNCHES["weighted_gram_tiled"] += 1
     return acc
 

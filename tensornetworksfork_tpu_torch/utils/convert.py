@@ -11,11 +11,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .device import resolve_device
 
-def params_from_numpy(params: Dict[str, np.ndarray], device="cpu",
+
+def params_from_numpy(params: Dict[str, np.ndarray], device="cuda",
                       dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """numpy arrays -> tensors of `dtype` on `device` (copies)."""
-    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    """numpy arrays -> tensors of `dtype` on `device` (copies). Defaults to
+    the card and raises RuntimeError where none is visible (utils/device.py);
+    pass device="cpu" for the CPU."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev)
             for k, v in params.items()}
 
 

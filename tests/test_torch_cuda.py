@@ -63,3 +63,64 @@ def test_split_weighted_gram_matches_plain_on_cuda(C, splits, dtype):
     assert kg.LAUNCHES[key] == 1
     err = float((A - A_p).abs().max())
     assert err <= 1e-5 * float(A_p.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("D", [137, 140])
+def test_split_gram_pair_matches_plain_on_cuda(D, splits, dtype):
+    """K10 (gram_pair without a carry) on the split Gram of csrc/wgram.cu
+    against its plain version, Y unrelated to X, in one split and in three;
+    D=137 loads element by element, D=140 (a row of 140 values) by 16-byte
+    (f32) and 8-byte (bf16) chunks. Held to 1e-5 of max|A| (f32 sums in
+    another order over 333 rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    gen = torch.Generator().manual_seed(60 + D + splits)
+    dev = torch.device("cuda")
+    X = torch.randn(333, D, generator=gen).to(dev, dtype)
+    Y = torch.randn(333, D, generator=gen).to(dev, dtype)
+    kg.reset_launches()
+    A = kg.mirror_gram(kg.gram_pair(X, Y, splits=splits))
+    A_p = kg.mirror_gram(kg.gram_pair_plain(X, Y))
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["gram_pair"] == 1 and kg.LAUNCHES["gram_pair_tiled"] == 0
+    err = float((A - A_p).abs().max())
+    assert err <= 1e-5 * float(A_p.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [96, 12288])
+def test_weighted_gram_tiled_carry_on_cuda(rows, dtype):
+    """K7 with the node's D < Dp (300 of 512), two chunks chained into one
+    carry, against its plain version: the carry's padding stays zero and
+    the mirrored [:D, :D] block agrees to chip_smoke's gram_tol of the
+    2 x rows summed (1e-5 of max|A| at 96 rows, 4 sqrt(24,576) 2^-24 =
+    3.7e-5 at 12,288). 96 rows take one split
+    (the carry added in the kernel's epilogue), 12,288 rows three (added by
+    the reduction, carry first)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    gen = torch.Generator().manual_seed(70)
+    dev = torch.device("cuda")
+    D, Dp = 300, 512
+    assert kg.wgram_plan(rows, D, 1, True, kg.sm_count(dev))[1] == (1 if rows < 4096 else 3)
+    acc = torch.zeros((Dp, Dp), device=dev)
+    acc_p = torch.zeros_like(acc)
+    kg.reset_launches()
+    for _ in range(2):
+        Xt, _ = kg.retile_rows(torch.randn(rows, D, generator=gen).to(dev, dtype), Dp)
+        h = (torch.rand(rows, generator=gen) + 0.5).to(dev)
+        kg.weighted_gram_tiled(Xt, h, acc, D)
+        kg.weighted_gram_tiled_plain(Xt, h, acc_p)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["weighted_gram_tiled"] == 2
+    assert not acc[D:].any() and not acc[:, D:].any()
+    A, A_p = kg.mirror_gram(acc[:D, :D]), kg.mirror_gram(acc_p[:D, :D])
+    err = float((A - A_p).abs().max())
+    tol = max(1e-5, 4 * (2 * rows) ** 0.5 * 2.0 ** -24)
+    assert err <= tol * float(A_p.abs().max()), err

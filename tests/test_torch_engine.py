@@ -63,7 +63,7 @@ def test_params_roundtrip_and_init():
     seeded (same seed, same draws) and unit-norm per node."""
     jl, tl = tiny_layers()
     p = {k: np.asarray(v) for k, v in jl.params.items()}
-    back = params_to_numpy(params_from_numpy(p))
+    back = params_to_numpy(params_from_numpy(p, device="cpu"))
     assert all(np.array_equal(back[k], p[k]) for k in p)
     again = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=0,
                    device="cpu")
@@ -159,7 +159,7 @@ def test_node_system_matches(node, monkeypatch):
     Aj, bj, pj_pred, j_packed = _node_system(
         jnet, jl.params, jnp.asarray(X), ni, np.asarray, JXE(1.0), jnp.asarray)
     At, bt, pt_pred, t_packed = _node_system(
-        tl.network, params_from_numpy(p_np), torch.tensor(X), ni,
+        tl.network, params_from_numpy(p_np, device="cpu"), torch.tensor(X), ni,
         lambda a: a.numpy(), TXE(1.0), torch.tensor)
     assert t_packed == j_packed
     for out, ref in ((pt_pred, pj_pred), (At, Aj), (bt, bj)):
@@ -174,7 +174,8 @@ def test_forward_and_envs_match():
     runs on both sides)."""
     jl, tl = tiny_layers()
     X, _ = tiny_data()
-    p = params_from_numpy({k: np.asarray(v) for k, v in jl.params.items()})
+    p = params_from_numpy({k: np.asarray(v) for k, v in jl.params.items()},
+                          device="cpu")
     ref = np.asarray(jl.network.forward(jl.params, jnp.asarray(X)))
     out = tl.network.forward(p, torch.tensor(X)).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * np.abs(ref).max())

@@ -181,6 +181,45 @@ def test_gram_pair_flat_matches_pallas(dtype):
     np.testing.assert_allclose(A_t, A_j, rtol=0, atol=1e-5 * np.abs(A_j).max())
 
 
+def split_pair_sum(X, Y, splits):
+    """K10 as the split kernel sums it, in plain PyTorch: A = sum_z X_zᵀ Y_z
+    over the row ranges that tg.split_rows plans, each partial Gram in f32,
+    added in split order in f32."""
+    n, rps = tg.split_rows(X.shape[0], splits)
+    A = None
+    for z in range(n):
+        rs = slice(z * rps, (z + 1) * rps)
+        part = X[rs].float().T @ Y[rs].float()
+        A = part if A is None else A + part
+    return A, n
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_split_gram_pair_matches_pallas(dtype, splits):
+    """K10 in the split kernel's order of sums against the Pallas gram_pair
+    (symmetric: upper tiles, mirrored) at a ragged shape — 333 rows, D=137,
+    Y unrelated to X, so only the upper triangle of XᵀY is the result on
+    both sides. rtol 1e-5 of max|A|: f32 sums over at most 333 rows in
+    another order (bf16 products are exact in f32)."""
+    rng = np.random.default_rng(50 + splits)
+    rows, D = 333, 137
+    jd = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    X = torch.tensor(rng.standard_normal((rows, D)).astype(np.float32)).to(td)
+    Y = torch.tensor(rng.standard_normal((rows, D)).astype(np.float32)).to(td)
+    A_j = np.asarray(jg.gram_pair(jnp.asarray(X.float().numpy(), jd),
+                                  jnp.asarray(Y.float().numpy(), jd),
+                                  interpret=True, symmetric=True))
+    A_t, n = split_pair_sum(X, Y, splits)
+    assert n == splits
+    A_t = tg.mirror_gram(A_t).numpy()
+    np.testing.assert_allclose(A_t, A_j, rtol=0, atol=1e-5 * np.abs(A_j).max())
+    # the wrapper's plain version on the CPU agrees as well
+    A_w = tg.mirror_gram(tg.gram_pair(X, Y, splits=splits)).numpy()
+    np.testing.assert_allclose(A_w, A_j, rtol=0, atol=1e-5 * np.abs(A_j).max())
+
+
 def test_port_never_imports_jax():
     """The GPU machine has no JAX: no module of the port, and not
     chip_smoke.py, may import it or the JAX package."""
@@ -249,3 +288,24 @@ def test_kernels_match_plain_on_cuda():
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     chip_smoke.check_kernels(torch.device("cuda"), S=40, D=700, rows4=333, D4=137)
+
+
+def test_k10_float64_check_sees_rounded_operands():
+    """chip_smoke's float64 check of K10 in f32: the plain f32 Gram of
+    full-mantissa f32 operands stays under PAIR_BOUND, and the same operands
+    rounded to bf16 or to TF32 (10 mantissa bits, to nearest) fail it by a
+    wide margin, so a kernel that rounds its f32 operands cannot pass."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 3 * 2 ** -11)])
+    assert chip_smoke.tf32_round(x).tolist() == [1 + 2 ** -10, 1.0, -(1 + 2 ** -9)]
+    rng = np.random.default_rng(70)
+    X, Y = (torch.tensor(rng.standard_normal((333, 137), np.float32) * 0.05)
+            for _ in range(2))
+    A64, scale = chip_smoke.pair_float64(X, Y)
+    bound = chip_smoke.PAIR_BOUND
+    assert chip_smoke.pair_errors(tg.gram_pair(X, Y), A64, scale)[1] <= bound
+    for rnd in (lambda t: t.to(torch.bfloat16), chip_smoke.tf32_round):
+        B = tg.gram_pair(rnd(X), rnd(Y))
+        assert chip_smoke.pair_errors(B, A64, scale)[1] > 10 * bound

@@ -42,7 +42,7 @@ def swipe_both(X, Y, seed=0):
                        JConfig(**CFG)).run([jl.params], jnp.asarray(X),
                                            jnp.asarray(Y))
     pt, okt = Sweeper(tl.network, TXE(1.0), SweepConfig(**CFG)).run(
-        [params_from_numpy(p0)], torch.tensor(X), torch.tensor(Y))
+        [params_from_numpy(p0, device="cpu")], torch.tensor(X), torch.tensor(Y))
     pj = {k: np.asarray(v) for k, v in pj[0].items()}
     pred_j = np.asarray(jl.network.forward(pj, jnp.asarray(X)))
     pred_t = tl.network.forward(pt[0], torch.tensor(X)).numpy()
@@ -146,7 +146,7 @@ def test_sum_of_conv_tts_swipe_matches_jax(monkeypatch):
     pj, okj = JSweeper(jm, JXE(1.0), JConfig(**CFG)).run(
         [l.params for l in jls], jnp.asarray(X), jnp.asarray(Y))
     pt, okt = Sweeper(tm, TXE(1.0), SweepConfig(**CFG)).run(
-        [params_from_numpy(p) for p in p0], torch.tensor(X), torch.tensor(Y))
+        [params_from_numpy(p, device="cpu") for p in p0], torch.tensor(X), torch.tensor(Y))
     assert okj and okt
     pred_j = np.asarray(jsum(jnp.asarray(X), params_list=pj))
     pred_t = tsum(torch.tensor(X), params_list=pt).numpy()

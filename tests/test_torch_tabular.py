@@ -75,7 +75,7 @@ def swipe_both(X, Y, C=1, seed=0):
                        JConfig(**CFG)).run([jl.params], jnp.asarray(X),
                                            jnp.asarray(Y))
     pt, okt = Sweeper(tl.network, tloss, SweepConfig(**CFG)).run(
-        [params_from_numpy(p0)], torch.tensor(X), torch.tensor(Y))
+        [params_from_numpy(p0, device="cpu")], torch.tensor(X), torch.tensor(Y))
     pred_j = np.asarray(jl.network.forward(
         {k: np.asarray(v) for k, v in pj[0].items()}, jnp.asarray(X)))
     pred_t = tl.network.forward(pt[0], torch.tensor(X)).numpy()
@@ -182,9 +182,9 @@ def build_estimators(model_type, **kw):
         e.input_dim = F  # F - 1 features and the bias column
         e._initialize_model()
     if model_type == "tt":
-        te._model.params = params_from_numpy(je._model.params)
+        te._model.params = params_from_numpy(je._model.params, device="cpu")
     else:
-        te._model.set_params_list([params_from_numpy(p)
+        te._model.set_params_list([params_from_numpy(p, device="cpu")
                                    for p in je._model.params_list])
     return je, te
 
@@ -247,7 +247,7 @@ def test_train_tabular_synthetic_matches_jax(tmp_path, monkeypatch):
         je = JEst(N=self.N, r=self.r, seed=self.seed, model_type=self.model_type)
         je.input_dim = self.input_dim
         je._initialize_model()
-        self._model.params = params_from_numpy(je._model.params)
+        self._model.params = params_from_numpy(je._model.params, device="cpu")
 
     monkeypatch.setattr(TEst, "_initialize_model", build_with_jax_init)
     monkeypatch.setenv("TNF_FIT_PRECOMPILE", "0")
@@ -336,7 +336,7 @@ def _no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["estimator", "tt_layer", "conv_tt_layer",
-                                   "network", "cli"])
+                                   "network", "cli", "params_from_numpy"])
 def test_entry_points_need_the_card_unless_asked(entry, tmp_path, monkeypatch):
     """Without a device argument every entry point asks for the card; where
     none is visible it raises RuntimeError telling the caller to pass the
@@ -354,6 +354,7 @@ def test_entry_points_need_the_card_unless_asked(entry, tmp_path, monkeypatch):
         "network": lambda: Network(TLayer(N, R, F, device="cpu").topology),
         "cli": lambda: ttt.main(["--dataset", "synthetic", "--num_swipes", "1",
                                  "--verbose", "0", "--results_file", str(out)]),
+        "params_from_numpy": lambda: params_from_numpy({"A1": np.zeros((2, 3))}),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
@@ -400,7 +401,7 @@ def test_continued_fit_matches_jax(monkeypatch):
     for e in (je, te):
         e.input_dim = X.shape[1] + 1
         e._initialize_model()
-    te._model.params = params_from_numpy(je._model.params)
+    te._model.params = params_from_numpy(je._model.params, device="cpu")
     rmse = []
     for swipes in (2, 1):
         je.num_swipes = te.num_swipes = swipes

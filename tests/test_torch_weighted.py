@@ -201,6 +201,56 @@ def test_split_plan_fills_the_card():
         assert npairs * n >= 3.5 * sms
 
 
+def test_split_plan_of_the_flagship_a4():
+    """K10 at the conv-TT flagship's A4 (73,728 rows, D=900: 36 upper
+    tiles) on 132 SMs, in both dtypes: split so that the CTAs fill whole
+    waves of WGRAM_RESIDENT = 2 CTAs an SM — 7 splits, 252 CTAs in one wave
+    of 264 slots."""
+    sms = 132
+    npairs, n, rps = tg.wgram_plan(73728, 900, 1, True, sms)
+    assert npairs == 36 and n > 1 and rps >= tg.SPLIT_MIN_ROWS
+    slots = tg.WGRAM_RESIDENT * sms
+    waves = -(-npairs * n // slots)
+    assert npairs * n >= 0.95 * waves * slots
+    assert (n, waves) == (7, 1)
+
+
+def tiled_carry_sum(Xt, h, acc, D):
+    """K7 as the split kernel sums it (one split), in plain PyTorch: the
+    chunk's weighted Gram over the node's D columns added to the carry once
+    per element (carry + chunk sum); the carry past D is not touched."""
+    part = tg._weighted_operand(Xt[:, :D], h).T @ Xt[:, :D].float()
+    acc[:D, :D] = acc[:D, :D] + part
+    return acc
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_weighted_gram_tiled_narrow_carry_matches_pallas(dtype):
+    """K7 with the node's D < Dp, two chunks chained into one carry: the
+    kernel's order of sums (tiled_carry_sum) and the wrapper (its plain
+    version here) against the Pallas acc kernel, mirrored once, to 1e-5 of
+    max|A|; the carry's padding rows and columns stay zero."""
+    rng = np.random.default_rng(60)
+    rows, D, n = 64, 300, 3
+    Dp = n * TILE
+    jd, td = DTYPES[dtype]
+    acc_j = jnp.zeros((Dp, Dp), jnp.float32)
+    acc_e = torch.zeros((Dp, Dp))
+    acc_t = torch.zeros((Dp, Dp))
+    for _ in range(2):
+        Xn, Xt = operand(rng, rows, D, Dp, dtype)
+        h = rng.uniform(0.5, 2.0, rows).astype(np.float32)
+        acc_j = jg.weighted_gram_tiled(jnp.asarray(rows_to_slabs(Xn), jd),
+                                       jnp.asarray(h), interpret=True, tile=TILE,
+                                       block=32, acc=acc_j)
+        tiled_carry_sum(Xt, torch.tensor(h), acc_e, D)
+        assert tg.weighted_gram_tiled(Xt, torch.tensor(h), acc_t, D) is acc_t
+    A_j = np.asarray(jg.mirror_gram(acc_j))[:D, :D]
+    for acc in (acc_e, acc_t):
+        assert not acc[D:].any() and not acc[:, D:].any()
+        assert_close_rel(tg.mirror_gram(acc[:D, :D]).numpy(), A_j)
+
+
 @pytest.mark.parametrize("splits", [1, 3, 4])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_split_weighted_gram_matches_pallas(dtype, splits):
