@@ -14,25 +14,28 @@ printing its own lines:
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, with its tolerance, and the kernel's, the
    plain version's and (where one PyTorch call computes the same function)
-   that library call's times (CUDA events, median of 5), beside the kernel's
-   bound: the larger of its operations over the card's peak for their type
-   and its bytes over the memory rate (PEAK, HBM below). K1, K2, K3, K6 (f32,
-   bf16 beside it) and K10 (bf16 and f32; the f32 operands full-mantissa and
-   held to float64, with bf16- and TF32-rounded controls that must fail) at
-   the conv-TT flagship's shapes; K8, K7, K9 and K11
-   at the regression's (K7 and K9 also in bf16, K11 also at the flagship's
-   first core), with the row split the split Gram (K10, K9, K11) plans for
-   each. The kernels of `csrc/gram.cu`: K1 `retile_hmix_kernel`, K2
-   `quantize_kernel`, K3 `gram_q_kernel`, K6 `gram_f_kernel` (with its
-   carry), K8 `retile_rows_kernel`; of `csrc/wgram.cu`, the split Gram
+   that library call's times (CUDA events around back-to-back calls, median
+   of 5; K8's, shorter than a launch from the host, as CUDA graphs of 20
+   calls), beside the kernel's bound: the larger of its operations over the
+   card's peak for their type and its bytes over the memory rate (PEAK, HBM
+   below). K1, K2, K3, K6 (bf16 and f32) and K10 (bf16 and f32) at the
+   conv-TT flagship's shapes, K6 and K10 in f32 on full-mantissa operands
+   held to float64, with bf16- and TF32-rounded controls that must fail;
+   K8, K7, K9 and K11 at the regression's (K7 and K9 also in bf16, K11 also
+   at the flagship's first core), with the row split the split Gram (K10,
+   K9, K11) plans for each. The kernels of `csrc/gram.cu`: K1
+   `retile_hmix_kernel`, K2 `quantize_kernel`, K3 `gram_q_kernel`, K8
+   `retile_rows_kernel`; of `csrc/wgram.cu`: K6 in f32 `gram_tf32x3_kernel`
+   (3xTF32 on the tensor cores, with its carry), and the split Gram
    (`wgram_f32_kernel` for f32 operands, `wgram_bf16_kernel` on the tensor
    cores for bf16 ones, `wgram_reduce_kernel` adding the splits): K10
-   unweighted, K7 with a carry, K9, K11;
+   unweighted, K6 in bf16 and K7 with a carry, K9, K11;
 4. slice — one swipe of `Sweeper.run` on the flagship conv-TT
    (N=4, r=18, CB=8, 50 patches x 17 pixels, 9 logits, random weights from a
    seed) over 8192 synthetic samples in the int8 Gram tier (K1, K2, K3;
    K10 on bf16 operands), then one in the f32 tier (K1, K6; K10 on f32
-   operands); the launch counters show every kernel of each run ran, and
+   operands) and one in the bf16 tier (K1, K6 and K10 on bf16 operands);
+   the launch counters show every kernel of each run ran, and
    each swipe must lower the training loss, keep every parameter finite and
    report no singular solve;
 5. regression — `TensorTrainRegressor(N=3, r=8)` fitted for two swipes on
@@ -71,11 +74,12 @@ BATCH = 2048
 REGRESSION = dict(N=3, r=8, d=128, fit=65536, val=16384, batch=512)
 # the kernels each path must launch (the flagship's by Gram tier)
 FLAGSHIP_KERNELS = {"int8": ("retile_hmix", "quantize_tiled", "gram_pair_q", "gram_pair"),
-                    "f32": ("retile_hmix", "gram_pair_tiled", "gram_pair")}
+                    "f32": ("retile_hmix", "gram_pair_tiled", "gram_pair"),
+                    "bf16": ("retile_hmix", "gram_pair_tiled", "gram_pair")}
 REGRESSION_KERNELS = ("retile_rows", "weighted_gram_tiled", "weighted_gram")
-# published peaks of one H100 SXM (dense): f32 on the FMA units, bf16 and
-# int8 on the tensor cores, and the HBM rate; the bound of a kernel's work
-PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# published peaks of one H100 SXM (dense): f32 on the FMA units, bf16, TF32
+# and int8 on the tensor cores, and the HBM rate; the bound of a kernel's work
+PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12, "int8": 1979e12}
 HBM = 3.35e12
 
 
@@ -84,11 +88,12 @@ def log(msg: str) -> None:
 
 
 def bound(ops: float, nbytes: float, kind: str):
-    """(ms, "operations" | "bytes"): the least time the card could take for
-    `ops` operations of type `kind` that move `nbytes` bytes (each input
-    read once, each output written once)."""
+    """(ms, "operations" | "bytes", kind): the least time the card could
+    take for `ops` operations of type `kind` that move `nbytes` bytes (each
+    input read once, each output written once)."""
     t_ops, t_bytes = ops / PEAK[kind], nbytes / HBM
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            kind)
 
 
 def nbytes(*ts) -> int:
@@ -130,20 +135,42 @@ def env(**values):
 
 
 def time_ms(fn, reps: int = 5) -> float:
-    """Median over `reps` runs of fn's device time, from CUDA events (one
-    warm-up run first)."""
+    """fn's device time: the median over `reps` runs of CUDA events around n
+    back-to-back calls, divided by n. A warm-up call picks n so that a run
+    lasts about 2 ms (at most 100 calls; 1 for calls of 2 ms or more), so a
+    short kernel is timed over many launches, not one."""
     import torch
-    fn()
-    times = []
-    for _ in range(reps):
+
+    def run(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        return start.elapsed_time(end) / n
+
+    n = int(min(100, max(1, np.ceil(2.0 / max(run(1), 1e-3)))))
+    return float(np.median([run(n) for _ in range(reps)]))
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """fn's device time without the host's launch overhead: `calls` calls
+    captured in one CUDA graph, its replay timed by time_ms, divided by
+    `calls` (for a call too short to keep the card busy from the host)."""
+    import torch
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    ms = time_ms(graph.replay) / calls
+    del graph
+    return ms
 
 
 def bf16_ulp(x):
@@ -212,6 +239,39 @@ def pair_errors(B, A64, scale):
     its 405,450 upper entries by several times that."""
     d = (B.double() - A64).abs().triu()
     return float(d.max()), float((d / scale).max())
+
+
+def hold_to_float64(name, B, B_plain, X, Y, controls: bool):
+    """Hold a kernel's Gram B of X, Y (upper triangle) to float64 entry by
+    entry (pair_errors, PAIR_BOUND); the plain f32 result B_plain beside it.
+    With `controls` (f32 operands) the same operands rounded to bf16 and to
+    TF32 must fail the check, so it sees a kernel that rounds its f32
+    operands. Returns (kernel's max |dA|, its ratio, plain's |dA|, its ratio,
+    a note)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    u = 2.0 ** -24
+    A64, scale64 = pair_float64(X, Y)
+    (e64, r64), (e64_p, r64_p) = (pair_errors(b, A64, scale64) for b in (B, B_plain))
+    log(f"[kernels] {name} vs float64 (max|dA|, and its largest over the entry's "
+        f"scale in 2^-24, bound {PAIR_BOUND / u:.3g}): kernel {e64:.3g} "
+        f"({r64 / u:.3g}), plain f32 {e64_p:.3g} ({r64_p / u:.3g})")
+    if not r64 <= PAIR_BOUND:
+        raise AssertionError(f"{name}: float64 error {r64 / u} 2^-24 of the scale "
+                             f"> {PAIR_BOUND / u}")
+    note = ""
+    if controls:
+        ctl = {what: pair_errors(kg.gram_pair_plain(rnd(X), rnd(Y)), A64, scale64)[1]
+               for what, rnd in (("bf16", lambda t: t.to(torch.bfloat16)),
+                                 ("TF32", tf32_round))}
+        note = ", ".join(f"{w}-rounded {r / u:.3g}" for w, r in ctl.items())
+        log(f"[kernels] {name} float64 controls (must exceed {PAIR_BOUND / u:.3g}): {note}")
+        passed = [w for w, r in ctl.items() if r <= PAIR_BOUND]
+        if passed:
+            raise AssertionError(f"{name}: the float64 check passes operands rounded to "
+                                 f"{passed}, so it cannot see precision")
+        note = f"; controls {note}"
+    return e64, r64, e64_p, r64_p, note
 
 
 def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
@@ -301,15 +361,15 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         note=f"tol 1e-5*max|A| = {tol:.3g}"))
     del Q1, s1, Q2, s2, acc
 
-    # K6: the float Gram with carry at the A2 shape. Its main path, the f32
-    # swipe, gives it f32 operands: held and timed on full-mantissa f32 ones
-    # (its `kernels` entry); the bf16 tier's operands are held and timed
-    # beside them
+    # K6: the float Gram with carry at the A2 shape, over the node's D of the
+    # (rows, Dp) tiled operands. bf16: K1's operands (the bf16 swipe's);
+    # f32: full-mantissa f32 ones (the f32 swipe's), held to float64 as K10
+    # in f32 is, with bf16- and TF32-rounded controls that must fail
     def carry_gram(X, Y):
         """K6 and its plain version from a zero carry: (err, tol, acc)."""
         acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
         acc_p = torch.zeros_like(acc)
-        kg.gram_pair(X, Y, acc=acc)
+        kg.gram_pair(X, Y, acc=acc, D=D)
         kg.gram_pair_plain(X, Y, acc=acc_p)
         A, A_p = kg.mirror_gram(acc), kg.mirror_gram(acc_p)
         torch.cuda.synchronize()
@@ -321,28 +381,45 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
 
     rows2 = Jt.shape[0]
     err6b, tol6b, acc = carry_gram(Jt, Kt)
-    Jf, Kf = Jt.float(), Kt.float()  # the library call's f32 operands
-    ms6b = time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc))
-    plain6b = time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc))
-    lib6b = time_ms(lambda: acc.addmm_(Jf.T, Kf))
-    bnd6b = bound(gram_ops(rows2, Dp), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16")
-    del acc, Jt, Kt, J3, Jf, Kf
+    with bf16_f32_reduction():
+        lib6b = time_ms(lambda: torch.mm(Jt.T, Kt))
+    Jf, Kf = Jt.float(), Kt.float()
+    up6b = time_ms(lambda: acc.addmm_(Jf.T, Kf))
+    del Jf, Kf
+    results.append(dict(
+        name="gram_pair_tiled", dtype="bf16", err=err6b,
+        ms=time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc, D=D)),
+        plain_ms=time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc)),
+        library_ms=lib6b,
+        bound=bound(gram_ops(rows2, D), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
+        note=f"A2 shape with carry ({rows2}x{Dp}, D {D}, bf16 from K1), tol {tol6b:.3g}; "
+             f"split Gram wgmma, 1 split; library: torch.mm on the bf16 operands "
+             f"(bf16 out, f32 sums); acc.addmm_ on them upcast to f32 {up6b:.3f} ms"))
+    del acc, Jt, Kt, J3
     gen = torch.Generator(device=device).manual_seed(6)
     J6, K6 = (torch.nn.functional.pad(
         torch.randn((rows2, D), generator=gen, device=device) * 0.05, (0, Dp - D))
         for _ in range(2))
     err6, tol6, acc = carry_gram(J6, K6)
+    e64, r64, e64_p, r64_p, ctl = hold_to_float64(
+        "gram_pair_tiled (f32)", acc[:D, :D], kg.gram_pair_plain(J6[:, :D], K6[:, :D]),
+        J6[:, :D], K6[:, :D], controls=True)
+    # the split Gram's f32 FMA kernel on the same operands: the route K6 in
+    # f32 would take if the 3xTF32 kernel were not faster
+    fma = time_ms(lambda: kg._launch_wgram_split(J6, None, 0, None, acc, D, True, 1,
+                                                 "gram_pair", Y=K6, has_acc=True))
+    u = 2.0 ** -24
     results.append(dict(
         name="gram_pair_tiled", dtype="f32", err=err6,
-        ms=time_ms(lambda: kg.gram_pair(J6, K6, acc=acc)),
+        ms=time_ms(lambda: kg.gram_pair(J6, K6, acc=acc, D=D)),
         plain_ms=time_ms(lambda: kg.gram_pair_plain(J6, K6, acc=acc)),
         library_ms=time_ms(lambda: acc.addmm_(J6.T, K6)),
-        bound=bound(gram_ops(rows2, Dp), nbytes(J6, K6) + 2 * nbytes(acc), "f32"),
-        note=f"A2 shape with carry ({rows2}x{Dp} full-mantissa f32), tol {tol6:.3g}; "
-             f"library: acc.addmm_; bf16 operands: kernel {ms6b:.3f} ms, plain "
-             f"{plain6b:.3f} ms, library {lib6b:.3f} ms (acc.addmm_ on them upcast "
-             f"to f32), bound {bnd6b[0]:.3f} ms ({bnd6b[1]}), max|dA| {err6b:.3g} "
-             f"(tol {tol6b:.3g})"))
+        # three TF32 products a multiply-add
+        bound=bound(3 * gram_ops(rows2, D), nbytes(J6, K6) + 2 * nbytes(acc), "tf32"),
+        note=f"A2 shape with carry ({rows2}x{Dp}, D {D}, full-mantissa f32), tol "
+             f"{tol6:.3g}; 3xTF32 wgmma; float64 error {e64:.3g} (plain f32 {e64_p:.3g}), "
+             f"{r64 / u:.3g} 2^-24 of the scale (plain {r64_p / u:.3g}){ctl}; the split "
+             f"Gram's f32 FMA kernel on them {fma:.3f} ms; library: acc.addmm_"))
     del acc, J6, K6
 
     # K10: the flat float Gram at the A4 shape (the split Gram of
@@ -357,39 +434,18 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     _, splits, rps = kg.wgram_plan(rows, D4, 1, True, sms)
     log(f"[kernels] gram_pair plan at {rows}x{D4}: {splits} row splits of {rps} "
         f"rows on {sms} SMs")
-    u = 2.0 ** -24
     for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         X, Y = (torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
                              device=device).to(dt) for _ in range(2))
-        A64, scale64 = pair_float64(X, Y)
         A = kg.mirror_gram(kg.gram_pair(X, Y))
         A_p = kg.mirror_gram(kg.gram_pair_plain(X, Y))
         torch.cuda.synchronize()
         err10 = float((A - A_p).abs().max())
         scale = float(A_p.abs().max())
-        (e64, r64), (e64_p, r64_p) = (pair_errors(B, A64, scale64) for B in (A, A_p))
         log(f"[kernels] gram_pair ({kind}) max|dA| vs plain {err10:.3g} "
-            f"(1e-5*max|A| = {1e-5 * scale:.3g}); vs float64 (max|dA|, and its "
-            f"largest over the entry's scale in 2^-24, bound {PAIR_BOUND / u:.3g}): "
-            f"kernel {e64:.3g} ({r64 / u:.3g}), plain f32 {e64_p:.3g} ({r64_p / u:.3g})")
-        if not r64 <= PAIR_BOUND:
-            raise AssertionError(f"gram_pair (A4, {kind}): float64 error {r64 / u} "
-                                 f"2^-24 of the scale > {PAIR_BOUND / u}")
-        controls = ""
-        if kind == "f32":
-            ctl = {what: pair_errors(kg.gram_pair_plain(rnd(X), rnd(Y)), A64, scale64)[1]
-                   for what, rnd in (("bf16", lambda t: t.to(torch.bfloat16)),
-                                     ("TF32", tf32_round))}
-            controls = ", ".join(f"{w}-rounded {r / u:.3g}" for w, r in ctl.items())
-            log(f"[kernels] gram_pair (f32) float64 controls (must exceed "
-                f"{PAIR_BOUND / u:.3g}): {controls}")
-            passed = [w for w, r in ctl.items() if r <= PAIR_BOUND]
-            if passed:
-                raise AssertionError(f"gram_pair (f32): the float64 check passes "
-                                     f"operands rounded to {passed}, so it cannot "
-                                     "see precision")
-            controls = f"; controls {controls}"
-        del A64, scale64
+            f"(1e-5*max|A| = {1e-5 * scale:.3g})")
+        e64, r64, e64_p, r64_p, controls = hold_to_float64(
+            f"gram_pair (A4, {kind})", A, A_p, X, Y, controls=kind == "f32")
         tol10, rule = 1e-5 * scale, "1e-5*max|A|"
         if not err10 <= tol10:
             # the kernel's order of sums, not a looser check: held to
@@ -481,15 +537,20 @@ def check_weighted_kernels(device, small=False):
             if not torch.equal(Jt, Jt_p) or (h is not None and not torch.equal(Kt, Kt_p)):
                 raise AssertionError(f"retile_rows ({dt}, h={h is not None}) "
                                      "differs from the plain version")
+    # K8 takes less time on the card than its launch takes on the host, so
+    # it, its plain version and the pad are timed on the card alone
+    # (graph_ms); back-to-back launches from the host are in the note
     X = randn(rows2, D2)
+    k8 = lambda: kg.retile_rows(X, Dp2)
+    pad = lambda: torch.nn.functional.pad(X, (0, Dp2 - D2))
     results.append(dict(
-        name="retile_rows", dtype="f32", err=0.0,
-        ms=time_ms(lambda: kg.retile_rows(X, Dp2)),
-        plain_ms=time_ms(lambda: kg.retile_rows_plain(X, Dp2)),
-        library_ms=time_ms(lambda: torch.nn.functional.pad(X, (0, Dp2 - D2))),
+        name="retile_rows", dtype="f32", err=0.0, ms=graph_ms(k8),
+        plain_ms=graph_ms(lambda: kg.retile_rows_plain(X, Dp2)), library_ms=graph_ms(pad),
         bound=bound(0.0, nbytes(X) + rows2 * Dp2 * 4, "f32"),
         note=f"({rows2}x{D2} -> {Dp2}) f32; Jt and Kt bit-equal in f32 and bf16; "
-             "library: the pad"))
+             f"library: the pad; times on the card alone (CUDA graph of 20 calls); "
+             f"launched back to back from the host: kernel {time_ms(k8) * 1e3:.2f} us, "
+             f"pad {time_ms(pad) * 1e3:.2f} us a call"))
 
     # K7: two chained carries over the node's D < Dp, f32 and bf16; the
     # carry's padding stays zero
@@ -869,18 +930,20 @@ def main() -> int:
     kernels = check_kernels(device) + check_weighted_kernels(device)
     flagship = run_slice(device, "int8")
     flagship32 = run_slice(device, "f32")
+    flagship16 = run_slice(device, "bf16")
     fit, own = run_regression(device)
     check_reference(device)
 
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
-    # and K10 on f32 operands), the regression fit and its own-out swipe
-    # (K11)
+    # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
+    # regression fit and its own-out swipe (K11)
     launches = {("retile_hmix", "bf16"): flagship["retile_hmix"],
                 ("quantize_tiled", "bf16"): flagship["quantize_tiled"],
                 ("gram_pair_q", "int8"): flagship["gram_pair_q"],
                 ("gram_pair", "bf16"): flagship["gram_pair"],
                 ("gram_pair_tiled", "f32"): flagship32["gram_pair_tiled"],
+                ("gram_pair_tiled", "bf16"): flagship16["gram_pair_tiled"],
                 ("gram_pair", "f32"): flagship32["gram_pair"],
                 **{(k, "f32"): fit[k] for k in REGRESSION_KERNELS},
                 ("own_out_gram", "f32"): own["own_out_gram"]}
@@ -890,14 +953,16 @@ def main() -> int:
                "gram_pair_tiled": 873, "gram_pair": 550, "retile_rows": 657,
                "weighted_gram_tiled": 1439, "weighted_gram": 335,
                "own_out_gram": 1373}
-    split_gram = ("gram_pair", "weighted_gram_tiled", "weighted_gram", "own_out_gram")
+    float_gram = ("gram_pair", "gram_pair_tiled", "weighted_gram_tiled", "weighted_gram",
+                  "own_out_gram")
     print(json.dumps({"kernels": [
         {"name": k["name"], "dtype": k["dtype"], "route": "cuda",
-         "source": f"{csrc}/wgram.cu" if k["name"] in split_gram else f"{csrc}/gram.cu",
+         "source": f"{csrc}/wgram.cu" if k["name"] in float_gram else f"{csrc}/gram.cu",
          "replaces": f"{pallas}:{sources[k['name']]}",
          "launches": launches[k["name"], k["dtype"]],
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+         "bound_type": k["bound"][2] + (", 3 products a multiply-add" if k["bound"][2] == "tf32" else ""),
          "library_ms": k["library_ms"]}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

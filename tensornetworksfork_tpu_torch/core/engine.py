@@ -528,11 +528,12 @@ class Network:
                 del Jt, Kt
                 kgram.gram_pair_band_q(Q1, s1, Q2, s2, acc)
             elif diag:
-                # the weighting rides the Gram kernel's operand load; tiles
-                # past the node's D (the layout's zero padding) are skipped
+                # the weighting rides the Gram kernel's operand load; here
+                # and below, tiles past the node's D (the layout's zero
+                # padding) are skipped
                 kgram.weighted_gram_tiled(Jt, h, acc, D)
             else:
-                kgram.gram_pair(Jt, Kt, acc=acc)
+                kgram.gram_pair(Jt, Kt, acc=acc, D=D)
             if finish:
                 return self.packed_gram_finisher(pj)(acc), b
             return acc, b

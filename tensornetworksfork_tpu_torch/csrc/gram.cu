@@ -1,8 +1,8 @@
 // Gram-path kernels of the sweep trainer, hand-written for Hopper (sm_90a).
 //
 // Port of the Pallas kernels in tensornetworksfork_tpu/ops/pallas/gram.py
-// (the split Grams K7, K9, K10 and K11 are in wgram.cu). Five kernels, each
-// behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
+// (the float Grams K6, K7, K9, K10 and K11 are in wgram.cu). Four kernels,
+// each behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
 // binds with ctypes. Every entry launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() so the wrapper can raise.
 //
@@ -11,8 +11,6 @@
 //   quantize     <- _quant_kernel / quantize_tiled           (K2)
 //   gram_q       <- _make_band_kernel_q / gram_pair_band_q    (K3) and
 //                   _pair_kernel_tiled_q / gram_pair_tiled_q  (K4)
-//   gram_f       <- _pair_kernel_tiled / gram_pair_tiled      (K6, K5 folded
-//                   into its carry epilogue)
 //
 // Layouts: a Gram operand is row-major (rows, cols); rows are (class, sample)
 // pairs, columns the node's flattened D. Gram outputs are (cols, cols) f32;
@@ -77,21 +75,71 @@ __global__ void retile_hmix_kernel(const T* __restrict__ J, const float* __restr
 // Jt[r, c] = X[r, c] for c < D and 0 for D <= c < Dp (the tiled layout:
 // row-major, columns zero-padded). With Kt, also Kt[r, c] = X[r, c] * h[r]
 // multiplied in f32 and rounded once to T (0 in the padding): the int8
-// diagonal route's K, formed while X is in registers. Threads run along the
-// columns (coalesced), CTAs of the y grid stride over the rows.
-template <typename T>
-__global__ void retile_rows_kernel(const T* __restrict__ X, const float* __restrict__ h,
-                                   T* __restrict__ Jt, T* __restrict__ Kt,
-                                   int rows, int D, int Dp) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Dp) return;
-  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
-    const size_t o = (size_t)r * Dp + c;
-    const bool in = c < D;
-    const T x = in ? X[(size_t)r * D + c] : from_f32<T>(0.f);
-    Jt[o] = x;
-    if (Kt) Kt[o] = in ? from_f32<T>(__fmul_rn(to_f32(x), h[r])) : from_f32<T>(0.f);
+// diagonal route's K, formed while X is in registers. Bound by bytes: one
+// read of X, one or two writes. A thread moves packs of V values (V = 16
+// bytes' worth where D, Dp and the pointers allow, else 1): each grid-stride
+// pass loads kRU packs before it stores them, and the grid is sized to the SMs.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+constexpr int kRU = 4;  // packs a thread has in flight
+
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+retile_rows_kernel(const T* __restrict__ X, const float* __restrict__ h, T* __restrict__ Jt,
+                   T* __restrict__ Kt, int rows, int D, int Dp) {
+  using P = Pack<T, V>;
+  const int nv = Dp / V, nvd = D / V;  // packs a row, of them from X
+  const long long n = (long long)rows * nv;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x; i0 < n;
+       i0 += kRU * stride) {
+    P x[kRU];
+    int r[kRU], c[kRU];
+#pragma unroll
+    for (int u = 0; u < kRU; ++u) {
+      const long long i = i0 + u * stride;
+      r[u] = (int)(i / nv);
+      c[u] = (int)(i - (long long)r[u] * nv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) x[u].v[j] = from_f32<T>(0.f);
+      if (i < n && c[u] < nvd) x[u] = reinterpret_cast<const P*>(X + (size_t)r[u] * D)[c[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kRU; ++u) {
+      if (i0 + u * stride >= n) break;
+      const size_t o = (size_t)r[u] * nv + c[u];
+      reinterpret_cast<P*>(Jt)[o] = x[u];
+      if (Kt) {
+        P k = x[u];
+        if (c[u] < nvd) {
+          const float hr = h[r[u]];
+#pragma unroll
+          for (int j = 0; j < V; ++j) k.v[j] = from_f32<T>(__fmul_rn(to_f32(x[u].v[j]), hr));
+        }
+        reinterpret_cast<P*>(Kt)[o] = k;
+      }
+    }
   }
+}
+
+template <typename T>
+int launch_retile_rows(const T* X, const float* h, T* Jt, T* Kt, int rows, int D, int Dp,
+                       int sms, cudaStream_t stream) {
+  if (rows < 1 || D < 1 || Dp < D || sms < 1) return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = D % V == 0 && Dp % V == 0 && al(X) && al(Jt) && (!Kt || al(Kt));
+  const long long n = (long long)rows * (vec ? Dp / V : Dp);
+  const long long want = (n + 256LL * kRU - 1) / (256LL * kRU);
+  const int blocks = (int)(want < 8LL * sms ? want : 8LL * sms);  // 2,048 threads an SM
+  if (vec)
+    retile_rows_kernel<T, V><<<blocks, 256, 0, stream>>>(X, h, Jt, Kt, rows, D, Dp);
+  else
+    retile_rows_kernel<T, 1><<<blocks, 256, 0, stream>>>(X, h, Jt, Kt, rows, D, Dp);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K2
@@ -207,63 +255,6 @@ gram_q_kernel(const int8_t* __restrict__ Q1, const float* __restrict__ s1,
       A[(size_t)(d0 + ty * 4 + i) * Dp + e0 + tx * 4 + j] = acc_f[i][j];
 }
 
-// ---------------------------------------------------------------- K6
-// A[d, e] = (carry[d, e] +) sum_r X[r, d] * Y[r, e] in f32 FMA (never TF32),
-// operands f32 or bf16 (bf16 products are exact in f32). The chunk's sum is
-// formed in registers and added to the carry once, in the epilogue. Rows
-// and columns are masked, so any (rows, D) shape with row stride ld works.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gram_f_kernel(const T* __restrict__ X, const T* __restrict__ Y, float* __restrict__ A,
-              const int* __restrict__ pairs, int rows, int D, int ld, int ldc, int has_acc) {
-  constexpr int BK = 16;
-  __shared__ __align__(16) float sX[BK][kTile];
-  __shared__ __align__(16) float sY[BK][kTile];
-  const int* pr = pairs + 3 * blockIdx.x;
-  const int d0 = pr[0] * kTile, e0 = pr[1] * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = 0; r0 < rows; r0 += BK) {
-#pragma unroll
-    for (int k = 0; k < BK * kTile / kThreads; ++k) {
-      const int idx = tid + k * kThreads, rr = idx / kTile, cc = idx % kTile;
-      const int r = r0 + rr;
-      sX[rr][cc] = (r < rows && d0 + cc < D) ? to_f32(X[(size_t)r * ld + d0 + cc]) : 0.f;
-      sY[rr][cc] = (r < rows && e0 + cc < D) ? to_f32(Y[(size_t)r * ld + e0 + cc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 xv = *reinterpret_cast<const float4*>(&sX[k][ty * 4]);
-      const float4 yv = *reinterpret_cast<const float4*>(&sY[k][tx * 4]);
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float ys[4] = {yv.x, yv.y, yv.z, yv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int d = d0 + ty * 4 + i;
-    if (d >= D) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = e0 + tx * 4 + j;
-      if (e >= D) continue;
-      float* out = A + (size_t)d * ldc + e;
-      *out = has_acc ? *out + acc[i][j] : acc[i][j];
-    }
-  }
-}
-
 inline int launch_status() { return (int)cudaGetLastError(); }
 
 }  // namespace
@@ -290,20 +281,16 @@ int tnf_retile_hmix_f32(const void* J, const void* H, void* Jt, void* Kt,
 }
 
 int tnf_retile_rows_bf16(const void* X, const void* h, void* Jt, void* Kt, int rows, int D,
-                         int Dp, void* stream) {
-  dim3 grid((Dp + 255) / 256, rows < 65535 ? rows : 65535);
-  retile_rows_kernel<__nv_bfloat16><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)X, (const float*)h, (__nv_bfloat16*)Jt, (__nv_bfloat16*)Kt, rows,
-      D, Dp);
-  return launch_status();
+                         int Dp, int sms, void* stream) {
+  return launch_retile_rows<__nv_bfloat16>((const __nv_bfloat16*)X, (const float*)h,
+                                           (__nv_bfloat16*)Jt, (__nv_bfloat16*)Kt, rows, D, Dp,
+                                           sms, (cudaStream_t)stream);
 }
 
 int tnf_retile_rows_f32(const void* X, const void* h, void* Jt, void* Kt, int rows, int D,
-                        int Dp, void* stream) {
-  dim3 grid((Dp + 255) / 256, rows < 65535 ? rows : 65535);
-  retile_rows_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)h, (float*)Jt, (float*)Kt, rows, D, Dp);
-  return launch_status();
+                        int Dp, int sms, void* stream) {
+  return launch_retile_rows<float>((const float*)X, (const float*)h, (float*)Jt, (float*)Kt,
+                                   rows, D, Dp, sms, (cudaStream_t)stream);
 }
 
 int tnf_quantize_bf16(const void* X, void* Q, void* Sc, int rows, int Dp, int BS,
@@ -322,22 +309,6 @@ int tnf_gram_q(const void* Q1, const void* s1, const void* Q2, const void* s2, v
   gram_q_kernel<<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)Q1, (const float*)s1, (const int8_t*)Q2, (const float*)s2,
       (float*)A, (const int*)pairs, Bp, Dp, BS, has_acc);
-  return launch_status();
-}
-
-int tnf_gram_f32(const void* X, const void* Y, void* A, const void* pairs, int npairs,
-                 int rows, int D, int ld, int ldc, int has_acc, void* stream) {
-  gram_f_kernel<float><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)Y, (float*)A, (const int*)pairs, rows, D, ld, ldc,
-      has_acc);
-  return launch_status();
-}
-
-int tnf_gram_bf16(const void* X, const void* Y, void* A, const void* pairs, int npairs,
-                  int rows, int D, int ld, int ldc, int has_acc, void* stream) {
-  gram_f_kernel<__nv_bfloat16><<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)X, (const __nv_bfloat16*)Y, (float*)A, (const int*)pairs, rows, D,
-      ld, ldc, has_acc);
   return launch_status();
 }
 

@@ -1,21 +1,25 @@
-// The split Gram kernels, hand-written for Hopper (sm_90a).
+// The float Gram kernels, hand-written for Hopper (sm_90a): the split Gram
+// and, for K6 on f32 operands, the 3xTF32 Gram (at the end of this file).
 //
-// Replaces four Pallas kernels of tensornetworksfork_tpu/ops/pallas/gram.py:
+// Replaces five Pallas kernels of tensornetworksfork_tpu/ops/pallas/gram.py:
 //   _weighted_gram_jit       (K9: _weighted_kernel_tiled / _syrk_weighted_kernel)
 //   _own_out_gram_jit        (K11: _make_own_out_kernel)
 //   _gram_pair_jit           (K10: _pair_kernel_tiled, the flat symmetric Gram)
 //   _weighted_gram_tiled_jit (K7: _make_weighted_kernel_tiled_acc)
-// All compute, per class pair pq (K9, K10, K7: one, pq = 0),
+//   _gram_pair_tiled_jit     (K6: _pair_kernel_tiled with a carry; K5,
+//                             _add_packed_upper_jit, is its epilogue)
+// K6 in bf16 runs on the split Gram, in f32 on gram_tf32x3_kernel. The split
+// Gram computes, per class pair pq (K9, K10, K7, K6: one, pq = 0),
 //   A_pq[d, e] (+)= sum_r round_T(X[r, d] * h[r * hstride + pq]) * Y[r, e]
 // with the weighted operand multiplied in f32 and rounded once to the operand
 // type T, as the reference's (j1 * w).astype(j1.dtype); Y = X for K9, K11 and
 // K7, Y = K = H.J for K10, which has no weights (h null: X as it is). K9, K10
 // and K7 need the upper triangle only; K11's blocks are whole (not symmetric
 // in d for p != q, and for p = q only up to the rounding of the weighted
-// operand). K7 adds into a carry (has_acc): out = out + chunk sum.
+// operand). K7 and K6 add into a carry (has_acc): out = out + chunk sum.
 //
 // What bounds them on an H100 (132 SMs, 67 TFLOP/s f32 FMA, 989 TFLOP/s bf16
-// tensor cores, 3.35 TB/s):
+// and 495 TFLOP/s TF32 tensor cores, 3.35 TB/s):
 //   K9,  65,536 x 1,032 f32, upper: 6.99e10 FLOP -> 1.04 ms (bytes 0.08 ms);
 //   K11, 65,536 rows, C=1, DJ=1,032 f32, whole: 1.40e11 FLOP -> 2.08 ms;
 //   K11, 8,192 rows, C=9 (45 pairs), DJ=900 bf16: 5.97e11 FLOP -> 0.60 ms on
@@ -25,7 +29,10 @@
 //        f32: operations, 0.89 ms (bytes 0.16 ms);
 //   K7,  512 x 8,256 (Dp 8,704; the regression's A2 chunk) f32 with a carry,
 //        upper over D: 3.49e10 FLOP -> 0.52 ms (bytes, the carry read and
-//        written once, 0.17 ms).
+//        written once, 0.17 ms);
+//   K6,  18,432 x 16,200 (Dp 16,384; the flagship's A2/A3 chunk) with a
+//        carry, upper over D: 4.84e12 FLOP -> bf16 4.9 ms on the tensor cores;
+//        f32 on three TF32 products, 29 ms (72 ms on f32 FMA).
 // So all but K10 in bf16 are bound by operations. What the design does:
 //   - Row split. The grid is (output tiles) x (class pairs) x (row splits). A
 //     1,032-wide output has only 45 upper (81 whole) 128x128 tiles and K10's
@@ -39,7 +46,8 @@
 //     in its epilogue; each output tile is owned by one CTA.
 //   - f32 operands stay on f32 FMA, never TF32 (wgram_f32_kernel): 128x128
 //     tiles, 8x8 accumulators per thread (four 4x4 quadrants), 32 rows a
-//     stage in a ring of 3.
+//     stage in a ring of 3. (K6's f32 Gram, 8,128 tiles over 18,432 rows,
+//     is 70x K9's work and runs on the 3xTF32 kernel instead.)
 //   - bf16 operands go to the tensor cores (wgram_bf16_kernel): wgmma on bf16
 //     with f32 results, 64 rows a stage in a ring of 4, the weighting of the
 //     next stage (if any) overlapping the current stage's wgmmas. The
@@ -63,7 +71,10 @@
 //     computed area at D = 1,032 is ~1.18x the upper triangle (whole 128x128
 //     tiles would be 1.38x). The bf16 kernel skips rows past D at 64-row
 //     granularity (a warpgroup) and computes its tiles' columns whole. Tiles
-//     past D (K7's tiled layout pads 8,256 to 8,704) are not in the grid.
+//     past D (K7's tiled layout pads 8,256 to 8,704, K6's 16,200 to 16,384)
+//     are not in the grid, and the upper tiles are listed in 12 x 12-tile
+//     blocks (ops/cuda/gram.py GROUP), so the CTAs on the card at once share
+//     their operand strips in L2.
 //   Rows and columns are masked, so any (rows, D) with row stride ld works;
 //   vector loads need ld and X, Y aligned to the chunk, else the stage is
 //   loaded element by element (the same arithmetic). Columns past D are
@@ -316,15 +327,34 @@ __device__ __forceinline__ uint64_t gdesc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The 64 f32 results of an m64n128 wgmma (operands %0..%63), then the two
+// descriptors (%64, %65) and the accumulate flag (%66).
+#define TNF_WG_D64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define TNF_WG_OUT64 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
 // d (+)= A^T-tile x B-tile over 16 rows: A 64 columns (d), B 128 columns (e),
 // both MN-major (transposed) bf16; d is zeroed first unless `accumulate`.
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TNF_WG_D64
+      ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : TNF_WG_OUT64
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// d (+)= A-tile x B-tile over 8 rows on TF32: A 64 columns (d), B 128 columns
+// (e), both K-major (tf32 has no transpose); d is zeroed first unless
+// `accumulate`.
+__device__ __forceinline__ void wgmma_m64n128_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TNF_WG_D64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : TNF_WG_OUT64
       : "l"(da), "l"(db), "r"(accumulate)
       : "memory");
 }
@@ -429,6 +459,40 @@ __device__ __forceinline__ void gweight_stage(unsigned char* sX, const float* sW
   }
 }
 
+// Store a warpgroup's 64 x 128 result acc (rows dbase.., columns e0..) into o,
+// row stride ldo, masked to D. acc[4j + v]: row 16 w + lane / 4 (+8 for
+// v >= 2), column 8 j + 2 (lane % 4) (+1 for odd v), w the warp within the
+// warpgroup. With the carry: o = o + chunk sum, by the one CTA that owns the
+// tile.
+__device__ __forceinline__ void wg_store(const float (&acc)[64], float* o, int ldo, int dbase,
+                                         int e0, int D, int has_acc, int tid) {
+  const bool v2 = ldo % 2 == 0 && (reinterpret_cast<uintptr_t>(o) & 7) == 0;
+  const int lane = tid % 32, w = (tid % 128) / 32;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int dd = dbase + w * 16 + hf * 8 + lane / 4;
+    if (dd >= D) continue;
+    float* row = o + (size_t)dd * ldo;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int e = e0 + j * 8 + (lane % 4) * 2;
+      const float* a = acc + 4 * j + 2 * hf;
+      if (v2 && e + 1 < D) {
+        float2* p = reinterpret_cast<float2*>(row + e);
+        float2 v = make_float2(a[0], a[1]);
+        if (has_acc) {
+          const float2 c = *p;
+          v = make_float2(c.x + v.x, c.y + v.y);
+        }
+        *p = v;
+      } else {
+        if (e < D) row[e] = has_acc ? row[e] + a[0] : a[0];
+        if (e + 1 < D) row[e + 1] = has_acc ? row[e + 1] + a[1] : a[1];
+      }
+    }
+  }
+}
+
 // The pipeline: while the wgmmas of stage k run, stage k+3 loads and
 // (weighted) stage k+1 is weighted. The wgmmas of two stages (128 rows) sum inside the
 // tensor core from zero, and that sum is added to acc with __fadd_rn: summing
@@ -503,35 +567,146 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __re
   cp_async_wait<0>();
   if (d0 + g * 64 >= D) return;  // this warpgroup's rows lie past D
 
-  // acc[4j + v]: row 16 w + lane / 4 (+8 for v >= 2), column 8 j + 2 (lane % 4)
-  // (+1 for odd v), w the warp within the warpgroup. With the carry:
-  // out = out + chunk sum, by the one CTA that owns the tile.
-  float* o = out + blockIdx.z * sstride + (long long)ob * ostride;
-  const bool v2 = ldo % 2 == 0 && (reinterpret_cast<uintptr_t>(o) & 7) == 0;
-  const int lane = tid % 32, w = (tid % 128) / 32;
+  wg_store(acc, out + blockIdx.z * sstride + (long long)ob * ostride, ldo, d0 + g * 64, e0, D,
+           has_acc, tid);
+}
+
+// ---------------------------------------------------------------- 3xTF32
+// K6 on f32 operands: A = X^T Y over a 128 x 128 tile on the TF32 tensor
+// cores, each operand split as x = hi + lo (hi = x rounded to TF32, to
+// nearest; lo = x - hi, exact in f32, rounded to TF32 again), and
+// x^T y ~ lo_x^T hi_y + hi_x^T lo_y + hi_x^T hi_y (the lo^T lo term, ~2^-22
+// of a product, dropped): the f32 tier's accuracy at three TF32 products
+// per multiply-add. TF32 wgmma takes no transpose, so both operands must be
+// K-major in shared memory, while X and Y are row-major (rows, ld), i.e.
+// MN-major: each 32-row stage lands by cp.async as it is (the f32 kernel's
+// fload_stage, a ring of kTRaw), then every thread splits its share and
+// writes hi and lo K-major into a double-buffered 128-byte-swizzle tile (a
+// 32-row stage is one 128-byte row of each column). The split of stage k+1
+// runs while the tensor cores work on stage k.
+constexpr int kTK = 32;                                    // rows a stage
+constexpr int kTRaw = 3;                                   // landing ring depth
+constexpr int kTRawBytes = 2 * kTK * kWT * 4;              // X and Y as landed
+constexpr int kTOpBytes = kWT * kTK * 4;                   // one K-major operand tile
+constexpr int kTConvBytes = 4 * kTOpBytes;                 // X hi, X lo, Y hi, Y lo
+constexpr int kTSmem = 2 * kTConvBytes + kTRaw * kTRawBytes + 1024;  // + base alignment
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// Byte offset of the 16-byte chunk (column m < 128, rows 4 kc .. 4 kc + 3 of
+// the stage) in a K-major 128-byte-swizzle tile: 1 KB atoms of 8 columns x
+// 32 rows, column m at (m / 8) KB + (m % 8) * 128, chunk kc at slot kc ^ (m % 8).
+__device__ __forceinline__ int tk_offset(int m, int kc) {
+  return ((m >> 3) << 10) + ((m & 7) << 7) + (((kc ^ (m & 7)) & 7) << 4);
+}
+
+// Descriptor of that layout: stride byte offset 1 KB (the next 8 columns);
+// the leading byte offset is unused (the stage's rows are one swizzle row).
+__device__ __forceinline__ uint64_t tdesc(uint32_t saddr) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// Split a landed stage (X then Y, each kTK x kWT row-major) into the four
+// K-major tiles of `conv`. A warp takes 32 adjacent columns of one 4-row
+// chunk: its shared-memory reads hit 32 banks and its 16-byte writes fill
+// eight distinct slots of eight 128-byte rows per quarter-warp.
+__device__ __forceinline__ void tsplit_stage(const float* raw, unsigned char* conv, int tid) {
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int dd = d0 + g * 64 + w * 16 + hf * 8 + lane / 4;
-    if (dd >= D) continue;
-    float* row = o + (size_t)dd * ldo;
+  for (int i = 0; i < 2 * kTK * kWT / 4 / kWThreads; ++i) {
+    const int q = tid + i * kWThreads;
+    const int op = q >> 10, kc = (q >> 7) & 7, m = q & 127;
+    const float* src = raw + op * kTK * kWT + kc * 4 * kWT + m;
+    float hi[4], lo[4];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int e = e0 + j * 8 + (lane % 4) * 2;
-      const float* a = acc + 4 * j + 2 * hf;
-      if (v2 && e + 1 < D) {
-        float2* p = reinterpret_cast<float2*>(row + e);
-        float2 v = make_float2(a[0], a[1]);
-        if (has_acc) {
-          const float2 c = *p;
-          v = make_float2(c.x + v.x, c.y + v.y);
-        }
-        *p = v;
-      } else {
-        if (e < D) row[e] = has_acc ? row[e] + a[0] : a[0];
-        if (e + 1 < D) row[e + 1] = has_acc ? row[e + 1] + a[1] : a[1];
-      }
+    for (int j = 0; j < 4; ++j) {
+      const float x = src[j * kWT];
+      hi[j] = tf32_rna(x);
+      lo[j] = tf32_rna(__fsub_rn(x, hi[j]));
     }
+    unsigned char* dst = conv + op * 2 * kTOpBytes + tk_offset(m, kc);
+    *reinterpret_cast<float4*>(dst) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<float4*>(dst + kTOpBytes) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
+}
+
+// One CTA per listed tile, two warpgroups of 64 rows x 128 columns, over all
+// the rows. Each chain of four stages (128 rows) sums inside the tensor core
+// from zero, small products first, and is then added to acc with __fadd_rn
+// (as the bf16 kernel). With has_acc the epilogue adds to the carry.
+template <bool kVec>
+__global__ void __launch_bounds__(kWThreads, 1)
+gram_tf32x3_kernel(const float* __restrict__ X, const float* __restrict__ Y, int ld,
+                   const int* __restrict__ pairs, int rows, int D, float* __restrict__ out,
+                   int ldo, int has_acc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto conv = [&](int b) { return smem + b * kTConvBytes; };
+  auto raw = [&](int s) {
+    return reinterpret_cast<float*>(smem + 2 * kTConvBytes + s * kTRawBytes);
+  };
+  const int tid = threadIdx.x, g = tid / 128;
+  const int* pr = pairs + 3 * blockIdx.x;
+  const int d0 = pr[0] * kWT, e0 = pr[1] * kWT;
+  const int nk = (rows + kTK - 1) / kTK;
+  const bool live = d0 + g * 64 < D;  // this warpgroup's rows hold results
+  auto load = [&](int k) {
+    float* s = raw(k % kTRaw);
+    fload_stage<kVec, false>(s, s + kTK * kWT, nullptr, X, Y, ld, nullptr, 0, 0, k * kTK, rows,
+                             d0, e0, D, tid);
+  };
+
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTRaw; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<kTRaw - 1>();
+  __syncthreads();
+  if (nk > 0) tsplit_stage(raw(0), conv(0), tid);
+  fence_proxy_async();
+  __syncthreads();
+  for (int k = 0; k < nk; ++k) {
+    if (live) {
+      const uint32_t xa = smem_u32(conv(k & 1)) + g * 64 * 128;
+      const uint32_t ya = smem_u32(conv(k & 1)) + 2 * kTOpBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kTK / 8; ++ks) {
+        const uint32_t o = ks * 32;  // 8 rows of TF32 further along the swizzle row
+        wgmma_m64n128_tf32(d, tdesc(xa + kTOpBytes + o), tdesc(ya + o), (k & 3) || ks > 0);
+        wgmma_m64n128_tf32(d, tdesc(xa + o), tdesc(ya + kTOpBytes + o), 1);
+        wgmma_m64n128_tf32(d, tdesc(xa + o), tdesc(ya + o), 1);
+      }
+      wgmma_commit();
+    }
+    if (k + 1 < nk) {
+      if (live) wgmma_wait<1>();  // this warpgroup's wgmmas of stage k-1
+      cp_async_wait<kTRaw - 2>();  // this thread's copies of stage k+1 landed
+      __syncthreads();  // ... and everyone's; conv((k+1)&1) and stage k's slot are free
+      if (k + kTRaw < nk) load(k + kTRaw);
+      cp_async_commit();
+      tsplit_stage(raw((k + 1) % kTRaw), conv((k + 1) & 1), tid);
+      fence_proxy_async();
+    }
+    if (live && ((k & 3) == 3 || k + 1 == nk)) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+    }
+    __syncthreads();  // stage k+1 split and visible
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+  wg_store(acc, out, ldo, d0 + g * 64, e0, D, has_acc, tid);
 }
 
 // out[ocls[c]][d, e] = (carry +) sum over splits z, in order, of ws[z][c][d, e]
@@ -652,6 +827,25 @@ int tnf_wgram_reduce(const void* ws, int splits, int ncls, int D, int upper, int
   wgram_reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const float*)ws, splits, (long long)ncls * D * D, D, upper, has_acc, (float*)out,
       (const int*)ocls, ostride, ldo);
+  return (int)cudaGetLastError();
+}
+
+// K6 on f32 operands <- _gram_pair_tiled_jit gram.py:873 (with
+// _add_packed_upper_jit :1524, K5, as the carry epilogue): out (+)= X^T Y
+// over the listed kWT-tiles (upper, over the node's D <= ld), X and Y
+// (rows, ld) f32, on the 3xTF32 kernel; with has_acc the owning CTA adds the
+// chunk sum to the carry out (row stride ldo). Bound on the card by TF32
+// tensor-core work: three products per multiply-add (18,432 x 16,200:
+// 29 ms at 495 TFLOP/s).
+int tnf_gram_tf32x3(const void* X, const void* Y, int ld, const void* pairs, int npairs,
+                    int rows, int D, void* out, int ldo, int has_acc, void* stream) {
+  if (npairs < 1 || rows < 1 || D < 1 || D > ld || D > ldo) return (int)cudaErrorInvalidValue;
+  const bool vec = ld % 4 == 0 && aligned(X, 16) && aligned(Y, 16);
+  auto kern = vec ? gram_tf32x3_kernel<true> : gram_tf32x3_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<npairs, kWThreads, kTSmem, (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)Y, ld, (const int*)pairs, rows, D, (float*)out, ldo, has_acc);
   return (int)cudaGetLastError();
 }
 

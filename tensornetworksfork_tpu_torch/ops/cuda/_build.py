@@ -36,16 +36,15 @@ _SIGNATURES = {
     "tnf_retile_hmix_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tnf_quantize_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tnf_gram_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "tnf_gram_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "tnf_gram_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "tnf_retile_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "tnf_retile_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "tnf_retile_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tnf_retile_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tnf_gram_tile": (),
     "tnf_wgram_split_f32": (_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                             _I, _P, _P, _L, _I, _L, _I, _P),
     "tnf_wgram_split_bf16": (_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                              _I, _P, _P, _L, _I, _L, _I, _P),
     "tnf_wgram_reduce": (_P, _I, _I, _I, _I, _I, _P, _P, _L, _I, _P),
+    "tnf_gram_tf32x3": (_P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P),
     "tnf_wgram_tile": (),
 }
 

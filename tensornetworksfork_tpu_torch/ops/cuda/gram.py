@@ -3,8 +3,8 @@
 Port of tensornetworksfork_tpu/ops/pallas/gram.py: every Pallas kernel of
 the JAX package has a counterpart here. Each wrapper takes the plain PyTorch
 version (`<fn>_plain`, beside it) only for tensors that lie on the CPU; for
-CUDA tensors it launches its kernel from `csrc/gram.cu` (the split Grams
-K7, K9, K10 and K11: `csrc/wgram.cu`) or raises — there is no fallback.
+CUDA tensors it launches its kernel from `csrc/gram.cu` (the float Grams
+K6, K7, K9, K10 and K11: `csrc/wgram.cu`) or raises — there is no fallback.
 Each wrapper checks device, dtype, shape and contiguity, raises when the
 launch reports an error, and adds one to `LAUNCHES[<name>]` per call that
 launches its kernel.
@@ -46,6 +46,11 @@ BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
 WTILE = 128
 SPLIT_MIN_ROWS = 4096
 WGRAM_RESIDENT = 2
+# The upper-triangle tile tables walk GROUP x GROUP blocks of tiles, so the
+# CTAs on the card at once (132 for K6's 8,128 tiles) read at most ~4 GROUP
+# operand strips (49) rather than up to 129 in row order, and the strips
+# stay in L2.
+GROUP = 12
 
 
 def reset_launches() -> None:
@@ -146,7 +151,11 @@ def _raise_on(status: int, kernel: str) -> None:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as an integer handle, read
+    through the raw-stream call that PyTorch's own generated kernels use:
+    building a torch.cuda.Stream instead took ~7 us a launch on an H100
+    host, about as long as K8 takes on the card."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def sm_count(device: torch.device) -> int:
@@ -166,7 +175,8 @@ def _pair_table_np(ntiles: int, slab_tiles: int, band: bool) -> np.ndarray:
     """(npairs, 3) int32 rows (ti, tj, swap) of the kernel tiles to compute.
 
     slab_tiles = 0: every tile, natural orientation (K11's whole blocks).
-    slab_tiles = 1: the exact upper triangle ti <= tj, natural orientation.
+    slab_tiles = 1: the exact upper triangle ti <= tj, natural orientation,
+    in GROUP x GROUP blocks of tiles (blocks, then tiles, in row order).
     slab_tiles > 1 (int8): every tile whose 512-slab pair (p, q) has p <= q,
     the diagonal slabs whole, as the reference's int8 kernels compute them;
     with `band`, slab pairs at circular distance > n/2 get swap = 1 — the
@@ -175,13 +185,17 @@ def _pair_table_np(ntiles: int, slab_tiles: int, band: bool) -> np.ndarray:
     if slab_tiles == 0:
         ti, tj = np.divmod(np.arange(ntiles * ntiles), ntiles)
         return np.stack([ti, tj, 0 * ti], 1).astype(np.int32)
+    if slab_tiles == 1:
+        ti, tj = np.triu_indices(ntiles)
+        order = np.lexsort((tj, ti, tj // GROUP, ti // GROUP))
+        return np.stack([ti[order], tj[order], np.zeros_like(ti)], 1).astype(np.int32)
     nslab = ntiles // slab_tiles
     rows = []
     for ti in range(ntiles):
         p = ti // slab_tiles
         for tj in range(ntiles):
             q = tj // slab_tiles
-            if (slab_tiles == 1 and ti > tj) or p > q:
+            if p > q:
                 continue
             rows.append((ti, tj, int(band and 2 * (q - p) > nslab)))
     return np.asarray(rows, np.int32).reshape(-1, 3)
@@ -261,8 +275,11 @@ def retile_rows(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None):
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:retile_rows
     (_retile_copy_kernel), with the reference engine's separate K = h*J
     pass (engine.py packed_gram_rhs, int8 diagonal branch) fused in. Bound
-    on the card: memory — one read of X, one or two writes; threads run
-    along the columns so every read and write is coalesced."""
+    on the card: memory — one read of X, one or two writes (the
+    regression's A2 chunk, 512 x 8,256 f32 -> 8,704: 0.010 ms). Each thread
+    moves 16-byte packs (4 f32 or 8 bf16 values; one value at a time where
+    D or a pointer is not aligned to them), several in flight, on a grid
+    sized to the SMs; the padding is written as zero packs."""
     rows, D = X.shape
     if _on_cpu(X, *(() if h is None else (h,))):
         return retile_rows_plain(X, Dp, h)
@@ -273,13 +290,13 @@ def retile_rows(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None):
         _check(h, "h", (torch.float32,), 1)
         if h.shape[0] != rows:
             raise ValueError(f"h has {h.shape[0]} rows, X {rows}")
-    Jt = torch.empty((rows, Dp), dtype=X.dtype, device=X.device)
-    Kt = None if h is None else torch.empty_like(Jt)
+    Jt = X.new_empty((rows, Dp))
+    Kt = None if h is None else X.new_empty((rows, Dp))
     fn = (_build.lib().tnf_retile_rows_bf16 if X.dtype == torch.bfloat16
           else _build.lib().tnf_retile_rows_f32)
     _raise_on(fn(X.data_ptr(), None if h is None else h.data_ptr(),
                  Jt.data_ptr(), None if Kt is None else Kt.data_ptr(),
-                 rows, D, Dp, _stream()), "retile_rows")
+                 rows, D, Dp, sm_count(X.device), _stream()), "retile_rows")
     LAUNCHES["retile_rows"] += 1
     return Jt, Kt
 
@@ -428,13 +445,16 @@ def mirror_band(A: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 # ---------------------------------------------------------------- K6 / K10
 def gram_pair(X: torch.Tensor, Y: torch.Tensor,
               acc: Optional[torch.Tensor] = None,
-              splits: Optional[int] = None) -> torch.Tensor:
+              splits: Optional[int] = None, D: Optional[int] = None) -> torch.Tensor:
     """Symmetric Gram A = Xᵀ Y over the upper triangle, f32 accumulation.
 
-    X, Y (rows, D), f32 or bf16. Returns the raw (D, D) A (upper triangle
-    valid; mirror with mirror_gram). With acc ((D, D) f32) the chunk's sum is
-    added to acc in place and acc is returned — the carry epilogue that
-    replaces the reference's separate add_packed_upper pass.
+    X, Y (rows, W), f32 or bf16. Returns the raw (W, W) A (upper triangle
+    valid; mirror with mirror_gram). With acc ((W, W) f32) the chunk's sum
+    is added to acc in place and acc is returned — the carry epilogue that
+    replaces the reference's separate add_packed_upper pass; D (default W)
+    is then the node's real width: tiles past it are skipped and acc[D:, :],
+    acc[:, D:] keep what they hold beyond those tiles (the tiled layout's
+    columns past D are zero, so the result over [:D, :D] is the same).
 
     Without acc (K10: replaces tensornetworksfork_tpu/ops/pallas/gram.py
     gram_pair, _gram_pair_jit): the split Gram of csrc/wgram.cu, unweighted,
@@ -447,11 +467,14 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
     f32, f32 ones on f32 FMA with 8x8 accumulators a thread.
 
     With acc (K6: gram_pair_tiled, _pair_kernel_tiled, with add_packed_upper,
-    K5, folded in): bound by f32 FMA throughput; 64x64 output tiles of
-    csrc/gram.cu, one CTA each over the upper triangle only, shared-memory
-    operand tiles reused 64x, the sum kept in registers until one epilogue
-    write."""
-    rows, D = X.shape
+    K5, folded in), at the flagship's A2/A3 chunk (18,432 x 16,384, D =
+    16,200: 8,128 upper 128² tiles, one CTA each, no split): f32 operands
+    run on csrc/wgram.cu's 3xTF32 kernel (each operand split into TF32 hi +
+    lo, three TF32 tensor-core products per multiply-add, each 128-row sum
+    added in f32; bound by that work, 29 ms), bf16 ones on the split Gram's
+    wgmma kernel (bound by bf16 tensor-core work, 4.9 ms)."""
+    rows, W = X.shape
+    D = W if D is None else D
     if _on_cpu(X, Y, *(() if acc is None else (acc,))):
         return gram_pair_plain(X, Y, acc)
     _check(X, "X", (torch.bfloat16, torch.float32), 2)
@@ -460,19 +483,23 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
                          f"{X.dtype}{tuple(X.shape)}")
     _check(Y, "Y", (X.dtype,), 2)
     if acc is None:
-        out = torch.zeros((D, D), dtype=torch.float32, device=X.device)
-        _launch_wgram_split(X, None, 0, None, out, D, True, splits, "gram_pair", Y=Y)
+        if D != W:
+            raise ValueError(f"gram_pair: D={D} below X's width {W} needs a carry")
+        out = torch.zeros((W, W), dtype=torch.float32, device=X.device)
+        _launch_wgram_split(X, None, 0, None, out, W, True, splits, "gram_pair", Y=Y)
         LAUNCHES["gram_pair"] += 1
         return out
     _check(acc, "acc", (torch.float32,), 2)
-    if tuple(acc.shape) != (D, D):
-        raise ValueError(f"acc shape {tuple(acc.shape)} != {(D, D)}")
-    lib = _build.lib()
-    T = lib.tnf_gram_tile()
-    pairs = _pair_table((D + T - 1) // T, 1, False, X.device)
-    fn = lib.tnf_gram_bf16 if X.dtype == torch.bfloat16 else lib.tnf_gram_f32
-    _raise_on(fn(X.data_ptr(), Y.data_ptr(), acc.data_ptr(), pairs.data_ptr(),
-                 pairs.shape[0], rows, D, D, D, 1, _stream()), "gram_pair")
+    if tuple(acc.shape) != (W, W) or not 0 < D <= W or rows < 1:
+        raise ValueError(f"gram_pair: acc {tuple(acc.shape)}, X {tuple(X.shape)}, D={D}")
+    if X.dtype == torch.float32:
+        pairs = _pair_table(-(-D // WTILE), 1, False, X.device)
+        _raise_on(_wgram_lib().tnf_gram_tf32x3(
+            X.data_ptr(), Y.data_ptr(), W, pairs.data_ptr(), pairs.shape[0], rows, D,
+            acc.data_ptr(), W, 1, _stream()), "gram_pair")
+    else:
+        _launch_wgram_split(X, None, 0, None, acc, D, True, 1, "gram_pair", Y=Y,
+                            has_acc=True)
     LAUNCHES["gram_pair_tiled"] += 1
     return acc
 
@@ -490,6 +517,15 @@ def _check_weighted(X: torch.Tensor, h: torch.Tensor) -> None:
         raise ValueError(f"h has {h.shape[0]} rows, X {X.shape[0]}")
 
 
+def _wgram_lib():
+    """The kernel library, checked to tile as WTILE does."""
+    lib = _build.lib()
+    if lib.tnf_wgram_tile() != WTILE:
+        raise RuntimeError("csrc/wgram.cu and ops/cuda/gram.py disagree on "
+                           "the output tile")
+    return lib
+
+
 def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key,
                         Y=None, has_acc=False) -> None:
     """The split Gram of csrc/wgram.cu into `out` (its last two dims the
@@ -499,10 +535,7 @@ def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key,
     reduction, carry first and then the splits in order."""
     rows, ld = X.shape
     Y = X if Y is None else Y
-    lib = _build.lib()
-    if lib.tnf_wgram_tile() != WTILE:
-        raise RuntimeError("csrc/wgram.cu and ops/cuda/gram.py disagree on "
-                           "the output tile")
+    lib = _wgram_lib()
     ncls = 1 if cls is None else cls.shape[0]
     npairs, splits, rps = wgram_plan(rows, D, ncls, upper, sm_count(X.device), splits)
     pairs = _pair_table(-(-D // WTILE), 1 if upper else 0, False, X.device)

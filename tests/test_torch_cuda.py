@@ -1,6 +1,6 @@
 """Tests that need a CUDA card: every kernel of csrc/gram.cu and
 csrc/wgram.cu against its plain version on the card, at small, ragged
-shapes.
+shapes (K6 in f32 also against float64, K8 bit for bit).
 
 This file imports no JAX, so it also runs on a machine without it (the
 suite's conftest.py imports JAX, hence --noconftest there):
@@ -124,3 +124,91 @@ def test_weighted_gram_tiled_carry_on_cuda(rows, dtype):
     err = float((A - A_p).abs().max())
     tol = max(1e-5, 4 * (2 * rows) ** 0.5 * 2.0 ** -24)
     assert err <= tol * float(A_p.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D,W", [(333, 137, 137), (1000, 700, 1024), (77, 1100, 1536)])
+def test_gram_pair_carry_matches_plain_on_cuda(rows, D, W, dtype):
+    """K6 (gram_pair with a carry) over the node's D of (rows, W) operands
+    whose columns past D are zero, two chunks chained into a nonzero carry,
+    against its plain version: f32 on the 3xTF32 kernel, bf16 on the split
+    Gram. Rows that are not a multiple of a stage; W = 137 loads element by
+    element. The upper triangle over D agrees to chip_smoke's gram_tol of
+    the 2 x rows summed (at least 1e-5 of max|A|); every entry outside the
+    upper tiles over D keeps the carry bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    gen = torch.Generator().manual_seed(80 + D)
+    dev = torch.device("cuda")
+    carry = torch.randn(W, W, generator=gen).to(dev)
+    acc, acc_p = carry.clone(), carry.clone()
+    kg.reset_launches()
+    for _ in range(2):
+        X, Y = (torch.nn.functional.pad(torch.randn(rows, D, generator=gen),
+                                        (0, W - D)).to(dev, dtype) for _ in range(2))
+        assert kg.gram_pair(X, Y, acc=acc, D=D) is acc
+        kg.gram_pair_plain(X, Y, acc=acc_p)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["gram_pair_tiled"] == 2 and kg.LAUNCHES["gram_pair"] == 0
+    i = torch.arange(W, device=dev)
+    tile = i // kg.WTILE
+    done = (tile[:, None] <= tile[None, :]) & (i[:, None] < D) & (i[None, :] < D)
+    assert torch.equal(acc[~done], carry[~done])
+    err = float((acc - acc_p)[done].abs().max())
+    tol = max(1e-5, 4 * (2 * rows) ** 0.5 * 2.0 ** -24)
+    assert err <= tol * float(acc_p[:D, :D].abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D,W", [(333, 137, 137), (1000, 700, 1024), (4133, 1100, 1536)])
+def test_gram_pair_carry_f32_holds_to_float64_on_cuda(rows, D, W):
+    """K6 in f32 (3xTF32) from a zero carry against the float64 Gram of its
+    full-mantissa operands, entry by entry over each entry's scale
+    (chip_smoke's PAIR_BOUND); a kernel that rounded its operands to TF32
+    would be off by hundreds of 2^-24."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    gen = torch.Generator().manual_seed(90 + D)
+    dev = torch.device("cuda")
+    X, Y = (torch.nn.functional.pad(torch.randn(rows, D, generator=gen) * 0.05,
+                                    (0, W - D)).to(dev) for _ in range(2))
+    acc = kg.gram_pair(X, Y, acc=torch.zeros((W, W), device=dev), D=D)
+    A64, scale = chip_smoke.pair_float64(X[:, :D], Y[:, :D])
+    ratio = chip_smoke.pair_errors(acc[:D, :D], A64, scale)[1]
+    assert ratio <= chip_smoke.PAIR_BOUND, ratio / 2.0 ** -24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D,Dp,shift", [(37, 137, 512, 0), (64, 300, 512, 0),
+                                             (64, 256, 512, 1), (512, 8256, 8704, 0)])
+def test_retile_rows_bit_equal_on_cuda(rows, D, Dp, shift, dtype):
+    """K8 bit-equal to its plain version, with and without the fused
+    Kt = X * h (h of both signs, X with zeros: signed zeros must match):
+    D = 137 (one value at a time in both dtypes), 300 (16-byte packs in
+    f32, one value at a time in bf16), 8,256 (packs in both), and X one
+    value off a 16-byte boundary (shift: one value at a time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    gen = torch.Generator().manual_seed(rows + D)
+    dev = torch.device("cuda")
+    base = torch.randn(rows * D + shift, generator=gen)
+    base[::7] = 0.0
+    X = base.to(dev, dtype)[shift:].view(rows, D)
+    h = (torch.rand(rows, generator=gen) * 4 - 2).to(dev)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    kg.reset_launches()
+    for hh in (None, h):
+        Jt, Kt = kg.retile_rows(X, Dp, hh)
+        Jt_p, Kt_p = kg.retile_rows_plain(X, Dp, hh)
+        torch.cuda.synchronize()
+        assert torch.equal(Jt.view(bits), Jt_p.view(bits))
+        if hh is not None:
+            assert torch.equal(Kt.view(bits), Kt_p.view(bits))
+    assert kg.LAUNCHES["retile_rows"] == 2

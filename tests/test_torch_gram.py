@@ -309,3 +309,42 @@ def test_k10_float64_check_sees_rounded_operands():
     for rnd in (lambda t: t.to(torch.bfloat16), chip_smoke.tf32_round):
         B = tg.gram_pair(rnd(X), rnd(Y))
         assert chip_smoke.pair_errors(B, A64, scale)[1] > 10 * bound
+
+
+def tf32x_gram(X, Y, terms):
+    """XᵀY as a kernel on the TF32 tensor cores forms it from split operands,
+    in plain f32: x = hi + lo, hi = x rounded to TF32 (to nearest), lo =
+    x - hi (exact in f32) rounded to TF32 again. terms = 3: lo_xᵀhi_y +
+    hi_xᵀlo_y + hi_xᵀhi_y (3xTF32, small products first); 2: without
+    lo_xᵀhi_y; 1: hi_xᵀhi_y alone (plain TF32)."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rnd = chip_smoke.tf32_round
+    (xh, yh) = (rnd(X), rnd(Y))
+    (xl, yl) = (rnd(X - xh), rnd(Y - yh))
+    parts = [(xl, yh), (xh, yl), (xh, yh)][3 - terms:]
+    A = None
+    for a, b in parts:
+        P = a.T @ b
+        A = P if A is None else A + P
+    return A
+
+
+@pytest.mark.parametrize("rows,D", [(333, 137), (4096, 64)])
+def test_k6_3xtf32_numerics_pass_float64_check(rows, D):
+    """K6 in f32 runs on the 3xTF32 kernel: its numerics, emulated in plain
+    f32, pass chip_smoke's float64 check (PAIR_BOUND), while 1xTF32 and
+    2xTF32 (one side's low part dropped) fail it, so the check on the card
+    tells a 3xTF32 kernel from a cheaper one."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(rows)
+    X, Y = (torch.tensor(rng.standard_normal((rows, D), np.float32) * 0.05)
+            for _ in range(2))
+    A64, scale = chip_smoke.pair_float64(X, Y)
+    bound = chip_smoke.PAIR_BOUND
+    assert chip_smoke.pair_errors(tf32x_gram(X, Y, 3), A64, scale)[1] <= bound
+    for terms in (1, 2):
+        assert chip_smoke.pair_errors(tf32x_gram(X, Y, terms), A64, scale)[1] > 2 * bound

@@ -215,6 +215,24 @@ def test_split_plan_of_the_flagship_a4():
     assert (n, waves) == (7, 1)
 
 
+@pytest.mark.parametrize("ntiles", [1, 9, 13, 127])
+def test_upper_tile_table_lists_each_tile_once_in_blocks(ntiles):
+    """The upper-triangle tile table of the float Grams lists every tile
+    ti <= tj exactly once, in GROUP x GROUP blocks. At K6's 127 tiles a side
+    (D = 16,200) any 132 consecutive tiles (a wave on 132 SMs) read at most
+    4 GROUP operand strips (X's d-strips and Y's e-strips together); in row
+    order a wave reads up to 129."""
+    t = tg._pair_table_np(ntiles, 1, False)
+    pairs = [tuple(p) for p in t[:, :2].tolist()]
+    assert sorted(pairs) == [(i, j) for i in range(ntiles) for j in range(i, ntiles)]
+    assert not t[:, 2].any()
+    blocks = [(i // tg.GROUP, j // tg.GROUP) for i, j in pairs]
+    assert blocks == sorted(blocks)
+    strips = max(len(set(t[i:i + 132, 0])) + len(set(t[i:i + 132, 1]))
+                 for i in range(max(1, len(t) - 131)))
+    assert strips <= 4 * tg.GROUP + 1
+
+
 def tiled_carry_sum(Xt, h, acc, D):
     """K7 as the split kernel sums it (one split), in plain PyTorch: the
     chunk's weighted Gram over the node's D columns added to the carry once
