@@ -21,15 +21,19 @@ printing its own lines:
    below). K1, K2, K3, K6 (bf16 and f32) and K10 (bf16 and f32) at the
    conv-TT flagship's shapes, K6 and K10 in f32 on full-mantissa operands
    held to float64, with bf16- and TF32-rounded controls that must fail;
-   K8, K7, K9 and K11 at the regression's (K7 and K9 also in bf16, K11 also
-   at the flagship's first core), with the row split the split Gram (K10,
-   K9, K11) plans for each. The kernels of `csrc/gram.cu`: K1
-   `retile_hmix_kernel`, K2 `quantize_kernel`, K3 `gram_q_kernel`, K8
-   `retile_rows_kernel`; of `csrc/wgram.cu`: K6 in f32 `gram_tf32x3_kernel`
+   K2 and K3 bit for bit (K2 also in its K-major layout), K3 with
+   torch._int_mm over the same blocks as a yardstick; K8, K7, K9, K11, K2
+   and K3 at the regression's (K7 and K9 also in bf16, K11 also at the
+   flagship's first core), with the row split the split Gram (K10, K9, K11)
+   plans for each. The kernels of `csrc/gram.cu`: K1 `retile_hmix_kernel`,
+   K2 `quantize_kernel` (one read of X, codes written K-major), K8
+   `retile_rows_kernel`; of `csrc/qgram.cu`: K3/K4 `gram_q_kernel` (s8
+   wgmma fed by TMA); of `csrc/wgram.cu`: K6 in f32 `gram_tf32x3_kernel`
    (3xTF32 on the tensor cores, with its carry), and the split Gram
    (`wgram_f32_kernel` for f32 operands, `wgram_bf16_kernel` on the tensor
    cores for bf16 ones, `wgram_reduce_kernel` adding the splits): K10
-   unweighted, K6 in bf16 and K7 with a carry, K9, K11;
+   unweighted, K6 in bf16 and K7 with a carry, K9, K11. The build's ptxas
+   lines (registers, spills, warnings) are printed;
 4. slice — one swipe of `Sweeper.run` on the flagship conv-TT
    (N=4, r=18, CB=8, 50 patches x 17 pixels, 9 logits, random weights from a
    seed) over 8192 synthetic samples in the int8 Gram tier (K1, K2, K3;
@@ -274,6 +278,89 @@ def hold_to_float64(name, B, B_plain, X, Y, controls: bool):
     return e64, r64, e64_p, r64_p, note
 
 
+def check_quantized(what, got, plain) -> None:
+    """K2's outputs (Q1, s1, Q2, s2) against its plain version's: equal
+    values, equal strides (the K-major view), equal code matrices behind
+    the views (the zero pad included)."""
+    import torch
+    for a, b, name in zip(got, plain, ("Q(J)", "s(J)", "Q(K)", "s(K)")):
+        if a.stride() != b.stride():
+            raise AssertionError(f"{what}: {name} strides {a.stride()} != plain {b.stride()}")
+        if a.dtype == torch.int8:
+            ld = a.stride(1)
+            a = torch.as_strided(a, (a.shape[1], ld), (ld, 1))
+            b = torch.as_strided(b, (b.shape[1], ld), (ld, 1))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from plain")
+
+
+def int_mm_ms(Q1, Q2, BS: int):
+    """(ms, note) of torch._int_mm over the quantisation blocks of a K3
+    chunk: Q1_bᵀ Q2_b in int32 for each block b (the K-major codes give
+    cuBLASLt its TN layout), into one (Dp, Dp) int32 output. A reference
+    rate for the int8 tensor cores on these shapes, not K3's function (no
+    rescale, no carry, every tile): ms None, and the error, if torch
+    refuses the strides."""
+    import torch
+    Bp, Dp = Q1.shape
+    out = torch.empty((Dp, Dp), dtype=torch.int32, device=Q1.device)
+
+    def run():
+        for b in range(Bp // BS):
+            rs = slice(b * BS, (b + 1) * BS)
+            torch._int_mm(Q1[rs].T, Q2[rs], out=out)
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as err:
+        return None, f"torch._int_mm refused the K-major blocks: {str(err).splitlines()[0]}"
+    ms = time_ms(run)
+    return ms, (f"torch._int_mm over the {Bp // BS} blocks of {BS} rows {ms:.3f} ms "
+                f"(int32 output written per block, every tile, no rescale)")
+
+
+def int8_gram_entry(where, Q1, s1, Q2, s2, acc):
+    """K3 (gram_pair_band_q) on the K-major codes Q1, Q2 into `acc` over two
+    chained chunks, held bit for bit (torch.equal) to its plain version,
+    then timed beside its bound, the plain version and torch._int_mm over
+    the same blocks; returns its kernels entry."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    acc_p = acc.clone()
+    for _ in range(2):
+        kg.gram_pair_band_q(Q1, s1, Q2, s2, acc)
+        kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc_p)
+    torch.cuda.synchronize()
+    if not torch.equal(acc, acc_p):
+        raise AssertionError(f"gram_pair_band_q ({where}): differs from its plain "
+                             f"version by {float((acc - acc_p).abs().max())}")
+    del acc_p
+    Bp, Dp = Q1.shape
+    BS = Bp // s1.shape[0]
+    nslab = Dp // kg.TILE
+    ms = time_ms(lambda: kg.gram_pair_band_q(Q1, s1, Q2, s2, acc))
+    mm, mm_note = int_mm_ms(Q1, Q2, BS)
+    ops = 2.0 * Bp * nslab * (nslab + 1) / 2 * kg.TILE ** 2
+    # every tile reads two 128-column strips of all Bp rows of codes
+    tiles = len(kg._pair_table_np(Dp // kg.QTILE, kg.TILE // kg.QTILE, True))
+    l2 = 2.0 * tiles * kg.QTILE * Bp
+    log(f"[kernels] gram_pair_q ({where}, {Bp}x{Dp}, blocks of {BS}): {ms:.3f} ms, "
+        f"{ops / ms / 1e9:.1f} TOP/s, operand reads from L2 {l2 / 1e9:.2f} GB = "
+        f"{l2 / ms / 1e9:.2f} TB/s; {mm_note}")
+    return dict(
+        name="gram_pair_q", dtype="int8", err=0.0, ms=ms,
+        plain_ms=time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc)),
+        library_ms=None,
+        # the upper 512-slab pairs, diagonal slabs whole; their tiles of the
+        # carry read and written once
+        bound=bound(ops, nbytes(Q1, s1, Q2, s2) + 2 * tiles * kg.QTILE ** 2 * 4, "int8"),
+        int_mm_ms=mm,
+        note=f"{where} ({Bp}x{Dp}, blocks of {BS}), bit-equal (torch.equal) over two "
+             f"chained chunks; s8 wgmma; L2 reads {l2 / 1e9:.2f} GB at "
+             f"{l2 / ms / 1e9:.2f} TB/s; {mm_note}")
+
+
 def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     """Phase 3: every kernel against its plain version, by default at the
     flagship shapes: A2/A3 (S=2048 per chunk, C=9, D=r*P*r=16,200) for K1,
@@ -315,16 +402,13 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
              f"({float((dK == 0).float().mean()) * 100:.4f}% bit-equal)"))
     del Jt_p, Kt_p, dK
 
-    # K2 quantize_tiled: Q and s bit-equal
+    # K2 quantize_tiled: Q and s bit-equal, Q in the same K-major layout
     Q1, s1 = kg.quantize_tiled(Jt, block)
     Q2, s2 = kg.quantize_tiled(Kt, block)
     Q1_p, s1_p = kg.quantize_tiled_plain(Jt, block)
     Q2_p, s2_p = kg.quantize_tiled_plain(Kt, block)
     torch.cuda.synchronize()
-    for a, b, what in ((Q1, Q1_p, "Q(J)"), (s1, s1_p, "s(J)"),
-                       (Q2, Q2_p, "Q(K)"), (s2, s2_p, "s(K)")):
-        if not torch.equal(a, b):
-            raise AssertionError(f"quantize_tiled: {what} differs from plain")
+    check_quantized("quantize_tiled", (Q1, s1, Q2, s2), (Q1_p, s1_p, Q2_p, s2_p))
     results.append(dict(
         name="quantize_tiled", dtype="bf16", err=0.0,
         ms=time_ms(lambda: kg.quantize_tiled(Kt, block)),
@@ -332,34 +416,21 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         library_ms=None,
         # |x|, max, x * (1/s), round: 4 operations an element
         bound=bound(4.0 * Kt.numel(), nbytes(Kt, Q2, s2), "f32"),
-        note="Q and s bit-equal"))
+        note=f"Q and s bit-equal, Q K-major (strides {Q2.stride()}) as the plain "
+             f"version's; strip of {kg.quant_strip(kg.quant_block(Kt.shape[0], block))} "
+             "columns a CTA"))
     del Q1_p, s1_p, Q2_p, s2_p
 
-    # K3 gram_pair_band_q over two chained chunks, finished by mirror_band
+    # K3 gram_pair_band_q over two chained chunks: bit-equal to its plain
+    # version, then mirror_band
     acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
-    acc_p = torch.zeros_like(acc)
-    for _ in range(2):
-        kg.gram_pair_band_q(Q1, s1, Q2, s2, acc)
-        kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc_p)
-    A, A_p = kg.mirror_band(acc), kg.mirror_band(acc_p)
+    k3 = int8_gram_entry("flagship A2 chunk", Q1, s1, Q2, s2, acc)
+    A = kg.mirror_band(acc)
     torch.cuda.synchronize()
-    err = float((A - A_p).abs().max())
-    tol = 1e-5 * float(A_p.abs().max())
-    if not err <= tol:
-        raise AssertionError(f"gram_pair_band_q: max|dA| {err} > {tol}")
-    del A, A_p, acc_p
-    nslab = Dp // kg.TILE
-    results.append(dict(
-        name="gram_pair_q", dtype="int8", err=err,
-        ms=time_ms(lambda: kg.gram_pair_band_q(Q1, s1, Q2, s2, acc)),
-        plain_ms=time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc)),
-        library_ms=None,
-        # the upper 512-slab pairs, diagonal slabs whole; the carry read and
-        # written once
-        bound=bound(2.0 * Q1.shape[0] * nslab * (nslab + 1) / 2 * kg.TILE ** 2,
-                    nbytes(Q1, s1, Q2, s2) + 2 * nbytes(acc), "int8"),
-        note=f"tol 1e-5*max|A| = {tol:.3g}"))
-    del Q1, s1, Q2, s2, acc
+    if not bool(torch.isfinite(A).all()):
+        raise AssertionError("gram_pair_band_q: non-finite Gram")
+    results.append(k3)
+    del Q1, s1, Q2, s2, acc, A
 
     # K6: the float Gram with carry at the A2 shape, over the node's D of the
     # (rows, Dp) tiled operands. bf16: K1's operands (the bf16 swipe's);
@@ -692,6 +763,17 @@ def check_weighted_kernels(device, small=False):
                         plain_ms=first[1], library_ms=first[2], bound=first[3],
                         note="; ".join(notes) + "; library: one batched "
                              "torch.matmul over the pre-weighted class pairs"))
+
+    # K2 and K3 at the int8 regression's chunk: the diagonal route's Jt and
+    # Kt = h * J (K8, bf16), each quantised in one block of its rows
+    Jt, Kt = kg.retile_rows(randn(rows2, D2, dtype=torch.bfloat16), Dp2, h2)
+    q = kg.quantize_tiled(Jt) + kg.quantize_tiled(Kt)
+    check_quantized("quantize_tiled (regression chunk)", q,
+                    kg.quantize_tiled_plain(Jt) + kg.quantize_tiled_plain(Kt))
+    entry = int8_gram_entry("int8 regression chunk", *q,
+                            torch.zeros((Dp2, Dp2), device=device))
+    results.append(dict(entry, dtype="int8, regression chunk"))
+    del Jt, Kt, q
     log_kernels(results)
     return results
 
@@ -838,7 +920,7 @@ def run_regression(device):
     missing = [k for k in ("retile_rows", "quantize_tiled", "gram_pair_q") if q[k] < 1]
     if missing:
         raise AssertionError(f"int8 regression swipe never launched {missing}")
-    return launches, own
+    return launches, own, q
 
 
 def check_reference(device):
@@ -920,8 +1002,10 @@ def main() -> int:
     from tensornetworksfork_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     path = _build.lib()._name
+    # per kernel: its name, registers, spills, and ptxas's warnings (C7517:
+    # a wgmma serialised by an injected warpgroup.wait)
     ptxas = [ln for ln in _build.BUILD_INFO["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if any(w in ln for w in ("Compiling entry", "registers", "spill", "arning"))]
     log(f"[build] {path}: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.BUILD_INFO['seconds']})")
     for ln in ptxas:
@@ -931,16 +1015,18 @@ def main() -> int:
     flagship = run_slice(device, "int8")
     flagship32 = run_slice(device, "f32")
     flagship16 = run_slice(device, "bf16")
-    fit, own = run_regression(device)
+    fit, own, fit8 = run_regression(device)
     check_reference(device)
 
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
-    # regression fit and its own-out swipe (K11)
+    # regression fit, its own-out swipe (K11) and its int8 swipe (K3 at
+    # the regression's chunk)
     launches = {("retile_hmix", "bf16"): flagship["retile_hmix"],
                 ("quantize_tiled", "bf16"): flagship["quantize_tiled"],
                 ("gram_pair_q", "int8"): flagship["gram_pair_q"],
+                ("gram_pair_q", "int8, regression chunk"): fit8["gram_pair_q"],
                 ("gram_pair", "bf16"): flagship["gram_pair"],
                 ("gram_pair_tiled", "f32"): flagship32["gram_pair_tiled"],
                 ("gram_pair_tiled", "bf16"): flagship16["gram_pair_tiled"],
@@ -955,15 +1041,20 @@ def main() -> int:
                "own_out_gram": 1373}
     float_gram = ("gram_pair", "gram_pair_tiled", "weighted_gram_tiled", "weighted_gram",
                   "own_out_gram")
+
+    def source_file(name):
+        return ("wgram.cu" if name in float_gram else
+                "qgram.cu" if name == "gram_pair_q" else "gram.cu")
     print(json.dumps({"kernels": [
         {"name": k["name"], "dtype": k["dtype"], "route": "cuda",
-         "source": f"{csrc}/wgram.cu" if k["name"] in float_gram else f"{csrc}/gram.cu",
+         "source": f"{csrc}/{source_file(k['name'])}",
          "replaces": f"{pallas}:{sources[k['name']]}",
          "launches": launches[k["name"], k["dtype"]],
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
          "bound_type": k["bound"][2] + (", 3 products a multiply-add" if k["bound"][2] == "tf32" else ""),
-         "library_ms": k["library_ms"]}
+         "library_ms": k["library_ms"],
+         **({"int_mm_ms": k["int_mm_ms"]} if "int_mm_ms" in k else {})}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,26 +1,25 @@
 // Gram-path kernels of the sweep trainer, hand-written for Hopper (sm_90a).
 //
 // Port of the Pallas kernels in tensornetworksfork_tpu/ops/pallas/gram.py
-// (the float Grams K6, K7, K9, K10 and K11 are in wgram.cu). Four kernels,
-// each behind plain-C entry points that tensornetworksfork_tpu_torch/ops/cuda/gram.py
-// binds with ctypes. Every entry launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError() so the wrapper can raise.
+// (the float Grams K6, K7, K9, K10 and K11 are in wgram.cu, the int8 Gram
+// K3/K4 in qgram.cu). Three kernels, each behind plain-C entry points that
+// tensornetworksfork_tpu_torch/ops/cuda/gram.py binds with ctypes. Every
+// entry launches on the caller's stream, allocates nothing, and returns cudaGetLastError() so the wrapper can raise.
 //
 //   retile_hmix  <- _make_retile_hmix_kernel / retile_hmix   (K1)
 //   retile_rows  <- _retile_copy_kernel / retile_rows         (K8)
 //   quantize     <- _quant_kernel / quantize_tiled           (K2)
-//   gram_q       <- _make_band_kernel_q / gram_pair_band_q    (K3) and
-//                   _pair_kernel_tiled_q / gram_pair_tiled_q  (K4)
 //
-// Layouts: a Gram operand is row-major (rows, cols); rows are (class, sample)
-// pairs, columns the node's flattened D. Gram outputs are (cols, cols) f32;
-// only the tiles named in a host-built pair table are computed, each by
-// exactly one CTA (no atomics, so an in-place carry is safe).
+// Layouts: an operand is row-major (rows, cols); rows are (class, sample)
+// pairs, columns the node's flattened D. The quantiser writes its int8
+// codes K-major, (cols, ldq): each column's codes contiguous, as the int8
+// Gram's tensor cores read them.
 //
 // Numerics that must match the reference bit for bit are written with
 // explicit _rn intrinsics, so nvcc cannot contract a multiply and an add
-// into one FMA: the class mix of K1, the weighting of K8, the quantiser of
-// K2 and the per-block rescale of K3. Build without --use_fast_math.
+// into one FMA: the class mix of K1, the weighting of K8 and the quantiser
+// of K2 (and, in qgram.cu, the per-block rescale of K3). Build without
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -28,9 +27,7 @@
 
 namespace {
 
-constexpr int kMaxC = 16;     // largest class count K1 keeps in registers
-constexpr int kTile = 64;     // Gram output tile (kTile x kTile per CTA)
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kMaxC = 16;  // largest class count K1 keeps in registers
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -143,116 +140,100 @@ int launch_retile_rows(const T* X, const float* h, T* Jt, T* Kt, int rows, int D
 }
 
 // ---------------------------------------------------------------- K2
-// One CTA per (64-column strip, quantisation block of BS rows): a max pass
-// over the block, then a quantise pass. s = m * f32(1/127) (1 for a zero
-// column) — the reference's m / 127.0 as XLA evaluates a division by a
-// constant — and q = round-half-even(x * (1/s)), 1/s an IEEE reciprocal.
-// Rows >= `rows` read as zero (row padding).
-__global__ void quantize_kernel(const __nv_bfloat16* __restrict__ X, int8_t* __restrict__ Q,
-                                float* __restrict__ Sc, int rows, int Dp, int BS) {
-  __shared__ float red[4][64];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * 64 + tx;
-  const int r0 = blockIdx.y * BS;
-  float m = 0.f;
-  for (int r = r0 + ty; r < r0 + BS; r += 4)
-    if (r < rows) m = fmaxf(m, fabsf(__bfloat162float(X[(size_t)r * Dp + col])));
-  red[ty][tx] = m;
-  __syncthreads();
-  m = fmaxf(fmaxf(red[0][tx], red[1][tx]), fmaxf(red[2][tx], red[3][tx]));
-  const float s = m > 0.f ? __fmul_rn(m, 1.0f / 127.0f) : 1.0f;
-  const float inv = __frcp_rn(s);
-  if (ty == 0) Sc[(size_t)blockIdx.y * Dp + col] = s;
-  for (int r = r0 + ty; r < r0 + BS; r += 4) {
-    const float x = r < rows ? __bfloat162float(X[(size_t)r * Dp + col]) : 0.f;
-    Q[(size_t)r * Dp + col] = (int8_t)__float2int_rn(__fmul_rn(x, inv));
+// One CTA per (strip of W = 8, 16 or 32 columns, quantisation block of BS
+// rows; ops/cuda/gram.py quant_strip picks W, 32 up to BS = 2,048), reading
+// its block of X once into registers: thread t holds the unit of 16 rows
+// (rg = t / (W/8)) x 8 columns (cc = t % (W/8)) as 16 loads of 16 bytes. The
+// column max is reduced by warp shuffles and shared memory, then each thread
+// quantises its unit and writes it K-major: for each of its 8 columns the
+// 16 codes of its rows, one 16-byte store into Qt[column, rows]. s = m *
+// f32(1/127) (1 for a zero column) — the reference's m / 127.0 as XLA
+// evaluates a division by a constant — and q = round-half-even(x * (1/s)),
+// 1/s an IEEE reciprocal. Rows >= `rows` read as zero (row padding); the
+// last block's CTAs also write zero codes past Bp (up to ldq). Bound by
+// bytes: the flagship's 18,432 x 16,384 bf16 operand is 604 MB read and
+// 302 MB written, 0.27 ms at 3.35 TB/s.
+constexpr int kQuantThreads = 512;  // at most (BS / 16) * (W / 8) units a CTA
+
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_kernel(const __nv_bfloat16* __restrict__ X, int8_t* __restrict__ Qt,
+                float* __restrict__ Sc, int rows, int Dp, int BS, int ldq, int Bp, int W) {
+  __shared__ float red[kQuantThreads / 32][32];
+  __shared__ float sinv[32];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int ncc = W / 8, cc = t % ncc, rg = t / ncc;
+  const bool live = rg < BS / 16;
+  const int c0 = blockIdx.x * W + cc * 8;  // the unit's first column
+  const int r0 = blockIdx.y * BS + rg * 16;  // and row
+  uint4 v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    v[i] = live && r0 + i < rows
+               ? __ldcs(reinterpret_cast<const uint4*>(X + (size_t)(r0 + i) * Dp + c0))
+               : make_uint4(0u, 0u, 0u, 0u);
+  auto value = [&](int i, int j) {  // X[r0 + i, c0 + j] in f32
+    const __nv_bfloat162 h = reinterpret_cast<const __nv_bfloat162*>(&v[i])[j / 2];
+    return (j & 1) ? __high2float(h) : __low2float(h);
+  };
+  // the column max of |x|, exact in bf16, on pairs of columns; lanes of one
+  // column chunk differ in the bits at and above ncc
+  __nv_bfloat162 m[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m[k] = __habs2(reinterpret_cast<const __nv_bfloat162*>(&v[0])[k]);
+#pragma unroll
+    for (int i = 1; i < 16; ++i)
+      m[k] = __hmax2(m[k], __habs2(reinterpret_cast<const __nv_bfloat162*>(&v[i])[k]));
   }
-}
-
-// ---------------------------------------------------------------- K3 / K4
-// A[d, e] (+)= sum_b (X_b[:, d] . Y_b[:, e]) * (sx[b, d] * sy[b, e]) over the
-// quantisation blocks b of BS rows. Each block's dot is exact in int32
-// (dp4a over 4 rows at a time; |q| <= 127, so 2048 rows stay below 2^31);
-// the int32 sum is rescaled and added to the f32 accumulator at the end of
-// its block and never carried into the next one. With swap set for a tile
-// the two operands trade places, so the tile holds the product in the
-// orientation the reference's band schedule computes for that slab pair.
-// Bp (rows) is a multiple of 32 and of BS; Dp a multiple of kTile.
-__global__ void __launch_bounds__(kThreads)
-gram_q_kernel(const int8_t* __restrict__ Q1, const float* __restrict__ s1,
-              const int8_t* __restrict__ Q2, const float* __restrict__ s2,
-              float* __restrict__ A, const int* __restrict__ pairs,
-              int Bp, int Dp, int BS, int has_acc) {
-  __shared__ __align__(16) int sX[8][kTile];
-  __shared__ __align__(16) int sY[8][kTile];
-  const int* pr = pairs + 3 * blockIdx.x;
-  const int d0 = pr[0] * kTile, e0 = pr[1] * kTile, swap = pr[2];
-  const int8_t* X = swap ? Q2 : Q1;
-  const int8_t* Y = swap ? Q1 : Q2;
-  const float* sx = swap ? s2 : s1;
-  const float* sy = swap ? s1 : s2;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  int acc_i[4][4];
-  float acc_f[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int off = 16; off >= 1; off >>= 1)
+    if (off >= ncc) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc_i[i][j] = 0;
-      acc_f[i][j] = has_acc ? A[(size_t)(d0 + ty * 4 + i) * Dp + e0 + tx * 4 + j] : 0.f;
-    }
-
-  // loader role: one 4x4 byte block (4 rows x 4 columns) of X or Y
-  const int op = tid / 128, g = (tid % 128) / 16, c4 = tid % 16;
-  const int8_t* src = (op ? Y : X) + (op ? e0 : d0) + c4 * 4;
-  int* dst = op ? &sY[g][c4 * 4] : &sX[g][c4 * 4];
-
-  for (int r0 = 0; r0 < Bp; r0 += 32) {
-    const int8_t* p = src + (size_t)(r0 + 4 * g) * Dp;
-    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
-    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + Dp);
-    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 2 * (size_t)Dp);
-    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 3 * (size_t)Dp);
-    // 4x4 byte transpose: word c holds rows 0..3 of column c
-    const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
-    const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
-    *reinterpret_cast<int4*>(dst) = make_int4((int)__byte_perm(t0, t2, 0x5410),
-                                              (int)__byte_perm(t0, t2, 0x7632),
-                                              (int)__byte_perm(t1, t3, 0x5410),
-                                              (int)__byte_perm(t1, t3, 0x7632));
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int4 xv = *reinterpret_cast<const int4*>(&sX[k][ty * 4]);
-      const int4 yv = *reinterpret_cast<const int4*>(&sY[k][tx * 4]);
-      const int xs[4] = {xv.x, xv.y, xv.z, xv.w};
-      const int ys[4] = {yv.x, yv.y, yv.z, yv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc_i[i][j] = __dp4a(xs[i], ys[j], acc_i[i][j]);
-    }
-    __syncthreads();
-    if ((r0 + 32) % BS == 0) {  // end of quantisation block b: rescale, flush
-      const size_t b = (size_t)(r0 / BS) * Dp;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float sxi = sx[b + d0 + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float sc = __fmul_rn(sxi, sy[b + e0 + tx * 4 + j]);
-          acc_f[i][j] = __fadd_rn(acc_f[i][j], __fmul_rn(__int2float_rn(acc_i[i][j]), sc));
-          acc_i[i][j] = 0;
-        }
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t o = __shfl_xor_sync(0xffffffffu, *reinterpret_cast<uint32_t*>(&m[k]), off);
+        m[k] = __hmax2(m[k], *reinterpret_cast<const __nv_bfloat162*>(&o));
       }
     }
+  if (lane < ncc) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      red[warp][cc * 8 + 2 * k] = __low2float(m[k]);
+      red[warp][cc * 8 + 2 * k + 1] = __high2float(m[k]);
+    }
   }
+  __syncthreads();
+  for (int c = t; c < W; c += blockDim.x) {
+    float mm = 0.f;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) mm = fmaxf(mm, red[w][c]);
+    const float s = mm > 0.f ? __fmul_rn(mm, 1.0f / 127.0f) : 1.0f;
+    sinv[c] = __frcp_rn(s);
+    Sc[(size_t)blockIdx.y * Dp + blockIdx.x * W + c] = s;
+  }
+  __syncthreads();
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) {
+      const float inv = sinv[cc * 8 + j];
+      uint32_t word[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      A[(size_t)(d0 + ty * 4 + i) * Dp + e0 + tx * 4 + j] = acc_f[i][j];
+      for (int q = 0; q < 4; ++q) {
+        word[q] = 0u;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int code = __float2int_rn(__fmul_rn(value(4 * q + u, j), inv));
+          word[q] |= (uint32_t)(code & 0xff) << (8 * u);
+        }
+      }
+      *reinterpret_cast<uint4*>(Qt + (size_t)(c0 + j) * ldq + r0) =
+          make_uint4(word[0], word[1], word[2], word[3]);
+    }
+  }
+  if (blockIdx.y == gridDim.y - 1) {  // zero codes past Bp
+    const int nz = (ldq - Bp) / 16;
+    for (int i = t; i < W * nz; i += blockDim.x)
+      *reinterpret_cast<uint4*>(Qt + (size_t)(blockIdx.x * W + i / nz) * ldq + Bp + 16 * (i % nz)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 inline int launch_status() { return (int)cudaGetLastError(); }
@@ -293,25 +274,17 @@ int tnf_retile_rows_f32(const void* X, const void* h, void* Jt, void* Kt, int ro
                                    rows, D, Dp, sms, (cudaStream_t)stream);
 }
 
-int tnf_quantize_bf16(const void* X, void* Q, void* Sc, int rows, int Dp, int BS,
-                      int nb, void* stream) {
-  if (Dp % 64) return (int)cudaErrorInvalidValue;
-  dim3 grid(Dp / 64, nb), block(64, 4);
-  quantize_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)X, (int8_t*)Q, (float*)Sc, rows, Dp, BS);
+int tnf_quantize_bf16(const void* X, void* Qt, void* Sc, int rows, int Dp, int BS, int nb,
+                      int ldq, int W, void* stream) {
+  const int units = (BS / 16) * (W / 8);
+  if ((W != 8 && W != 16 && W != 32) || Dp % W || BS < 32 || BS % 32 || nb < 1 ||
+      units > kQuantThreads || ldq % 16 || ldq < nb * BS ||
+      (reinterpret_cast<uintptr_t>(X) & 15) || (reinterpret_cast<uintptr_t>(Qt) & 15))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(Dp / W, nb);
+  quantize_kernel<<<grid, (units + 31) / 32 * 32, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)X, (int8_t*)Qt, (float*)Sc, rows, Dp, BS, ldq, nb * BS, W);
   return launch_status();
 }
-
-int tnf_gram_q(const void* Q1, const void* s1, const void* Q2, const void* s2, void* A,
-               const void* pairs, int npairs, int Bp, int Dp, int BS, int has_acc,
-               void* stream) {
-  if (Dp % kTile || Bp % 32 || BS % 32 || Bp % BS) return (int)cudaErrorInvalidValue;
-  gram_q_kernel<<<npairs, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)Q1, (const float*)s1, (const int8_t*)Q2, (const float*)s2,
-      (float*)A, (const int*)pairs, Bp, Dp, BS, has_acc);
-  return launch_status();
-}
-
-int tnf_gram_tile() { return kTile; }
 
 }  // extern "C"

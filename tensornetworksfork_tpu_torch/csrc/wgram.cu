@@ -87,30 +87,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kWT = 128;        // output tile, kWT x kWT per CTA
 constexpr int kWThreads = 256;  // 8 warps
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// cp.async with zero fill: src_size 0 writes N zero bytes, reads nothing
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(pred ? 16 : 0) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "n"(N), "r"(pred ? N : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ---------------------------------------------------------------- f32
 constexpr int kFK = 32;                                  // rows a stage
@@ -327,9 +309,6 @@ __device__ __forceinline__ uint64_t gdesc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The 64 f32 results of an m64n128 wgmma (operands %0..%63), then the two
-// descriptors (%64, %65) and the accumulate flag (%66).
-#define TNF_WG_D64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define TNF_WG_OUT64 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
 // d (+)= A^T-tile x B-tile over 16 rows: A 64 columns (d), B 128 columns (e),
@@ -357,20 +336,6 @@ __device__ __forceinline__ void wgmma_m64n128_tf32(float (&d)[64], uint64_t da, 
       : TNF_WG_OUT64
       : "l"(da), "l"(db), "r"(accumulate)
       : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// generic-proxy writes to shared memory (cp.async, st.shared) made visible to
-// wgmma's reads, which go through the async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One thread's part of loading a stage by kChunk-byte copies (16, or 8 for a
@@ -599,16 +564,10 @@ __device__ __forceinline__ float tf32_rna(float x) {
 
 // Byte offset of the 16-byte chunk (column m < 128, rows 4 kc .. 4 kc + 3 of
 // the stage) in a K-major 128-byte-swizzle tile: 1 KB atoms of 8 columns x
-// 32 rows, column m at (m / 8) KB + (m % 8) * 128, chunk kc at slot kc ^ (m % 8).
+// 32 rows, column m at (m / 8) KB + (m % 8) * 128, chunk kc at slot kc ^ (m % 8)
+// (wgmma reads it through sm90.cuh's tdesc).
 __device__ __forceinline__ int tk_offset(int m, int kc) {
   return ((m >> 3) << 10) + ((m & 7) << 7) + (((kc ^ (m & 7)) & 7) << 4);
-}
-
-// Descriptor of that layout: stride byte offset 1 KB (the next 8 columns);
-// the leading byte offset is unused (the stage's rows are one swizzle row).
-__device__ __forceinline__ uint64_t tdesc(uint32_t saddr) {
-  return (uint64_t)((saddr >> 4) & 0x3FFF) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
 }
 
 // Split a landed stage (X then Y, each kTK x kWT row-major) into the four

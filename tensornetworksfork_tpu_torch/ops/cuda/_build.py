@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA kernels (every `csrc/*.cu`).
+"""Build and load the package's CUDA kernels (every `csrc/*.cu`, with the
+headers `csrc/*.cuh` they include).
 
 nvcc compiles each source to an object, all at once in parallel, and links
 them into one shared library with a plain C interface, which ctypes loads;
@@ -34,8 +35,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "tnf_retile_hmix_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tnf_retile_hmix_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "tnf_quantize_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "tnf_gram_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tnf_quantize_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tnf_gram_q": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tnf_retile_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tnf_retile_rows_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tnf_gram_tile": (),
@@ -72,9 +73,15 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    """The headers they include: every `csrc/*.cuh`."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
+    """The library for these sources, headers and flags."""
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libtnf_gram_{digest.hexdigest()[:16]}.so"

@@ -3,18 +3,20 @@
 Port of tensornetworksfork_tpu/ops/pallas/gram.py: every Pallas kernel of
 the JAX package has a counterpart here. Each wrapper takes the plain PyTorch
 version (`<fn>_plain`, beside it) only for tensors that lie on the CPU; for
-CUDA tensors it launches its kernel from `csrc/gram.cu` (the float Grams
-K6, K7, K9, K10 and K11: `csrc/wgram.cu`) or raises — there is no fallback.
-Each wrapper checks device, dtype, shape and contiguity, raises when the
-launch reports an error, and adds one to `LAUNCHES[<name>]` per call that
-launches its kernel.
+CUDA tensors it launches its kernel from `csrc/gram.cu` (the int8 Gram K3/K4:
+`csrc/qgram.cu`; the float Grams K6, K7, K9, K10 and K11: `csrc/wgram.cu`)
+or raises — there is no fallback. Each wrapper checks device, dtype, shape
+and layout, raises when the launch reports an error, and adds one to
+`LAUNCHES[<name>]` per call that launches its kernel.
 
 Layouts differ from the TPU's where the TPU's were schedule choices: the
 class-major operands are row-major (C*S, Dp) matrices instead of (n, rows,
-tile) slabs, and the Gram kernels write the upper triangle of a (Dp, Dp)
-matrix. What fixes the numbers is kept: the reference plan's 512-wide slabs
-(padding D to Dp and, for int8, which slab pairs are "far"), the 2048-row
-quantisation blocks, the class-major row order and the bf16 rounding of K.
+tile) slabs, the int8 codes are stored K-major (quantize_tiled returns a
+transposed view), and the Gram kernels write the upper triangle of a
+(Dp, Dp) matrix. What fixes the numbers is kept: the reference plan's
+512-wide slabs (padding D to Dp and, for int8, which slab pairs are "far"),
+the 2048-row quantisation blocks, the class-major row order and the bf16
+rounding of K.
 """
 from __future__ import annotations
 
@@ -37,6 +39,11 @@ LAUNCHES = {"retile_hmix": 0, "quantize_tiled": 0, "gram_pair_q": 0,
 
 TILE = 512    # the reference plan's D slab (plan_tiles): padding and band map
 BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
+# The int8 Gram (K3/K4; csrc/qgram.cu): its output tile and the rows of a
+# stage, to which quantize_tiled pads each column's codes; and the
+# quantiser's threads a CTA (csrc/gram.cu)
+QTILE = 128
+QUANT_THREADS = 512
 
 # The split Gram (K7, K9, K10, K11; csrc/wgram.cu): its output tile, the
 # shortest split it plans, and how many of its f32 kernel's CTAs one SM holds
@@ -145,6 +152,14 @@ def _check(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
 
 
 def _raise_on(status: int, kernel: str) -> None:
+    """Raise on an entry point's status: a cudaError_t, or (csrc/qgram.cu)
+    -1 when libcuda has no TMA encoder and -1000 - CUresult when a
+    tensor map cannot be made."""
+    if status == -1:
+        raise RuntimeError(f"CUDA kernel {kernel}: libcuda has no cuTensorMapEncodeTiled")
+    if status <= -1000:
+        raise RuntimeError(f"CUDA kernel {kernel}: cuTensorMapEncodeTiled failed, "
+                           f"CUresult {-1000 - status}")
     if status != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {status}")
@@ -175,30 +190,27 @@ def _pair_table_np(ntiles: int, slab_tiles: int, band: bool) -> np.ndarray:
     """(npairs, 3) int32 rows (ti, tj, swap) of the kernel tiles to compute.
 
     slab_tiles = 0: every tile, natural orientation (K11's whole blocks).
-    slab_tiles = 1: the exact upper triangle ti <= tj, natural orientation,
-    in GROUP x GROUP blocks of tiles (blocks, then tiles, in row order).
+    slab_tiles = 1: the exact upper triangle ti <= tj, natural orientation.
     slab_tiles > 1 (int8): every tile whose 512-slab pair (p, q) has p <= q,
     the diagonal slabs whole, as the reference's int8 kernels compute them;
     with `band`, slab pairs at circular distance > n/2 get swap = 1 — the
     reference band schedule computes those as Q1_qᵀQ2_p (gram.py
-    _make_band_kernel_q), and the swap reproduces that rounding."""
+    _make_band_kernel_q), and the swap reproduces that rounding.
+    Both (slab_tiles >= 1) list their tiles in GROUP x GROUP blocks (blocks,
+    then tiles, in row order)."""
+    ti, tj = np.divmod(np.arange(ntiles * ntiles), ntiles)
     if slab_tiles == 0:
-        ti, tj = np.divmod(np.arange(ntiles * ntiles), ntiles)
         return np.stack([ti, tj, 0 * ti], 1).astype(np.int32)
     if slab_tiles == 1:
-        ti, tj = np.triu_indices(ntiles)
-        order = np.lexsort((tj, ti, tj // GROUP, ti // GROUP))
-        return np.stack([ti[order], tj[order], np.zeros_like(ti)], 1).astype(np.int32)
-    nslab = ntiles // slab_tiles
-    rows = []
-    for ti in range(ntiles):
-        p = ti // slab_tiles
-        for tj in range(ntiles):
-            q = tj // slab_tiles
-            if p > q:
-                continue
-            rows.append((ti, tj, int(band and 2 * (q - p) > nslab)))
-    return np.asarray(rows, np.int32).reshape(-1, 3)
+        keep = ti <= tj
+        swap = np.zeros_like(ti)
+    else:
+        p, q = ti // slab_tiles, tj // slab_tiles
+        keep = p <= q
+        swap = (band & (2 * (q - p) > ntiles // slab_tiles)).astype(ti.dtype)
+    ti, tj, swap = ti[keep], tj[keep], swap[keep]
+    order = np.lexsort((tj, ti, tj // GROUP, ti // GROUP))
+    return np.stack([ti[order], tj[order], swap[order]], 1).astype(np.int32)
 
 
 _TABLES = {}
@@ -311,39 +323,65 @@ def retile_rows_plain(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------- K2
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def quant_strip(BS: int) -> int:
+    """Columns a CTA of the quantiser takes for blocks of BS rows: 32 (64
+    bytes of each bf16 row), fewer where the block's 16-row x 8-column units
+    would exceed the kernel's 512 threads."""
+    for W in (32, 16, 8):
+        if BS // 16 * (W // 8) <= QUANT_THREADS:
+            return W
+    raise ValueError(f"quantize_tiled: blocks of {BS} rows exceed the kernel's "
+                     f"{QUANT_THREADS * 16} rows")
+
+
 def quantize_tiled(X: torch.Tensor, block: int = BLOCK):
     """Absmax int8 quantisation of a (rows, Dp) bf16 operand per (block of
     BS rows, column): s = max|x| * f32(1/127) (1 for a zero column),
-    q = round-half-even(x * (1/s)). BS = quant_block(rows, block); rows are zero-padded to
-    Bp = nb * BS. Returns Q (Bp, Dp) int8 and s (nb, Dp) f32.
+    q = round-half-even(x * (1/s)). BS = quant_block(rows, block); rows are
+    zero-padded to Bp = nb * BS. Returns Q (Bp, Dp) int8 and s (nb, Dp) f32.
+
+    Q is a transposed view: the codes are stored K-major, as Qt (Dp, ldq)
+    with ldq = Bp rounded up to QTILE (the pad holds zero codes), and
+    Q = Qt[:, :Bp].T, so each column's codes are contiguous — the layout the
+    int8 Gram's tensor cores read. Its values are the reference's.
 
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:quantize_tiled
-    (_quant_kernel). Bound on the card: memory — two reads of the bf16 block
-    (the second from L2) and one int8 write; one CTA per (64-column strip,
-    block) reduces the column max in shared memory, so the scale never goes
-    through device memory before the quantise pass."""
+    (_quant_kernel). Bound on the card: memory — one read of the bf16 block
+    and one int8 write (the flagship's 18,432 x 16,384 operand: 0.27 ms).
+    Each CTA holds a (BS rows x 32 columns) block in registers, reduces the
+    column max by shuffles and shared memory, and writes each column's
+    codes of 16 rows as one 16-byte store, so X is read once and the
+    transpose costs nothing."""
     rows, Dp = X.shape
     BS = quant_block(rows, block)
     nb = (rows + BS - 1) // BS
+    Bp = nb * BS
     if _on_cpu(X):
         return quantize_tiled_plain(X, block)
     _check(X, "X", (torch.bfloat16,), 2)
     if Dp % 64:
         raise ValueError(f"quantize_tiled: Dp={Dp} must be a multiple of 64")
-    Q = torch.empty((nb * BS, Dp), dtype=torch.int8, device=X.device)
+    W = quant_strip(BS)
+    ldq = _round_up(Bp, QTILE)
+    Qt = torch.empty((Dp, ldq), dtype=torch.int8, device=X.device)
     s = torch.empty((nb, Dp), dtype=torch.float32, device=X.device)
     _raise_on(_build.lib().tnf_quantize_bf16(
-        X.data_ptr(), Q.data_ptr(), s.data_ptr(), rows, Dp, BS, nb, _stream()),
+        X.data_ptr(), Qt.data_ptr(), s.data_ptr(), rows, Dp, BS, nb, ldq, W, _stream()),
         "quantize_tiled")
     LAUNCHES["quantize_tiled"] += 1
-    return Q, s
+    return Qt[:, :Bp].T, s
 
 
 def quantize_tiled_plain(X: torch.Tensor, block: int = BLOCK):
     rows, Dp = X.shape
     BS = quant_block(rows, block)
     nb = (rows + BS - 1) // BS
-    Xp = torch.nn.functional.pad(X.float(), (0, 0, 0, nb * BS - rows))
+    Bp = nb * BS
+    Xp = torch.nn.functional.pad(X.float(), (0, 0, 0, Bp - rows))
     X4 = Xp.reshape(nb, BS, Dp)
     m = X4.abs().amax(dim=1)
     # s = m * f32(1/127): the reference's m / 127.0, which XLA evaluates as a
@@ -351,7 +389,10 @@ def quantize_tiled_plain(X: torch.Tensor, block: int = BLOCK):
     s = torch.where(m > 0, m * (1.0 / 127.0), torch.ones_like(m))
     inv = torch.ones_like(s) / s
     q = torch.round(X4 * inv[:, None, :]).to(torch.int8)
-    return q.reshape(nb * BS, Dp), s
+    # the kernel's K-major layout: Qt (Dp, ldq), zero codes past Bp
+    Qt = torch.zeros((Dp, _round_up(Bp, QTILE)), dtype=torch.int8, device=X.device)
+    Qt[:, :Bp] = q.reshape(Bp, Dp).T
+    return Qt[:, :Bp].T, s
 
 
 # ---------------------------------------------------------------- K3 / K4
@@ -360,14 +401,17 @@ def gram_pair_band_q(Q1, s1, Q2, s2, acc: torch.Tensor) -> torch.Tensor:
 
     Computes sum_b (Q1_bᵀ Q2_b exact in int32) * (s1_b ⊗ s2_b) in f32 over
     the upper 512-slab pairs (diagonal slabs whole), far slab pairs in the
-    reference band's orientation; `mirror_band` finishes the layout.
+    reference band's orientation; `mirror_band` finishes the layout. On the
+    card Q1 and Q2 must be quantize_tiled's K-major views (Q.T row-major,
+    its row stride a multiple of 16 bytes); the plain version takes any.
 
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:gram_pair_band_q
-    (_make_band_kernel_q, _gram_pair_band_q_jit). Bound on the card: integer
-    dot throughput (dp4a) and the operand re-reads from L2; each 64x64
-    output tile is owned by one CTA, which loops over the rows, keeps the
-    block's int32 sum in registers and rescales it at each block's end, and
-    read-modify-writes the carry once, so the carry needs no atomics."""
+    (_make_band_kernel_q, _gram_pair_band_q_jit). Bound on the card: int8
+    tensor-core work (the flagship's 18,432 x 16,384 chunk: 2.58 ms), with
+    ~40 GB of operand reads from L2. csrc/qgram.cu: one CTA per 128x128 tile,
+    TMA loads of the K-major codes into a 6-stage ring, s8 wgmma into int32
+    sums that are rescaled and added in f32 at each block's end, the carry
+    read and written once by the tile's owner (no atomics)."""
     return _gram_pair_q(Q1, s1, Q2, s2, acc, band=True)
 
 
@@ -379,6 +423,28 @@ def gram_pair_tiled_q(Q1, s1, Q2, s2) -> torch.Tensor:
     Dp = Q1.shape[1]
     acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=Q1.device)
     return _gram_pair_q(Q1, s1, Q2, s2, acc, band=False, has_acc=False)
+
+
+def _check_kmajor(Q: torch.Tensor, name: str) -> None:
+    """Q (Bp, Dp) int8 in quantize_tiled's layout: Q.T row-major with a row
+    stride of at least Bp that is a multiple of 16 bytes, 16-byte aligned
+    (what the int8 Gram's TMA loads need). No silent copy."""
+    if Q.dtype != torch.int8 or Q.ndim != 2:
+        raise TypeError(f"{name}: expected a 2-d int8 tensor, got {Q.dtype}{tuple(Q.shape)}")
+    ld = Q.stride(1)
+    if Q.stride(0) != 1 or ld < Q.shape[0] or ld % 16 or Q.data_ptr() % 16:
+        raise ValueError(f"{name}: the int8 Gram takes quantize_tiled's K-major codes "
+                         f"(Q.T row-major, row stride a multiple of 16 bytes); got "
+                         f"strides {Q.stride()} for shape {tuple(Q.shape)}")
+
+
+def _qgram_lib():
+    """The kernel library, checked to tile the int8 Gram as QTILE does."""
+    lib = _build.lib()
+    if lib.tnf_gram_tile() != QTILE:
+        raise RuntimeError("csrc/qgram.cu and ops/cuda/gram.py disagree on the "
+                           "int8 Gram's tile")
+    return lib
 
 
 def _gram_pair_q(Q1, s1, Q2, s2, acc, band: bool, has_acc: bool = True):
@@ -394,16 +460,17 @@ def _gram_pair_q(Q1, s1, Q2, s2, acc, band: bool, has_acc: bool = True):
                          f"{tuple(s1.shape)}, acc {tuple(acc.shape)}")
     if _on_cpu(Q1, s1, Q2, s2, acc):
         return gram_pair_q_plain(Q1, s1, Q2, s2, acc, band, has_acc)
-    for t, n in ((Q1, "Q1"), (Q2, "Q2")):
-        _check(t, n, (torch.int8,), 2)
+    _check_kmajor(Q1, "Q1")
+    _check_kmajor(Q2, "Q2")
     for t, n in ((s1, "s1"), (s2, "s2"), (acc, "acc")):
         _check(t, n, (torch.float32,), 2)
     BS = Bp // nb
-    lib = _build.lib()
-    T = lib.tnf_gram_tile()
-    pairs = _pair_table(Dp // T, TILE // T, band, Q1.device)
-    _raise_on(lib.tnf_gram_q(Q1.data_ptr(), s1.data_ptr(), Q2.data_ptr(),
-                             s2.data_ptr(), acc.data_ptr(), pairs.data_ptr(),
+    if BS % 32:
+        raise ValueError(f"int8 Gram: blocks of {BS} rows; the kernel takes multiples of 32")
+    lib = _qgram_lib()
+    pairs = _pair_table(Dp // QTILE, TILE // QTILE, band, Q1.device)
+    _raise_on(lib.tnf_gram_q(Q1.data_ptr(), Q1.stride(1), s1.data_ptr(), Q2.data_ptr(),
+                             Q2.stride(1), s2.data_ptr(), acc.data_ptr(), pairs.data_ptr(),
                              pairs.shape[0], Bp, Dp, BS, int(has_acc), _stream()),
               "gram_pair_q")
     LAUNCHES["gram_pair_q"] += 1

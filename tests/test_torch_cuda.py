@@ -1,6 +1,6 @@
-"""Tests that need a CUDA card: every kernel of csrc/gram.cu and
-csrc/wgram.cu against its plain version on the card, at small, ragged
-shapes (K6 in f32 also against float64, K8 bit for bit).
+"""Tests that need a CUDA card: every kernel of csrc/gram.cu, csrc/qgram.cu
+and csrc/wgram.cu against its plain version on the card, at small, ragged
+shapes (K6 in f32 also against float64; K2, K3/K4 and K8 bit for bit).
 
 This file imports no JAX, so it also runs on a machine without it (the
 suite's conftest.py imports JAX, hence --noconftest there):
@@ -18,8 +18,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 @pytest.mark.cuda
 def test_all_kernels_match_plain_on_cuda():
-    """chip_smoke's kernel checks (K1-K3, K6, K10, then K7, K8, K9, K11) at
-    small shapes, each against its plain version with its tolerance."""
+    """chip_smoke's kernel checks (K1-K3, K6, K10, then K7, K8, K9, K11, K2
+    and K3) at small shapes, each against its plain version with its
+    tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sys.path.insert(0, str(ROOT))
@@ -212,3 +213,108 @@ def test_retile_rows_bit_equal_on_cuda(rows, D, Dp, shift, dtype):
         if hh is not None:
             assert torch.equal(Kt.view(bits), Kt_p.view(bits))
     assert kg.LAUNCHES["retile_rows"] == 2
+
+
+def _kmajor_storage(Q):
+    """The whole code matrix Qt (Dp, ldq) behind a K-major view Q = Qt[:, :Bp].T."""
+    ld = Q.stride(1)
+    return torch.as_strided(Q, (Q.shape[1], ld), (ld, 1))
+
+
+def _bf16_operand(gen, rows, Dp, dev):
+    """A bf16 (rows, Dp) operand whose columns differ in scale, with a zero
+    column (5), as the quantiser's inputs do."""
+    X = torch.randn(rows, Dp, generator=gen) * torch.exp(torch.randn(Dp, generator=gen))
+    X[:, 5] = 0.0
+    return X.to(dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,block,Dp", [(64, 32, 512), (520, 2048, 1024),
+                                           (2600, 2048, 1024), (18432, 2048, 512)])
+def test_quantize_tiled_bit_equal_on_cuda(rows, block, Dp):
+    """K2 bit-equal to its plain version in values and in layout: the codes
+    K-major (Q = Qt[:, :Bp].T, equal strides), Qt's zero pad past Bp and the
+    scales (1 for the zero column). 520 rows quantise in one block of 544,
+    2,600 in two of 2,048 (Bp 4,096, the last block ragged)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    dev = torch.device("cuda")
+    X = _bf16_operand(torch.Generator().manual_seed(rows), rows, Dp, dev)
+    kg.reset_launches()
+    Q, s = kg.quantize_tiled(X, block)
+    Q_p, s_p = kg.quantize_tiled_plain(X, block)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["quantize_tiled"] == 1
+    assert Q.shape == Q_p.shape and Q.stride() == Q_p.stride()
+    assert torch.equal(_kmajor_storage(Q), _kmajor_storage(Q_p))
+    assert torch.equal(s, s_p) and bool((s[:, 5] == 1).all())
+
+
+def _int8_chunk(gen, rows, Dp, block, dev):
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    return (kg.quantize_tiled(_bf16_operand(gen, rows, Dp, dev), block)
+            + kg.quantize_tiled(_bf16_operand(gen, rows, Dp, dev), block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 4])
+@pytest.mark.parametrize("rows,block", [(96, 32), (520, 2048), (4096, 2048)])
+def test_gram_pair_band_q_bit_equal_on_cuda(rows, block, n):
+    """K3 (s8 wgmma) over two chained chunks into a random carry equals its
+    plain version bit for bit (torch.equal): odd and even slab counts (the
+    band's far pairs, (0, 2) and (0, 3), on swapped tiles), blocks of 32,
+    544 and 2,048 rows, Bp = 96 and 544 not a multiple of a 128-row stage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    gen = torch.Generator().manual_seed(100 * n + rows)
+    dev = torch.device("cuda")
+    Dp = n * kg.TILE
+    acc = torch.randn(Dp, Dp, generator=gen).to(dev)
+    acc_p = acc.clone()
+    kg.reset_launches()
+    for _ in range(2):
+        Q1, s1, Q2, s2 = _int8_chunk(gen, rows, Dp, block, dev)
+        assert kg.gram_pair_band_q(Q1, s1, Q2, s2, acc) is acc
+        kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc_p)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["gram_pair_q"] == 2
+    assert torch.equal(acc, acc_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,block", [(96, 32), (2600, 2048)])
+def test_gram_pair_tiled_q_bit_equal_on_cuda(rows, block):
+    """K4 (no carry, natural orientation) equals its plain version bit for
+    bit, lower slab pairs zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    dev = torch.device("cuda")
+    Dp = 3 * kg.TILE
+    Q1, s1, Q2, s2 = _int8_chunk(torch.Generator().manual_seed(rows), rows, Dp, block, dev)
+    A = kg.gram_pair_tiled_q(Q1, s1, Q2, s2)
+    A_p = kg.gram_pair_q_plain(Q1, s1, Q2, s2, torch.zeros_like(A), band=False,
+                               has_acc=False)
+    torch.cuda.synchronize()
+    assert torch.equal(A, A_p)
+
+
+@pytest.mark.cuda
+def test_gram_pair_band_q_rejects_row_major_codes_on_cuda():
+    """K3 takes quantize_tiled's K-major codes only: a row-major copy of
+    them raises (no silent copy), and so does a view whose row stride is
+    not a multiple of 16 bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    dev = torch.device("cuda")
+    Q1, s1, Q2, s2 = _int8_chunk(torch.Generator().manual_seed(3), 96, 512, 32, dev)
+    acc = torch.zeros((512, 512), device=dev)
+    with pytest.raises(ValueError):
+        kg.gram_pair_band_q(Q1.contiguous(), s1, Q2, s2, acc)
+    odd = torch.zeros((512, 104), dtype=torch.int8, device=dev)[:, :96].T
+    with pytest.raises(ValueError):
+        kg.gram_pair_band_q(Q1, s1, odd, s2, acc)

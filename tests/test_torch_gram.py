@@ -85,6 +85,78 @@ def test_quantize_tiled_matches_pallas(rows, block, zero_col):
     assert np.all(s_t.numpy()[:, zero_col] == 1.0)
 
 
+@pytest.mark.parametrize("rows,block", [(200, 64), (50, 64), (96, 32), (520, 2048)])
+def test_quantize_tiled_plain_is_kmajor_view(rows, block):
+    """quantize_tiled returns the kernel's K-major layout on the CPU too: Q
+    is Qt[:, :Bp].T for Qt (Dp, ldq), ldq = Bp rounded up to QTILE, zero
+    codes past Bp; its values are the Pallas quantiser's."""
+    rng = np.random.default_rng(rows + block)
+    tile, n = 128, 2
+    Xb = bf16(rng.standard_normal((rows, n * tile)).astype(np.float32))
+    Q, s = tg.quantize_tiled(Xb, block)
+    BS = tg.quant_block(rows, block)
+    Bp = -(-rows // BS) * BS
+    ldq = -(-Bp // tg.QTILE) * tg.QTILE
+    assert Q.shape == (Bp, n * tile) and Q.stride() == (1, ldq)
+    Qt = torch.as_strided(Q, (n * tile, ldq), (ldq, 1))
+    assert not Qt[:, Bp:].any()
+    assert torch.equal(Qt[:, :Bp], Q.T)
+    Q_j, s_j = jg.quantize_tiled(
+        jnp.asarray(rows_to_slabs(Xb.float().numpy(), tile), jnp.bfloat16),
+        block, interpret=True)
+    np.testing.assert_array_equal(Q.numpy(), slabs_to_rows(Q_j))
+    np.testing.assert_array_equal(s.numpy(), slabs_to_rows(s_j))
+
+
+@pytest.mark.parametrize("BS,W", [(32, 32), (544, 32), (2048, 32), (4096, 16), (8192, 8)])
+def test_quant_strip_fits_the_kernel(BS, W):
+    """The quantiser's strip: 32 columns while the block's 16 x 8 units fit
+    the kernel's 512 threads, narrower for longer blocks."""
+    assert tg.quant_strip(BS) == W
+    assert BS // 16 * (W // 8) <= tg.QUANT_THREADS
+
+
+def test_quant_strip_rejects_longer_blocks():
+    with pytest.raises(ValueError):
+        tg.quant_strip(16384)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 32])
+@pytest.mark.parametrize("band", [False, True])
+def test_int8_pair_table_covers_upper_slab_pairs(n, band):
+    """The int8 Gram's table of 128-tiles (slab_tiles = 4): every tile of
+    every upper 512-slab pair p <= q exactly once, swap constant within a
+    slab pair and set for the band's far pairs (2 (q - p) > n) only, the
+    tiles listed in GROUP x GROUP blocks."""
+    st = tg.TILE // tg.QTILE
+    t = tg._pair_table_np(n * st, st, band)
+    ti, tj, sw = t[:, 0], t[:, 1], t[:, 2]
+    assert len({(a, b) for a, b in zip(ti, tj)}) == len(t)
+    want = {(a, b) for a in range(n * st) for b in range(n * st) if a // st <= b // st}
+    assert set(zip(ti.tolist(), tj.tolist())) == want
+    p, q = ti // st, tj // st
+    for pq in set(zip(p.tolist(), q.tolist())):
+        sel = (p == pq[0]) & (q == pq[1])
+        assert len(set(sw[sel].tolist())) == 1
+        assert sw[sel][0] == int(band and 2 * (pq[1] - pq[0]) > n)
+    blocks = np.stack([ti // tg.GROUP, tj // tg.GROUP], 1)
+    keys = blocks[:, 0] * (n * st) + blocks[:, 1]
+    assert np.all(np.diff(keys) >= 0)
+
+
+def test_gram_pair_band_q_plain_takes_any_layout():
+    """On the CPU the int8 Gram's plain version gives the same bits for the
+    K-major view quantize_tiled returns and for a row-major copy of it."""
+    rng = np.random.default_rng(11)
+    Xb, Kb = (bf16(rng.standard_normal((96, 1024)).astype(np.float32)) for _ in range(2))
+    Q1, s1 = tg.quantize_tiled(Xb, 32)
+    Q2, s2 = tg.quantize_tiled(Kb, 32)
+    A = tg.gram_pair_band_q(Q1, s1, Q2, s2, torch.zeros((1024, 1024)))
+    B = tg.gram_pair_band_q(Q1.contiguous(), s1, Q2.contiguous(), s2,
+                            torch.zeros((1024, 1024)))
+    assert torch.equal(A, B)
+
+
 def _int8_operands(rng, n, rows, nb):
     Dp = n * tg.TILE
     Q1 = rng.integers(-127, 128, (rows, Dp)).astype(np.int8)
@@ -268,6 +340,16 @@ def test_launch_counters_and_kernel_source():
     for name in _build._SIGNATURES:
         assert re.search(rf"\bint {name}\(", text), name
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("status,text", [(-1, "no cuTensorMapEncodeTiled"),
+                                         (-1001, "CUresult 1"), (1, "cudaError 1")])
+def test_launch_status_raises(status, text):
+    """An entry point's nonzero status raises with what failed: the TMA
+    encoder missing, a tensor map refused (its CUresult) or a launch."""
+    tg._raise_on(0, "k")
+    with pytest.raises(RuntimeError, match=text):
+        tg._raise_on(status, "k")
 
 
 def test_wrappers_reject_other_devices():
