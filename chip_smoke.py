@@ -18,14 +18,18 @@ printing its own lines:
    of 5; K8's, shorter than a launch from the host, as CUDA graphs of 20
    calls), beside the kernel's bound: the larger of its operations over the
    card's peak for their type and its bytes over the memory rate (PEAK, HBM
-   below). K1, K2, K3, K6 (bf16 and f32) and K10 (bf16 and f32) at the
-   conv-TT flagship's shapes, K6 and K10 in f32 on full-mantissa operands
-   held to float64, with bf16- and TF32-rounded controls that must fail;
-   K2 and K3 bit for bit (K2 also in its K-major layout), K3 with
-   torch._int_mm over the same blocks as a yardstick; K8, K7, K9, K11, K2
+   below). K1 (bf16 and f32, with the rhs it sums), K2, K3, K6 (bf16 and
+   f32) and K10 (bf16 and f32) at the conv-TT flagship's shapes, K1 also at
+   small shapes for C in 1, 3, 9, 16 on both its paths, K6 and K10 in f32
+   on full-mantissa operands held to float64, with bf16- and TF32-rounded
+   controls that must fail; K1's Jt, K2 and K3 bit for bit (K2 also in its
+   K-major layout), K3 with torch._int_mm over the same blocks as a
+   yardstick, and K4 (K3's carry-less entry, on no path) timed once beside
+   its bound; K8, K7, K9, K11, K2
    and K3 at the regression's (K7 and K9 also in bf16, K11 also at the
    flagship's first core), with the row split the split Gram (K10, K9, K11)
-   plans for each. The kernels of `csrc/gram.cu`: K1 `retile_hmix_kernel`,
+   plans for each. The kernels of `csrc/gram.cu`: K1 `retile_hmix_kernel`
+   (16-byte packs; b's runs added by `hmix_b_reduce_kernel`),
    K2 `quantize_kernel` (one read of X, codes written K-major), K8
    `retile_rows_kernel`; of `csrc/qgram.cu`: K3/K4 `gram_q_kernel` (s8
    wgmma fed by TMA); of `csrc/wgram.cu`: K6 in f32 `gram_tf32x3_kernel`
@@ -361,46 +365,118 @@ def int8_gram_entry(where, Q1, s1, Q2, s2, acc):
              f"{l2 / ms / 1e9:.2f} TB/s; {mm_note}")
 
 
+# K1's small shapes (class count, D, offset of J from a 16-byte boundary in
+# values): D = 701 takes the one-value path, D = 1000 the packs (16 bytes; 8
+# for bf16 at C = 16) with padding packs past D, offset 1 the one-value path
+# again; 9,000 samples give runs of more than one staged chunk and ragged
+# groups of the samples a thread holds (several at C = 1 and 3)
+HMIX_SHAPES = [(c, d, 0) for c in (1, 3, 9, 16) for d in (701, 1000)] + [(9, 1000, 1)]
+HMIX_SAMPLES = 9000
+
+
+def hmix_inputs(S, C, D, dtype, device, shift=0, seed=0):
+    """J (S, C, D) in `dtype`, its start `shift` values past an allocation,
+    H (S, C, C) and the class-major gvec (C*S,) in `dtype` of an XEBregman
+    loss on random logits, as the flagship's A2/A3 update gives them K1."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(S * C * D + shift, generator=gen, device=device) * 0.05
+    J3 = flat.to(dtype)[shift:].view(S, C, D)
+    logits = torch.randn((S, C), generator=gen, device=device)
+    labels = torch.randint(0, C + 1, (S,), generator=gen, device=device)
+    _, g, H = XEBregman(1.0)(logits, torch.eye(C + 1, device=device)[labels])
+    return J3, H.contiguous(), g.T.reshape(-1).to(dtype).contiguous()
+
+
+# K1's rhs: the largest |b - b_plain| of a column over sum_r |g_r||Jt_rd|, in
+# units of 2^-24 per sqrt(rows): both sum the same exact (bf16) or equally
+# rounded (f32) products in f32, in another order
+HMIX_B_BOUND = 4.0
+
+
+def check_retile_hmix(device, S, C, D, dtype, shift=0, timed=False):
+    """K1 (retile_hmix with gvec) against its plain version on the card: Jt
+    bit for bit; Kt bit for bit in f32 (both round the same f32 products
+    and sums) and within 1 bf16 ulp in bf16; b per column within
+    HMIX_B_BOUND sqrt(S*C) 2^-24 of sum |g||J|; one launch counted. With
+    `timed`, its kernels entry: K1's time with b (the path's call) beside its
+    byte bound and the plain version's, K1 without b and the rhs as the
+    engine formed it before (an f32 copy of Jt and a product) in the note.
+    Returns (entry or None, Jt, Kt)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    Dp = kg.plan_tiles(D)[3]
+    J3, H, gvec = hmix_inputs(S, C, D, dtype, device, shift)
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    what = f"retile_hmix (S={S}, C={C}, D={D}, {kind}, offset {shift})"
+    kg.reset_launches()
+    Jt, Kt, b = kg.retile_hmix(J3, H, Dp, gvec)
+    if kg.LAUNCHES["retile_hmix"] != 1:
+        raise AssertionError(f"{what}: launch count {kg.LAUNCHES['retile_hmix']}, not 1")
+    Jt_p, Kt_p, b_p = kg.retile_hmix_plain(J3, H, Dp, gvec)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(Jt.view(bits), Jt_p.view(bits)):
+        raise AssertionError(f"{what}: Jt differs from the plain version")
+    dK = (Kt.float() - Kt_p.float()).abs()
+    same = float((Kt.view(bits) == Kt_p.view(bits)).float().mean())
+    ulps = float((dK / bf16_ulp(Kt_p.float())).max())
+    if dtype == torch.float32 and same < 1.0:
+        raise AssertionError(f"{what}: Kt not bit-equal ({same * 100:.4f}%)")
+    if ulps > 1.0:
+        raise AssertionError(f"{what}: Kt off by {ulps} bf16 ulp (> 1)")
+    u = 2.0 ** -24
+    scale = gvec.float().abs() @ Jt_p.float().abs()
+    rb = float(((b - b_p).abs() / scale.clamp_min(1e-30)).max()) / (u * np.sqrt(S * C))
+    if not rb <= HMIX_B_BOUND:
+        raise AssertionError(f"{what}: b off by {rb:.3g} sqrt(S*C) 2^-24 of sum|g||J| "
+                             f"(> {HMIX_B_BOUND})")
+    del Jt_p, Kt_p, b_p, scale
+    if not timed:
+        return None, Jt, Kt
+    ms = time_ms(lambda: kg.retile_hmix(J3, H, Dp, gvec))
+    bare = time_ms(lambda: kg.retile_hmix(J3, H, Dp))
+    rhs_old = time_ms(lambda: gvec.float() @ Jt.float())
+    runs, rps = kg.hmix_plan(S, C, Dp, J3.element_size(), kg.sm_count(J3.device))
+    entry = dict(
+        name="retile_hmix", dtype=kind, err=float(dK.max()), ms=ms,
+        plain_ms=time_ms(lambda: kg.retile_hmix_plain(J3, H, Dp, gvec)), library_ms=None,
+        # the class mix and the rhs: a multiply and an add per term, in f32
+        bound=bound(2.0 * S * C * (C + 1) * D, nbytes(J3, H, gvec, Jt, Kt, b), "f32"),
+        note=f"A2/A3 chunk (S={S}, C={C}, D={D}, Dp={Dp}), Jt bit-equal, Kt max "
+             f"{ulps:.3g} bf16 ulp ({same * 100:.4f}% bit-equal), b max {rb:.3g} "
+             f"sqrt(S*C) 2^-24 of sum|g||J| (bound {HMIX_B_BOUND}); {runs} runs of {rps} "
+             f"samples; without b {bare:.4f} ms; the rhs as the engine formed it before, "
+             f"gvec.float() @ Jt.float(), {rhs_old:.4f} ms")
+    del dK
+    return entry, Jt, Kt
+
+
 def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     """Phase 3: every kernel against its plain version, by default at the
     flagship shapes: A2/A3 (S=2048 per chunk, C=9, D=r*P*r=16,200) for K1,
     K2, K3 and K6, A4 (8192*9 merged rows, D=r*P=900) for K10."""
     import torch
-    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
 
     rng = np.random.default_rng(0)
     C = FLAGSHIP["C"]
     D = D or FLAGSHIP["r"] * FLAGSHIP["P"] * FLAGSHIP["r"]
     _, block, _, Dp = kg.plan_tiles(D)
-    J3 = torch.tensor(rng.standard_normal((S, C, D), np.float32) * 0.05,
-                      device=device).to(torch.bfloat16)
-    logits = torch.tensor(rng.standard_normal((S, C), np.float32), device=device)
-    onehot = torch.eye(C + 1, device=device)[
-        torch.tensor(rng.integers(0, C + 1, S), device=device)]
-    _, _, H = XEBregman(1.0)(logits, onehot)
-    H = H.contiguous()
     results = []
 
-    # K1 retile_hmix: Jt bit-equal, Kt within 1 bf16 ulp
-    Jt, Kt = kg.retile_hmix(J3, H, Dp)
-    Jt_p, Kt_p = kg.retile_hmix_plain(J3, H, Dp)
-    torch.cuda.synchronize()
-    if not torch.equal(Jt, Jt_p):
-        raise AssertionError("retile_hmix: Jt differs from the plain version")
-    dK = (Kt.float() - Kt_p.float()).abs()
-    ulps = float((dK / bf16_ulp(Kt_p.float())).max())
-    if ulps > 1.0:
-        raise AssertionError(f"retile_hmix: Kt off by {ulps} bf16 ulp (> 1)")
-    results.append(dict(
-        name="retile_hmix", dtype="bf16", err=float(dK.max()),
-        ms=time_ms(lambda: kg.retile_hmix(J3, H, Dp)),
-        plain_ms=time_ms(lambda: kg.retile_hmix_plain(J3, H, Dp)),
-        library_ms=None,
-        bound=bound(2.0 * S * C * C * D, nbytes(J3, H, Jt, Kt), "f32"),
-        note=f"Jt bit-equal, Kt max {ulps:.3g} bf16 ulp "
-             f"({float((dK == 0).float().mean()) * 100:.4f}% bit-equal)"))
-    del Jt_p, Kt_p, dK
+    # K1 retile_hmix with the fused rhs, in bf16 (the int8 and bf16 tiers;
+    # its Jt and Kt feed K2, K3 and K6 below) and in f32 (the f32 tier), then
+    # at small shapes that reach every class count's path
+    entry, Jt, Kt = check_retile_hmix(device, S, C, D, torch.bfloat16, timed=True)
+    results.append(entry)
+    results.append(check_retile_hmix(device, S, C, D, torch.float32, timed=True)[0])
+    for c, d, shift in HMIX_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            check_retile_hmix(device, HMIX_SAMPLES, c, d, dt, shift=shift)
+    log(f"[kernels] retile_hmix: held to its plain version at S={HMIX_SAMPLES}, "
+        f"(C, D, offset) in {HMIX_SHAPES}, bf16 and f32")
 
     # K2 quantize_tiled: Q and s bit-equal, Q in the same K-major layout
     Q1, s1 = kg.quantize_tiled(Jt, block)
@@ -430,7 +506,26 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     if not bool(torch.isfinite(A).all()):
         raise AssertionError("gram_pair_band_q: non-finite Gram")
     results.append(k3)
-    del Q1, s1, Q2, s2, acc, A
+    del acc, A
+    # K4 gram_pair_tiled_q, K3's carry-less entry (on no path of the port):
+    # bit-equal to its plain version, and its time at this chunk beside its
+    # bound (the wrapper's zeroed output included), logged for the table of
+    # kernels but not in the kernels line, which lists the paths' kernels
+    B4 = kg.gram_pair_tiled_q(Q1, s1, Q2, s2)
+    B4_p = kg.gram_pair_q_plain(Q1, s1, Q2, s2, torch.zeros_like(B4), band=False,
+                                has_acc=False)
+    torch.cuda.synchronize()
+    if not torch.equal(B4, B4_p):
+        raise AssertionError("gram_pair_tiled_q: differs from its plain version")
+    del B4, B4_p
+    ms4 = time_ms(lambda: kg.gram_pair_tiled_q(Q1, s1, Q2, s2))
+    nslab = Dp // kg.TILE
+    tiles4 = len(kg._pair_table_np(Dp // kg.QTILE, kg.TILE // kg.QTILE, False))
+    b4 = bound(2.0 * Q1.shape[0] * nslab * (nslab + 1) / 2 * kg.TILE ** 2,
+               nbytes(Q1, s1, Q2, s2) + tiles4 * kg.QTILE ** 2 * 4, "int8")
+    log(f"[kernels] gram_pair_tiled_q (K4, on no path; {Q1.shape[0]}x{Dp}): {ms4:.3f} ms, "
+        f"bound {b4[0]:.3f} ms ({b4[1]}), bit-equal (torch.equal) to its plain version")
+    del Q1, s1, Q2, s2
 
     # K6: the float Gram with carry at the A2 shape, over the node's D of the
     # (rows, Dp) tiled operands. bf16: K1's operands (the bf16 swipe's);
@@ -466,7 +561,7 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         note=f"A2 shape with carry ({rows2}x{Dp}, D {D}, bf16 from K1), tol {tol6b:.3g}; "
              f"split Gram wgmma, 1 split; library: torch.mm on the bf16 operands "
              f"(bf16 out, f32 sums); acc.addmm_ on them upcast to f32 {up6b:.3f} ms"))
-    del acc, Jt, Kt, J3
+    del acc, Jt, Kt
     gen = torch.Generator(device=device).manual_seed(6)
     J6, K6 = (torch.nn.functional.pad(
         torch.randn((rows2, D), generator=gen, device=device) * 0.05, (0, Dp - D))
@@ -1024,6 +1119,7 @@ def main() -> int:
     # regression fit, its own-out swipe (K11) and its int8 swipe (K3 at
     # the regression's chunk)
     launches = {("retile_hmix", "bf16"): flagship["retile_hmix"],
+                ("retile_hmix", "f32"): flagship32["retile_hmix"],
                 ("quantize_tiled", "bf16"): flagship["quantize_tiled"],
                 ("gram_pair_q", "int8"): flagship["gram_pair_q"],
                 ("gram_pair_q", "int8, regression chunk"): fit8["gram_pair_q"],

@@ -514,14 +514,15 @@ class Network:
                 h = hess.reshape(S_sz * C_sz).float().contiguous()
                 Jt, Kt = kgram.retile_rows(J3.reshape(S_sz * C_sz, D).contiguous(),
                                            Dp, h if quant else None)
-                gvec = g2.reshape(-1)
+                b = (g2.reshape(-1).float() @ Jt.float())[:D]
             else:
                 H3 = hess.reshape(S_sz, C_sz, C_sz).float().contiguous()
-                # fused class-major retile + class mix: rows come back (c, s)
+                # fused class-major retile + class mix, which also sums the
+                # rhs Jtᵀg from the J it reads: rows come back (c, s)
                 # ordered, so g is reordered to match
-                Jt, Kt = kgram.retile_hmix(J3.contiguous(), H3, Dp)
-                gvec = g2.reshape(S_sz, C_sz).T.reshape(-1)
-            b = (gvec.float() @ Jt.float())[:D]
+                gvec = g2.reshape(S_sz, C_sz).T.reshape(-1).contiguous()
+                Jt, Kt, b = kgram.retile_hmix(J3.contiguous(), H3, Dp, gvec)
+                b = b[:D]
             if quant:
                 Q1, s1 = kgram.quantize_tiled(Jt, block)
                 Q2, s2 = kgram.quantize_tiled(Kt, block)

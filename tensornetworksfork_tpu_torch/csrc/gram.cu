@@ -4,9 +4,12 @@
 // (the float Grams K6, K7, K9, K10 and K11 are in wgram.cu, the int8 Gram
 // K3/K4 in qgram.cu). Three kernels, each behind plain-C entry points that
 // tensornetworksfork_tpu_torch/ops/cuda/gram.py binds with ctypes. Every
-// entry launches on the caller's stream, allocates nothing, and returns cudaGetLastError() so the wrapper can raise.
+// entry launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so the wrapper can raise.
 //
-//   retile_hmix  <- _make_retile_hmix_kernel / retile_hmix   (K1)
+//   retile_hmix  <- _make_retile_hmix_kernel / retile_hmix   (K1; it also
+//                   forms the rhs Jtᵀg, which the reference engine takes by
+//                   a separate dot over Jt)
 //   retile_rows  <- _retile_copy_kernel / retile_rows         (K8)
 //   quantize     <- _quant_kernel / quantize_tiled           (K2)
 //
@@ -38,34 +41,217 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// A pack of V values of T, moved as one load or store (16 bytes where the
+// shapes and pointers allow, else one value).
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> zero_pack() {
+  Pack<T, V> z;
+#pragma unroll
+  for (int j = 0; j < V; ++j) z.v[j] = from_f32<T>(0.f);
+  return z;
+}
+
 // ---------------------------------------------------------------- K1
-// One thread per (sample s, column d). Reads J[s, 0..C-1, d] once, writes
-// the C class-major copies Jt[c*S + s, d] and the C mixed values
-// Kt[c*S + s, d] = sum_e H[s, c, e] * J[s, e, d], mixed in f32 in order
-// e = 0..C-1 and rounded once to T. Columns D..Dp-1 are written as zeros.
+// Jt[c*S + s, d] = J[s, c, d] and Kt[c*S + s, d] = sum_e H[s, c, e] J[s, e, d]:
+// rows class-major, columns D..Dp-1 zero, the mix in f32 in order e = 0..C-1
+// with _rn intrinsics, rounded once to T. With g ((C*S,) class-major, in T)
+// also the rhs b = Jtᵀg: part[run, d] is the sum over the run's samples s,
+// in order, and the classes c of g[c*S + s] * J[s, c, d] in f32 (written
+// straight into b when there is one run; else hmix_b_reduce_kernel adds the
+// runs in order, so b is the same from run to run: no atomics).
+//
+// Bound by bytes: one read of J and two writes of its size (g and b are
+// smaller by a factor of D and of S*C). A CTA owns a strip of kHmixThreads packs of V
+// columns (16 bytes: 8 bf16 or 4 f32 values; 8 bytes for bf16 beyond 10
+// classes, below; V = 1 where D, Dp or a pointer is not aligned to them)
+// and a run of samples; the wrapper sizes the grid
+// (strips x runs) to the SMs. The CTA stages its samples' H rows and g
+// values into shared memory kHmixChunk samples at a time, each in one
+// coalesced copy; a thread then loads the C class packs of U samples (about
+// kHmixValues values of J) before it mixes and stores them, so J is read
+// once in 16-byte loads and Jt, Kt are written in 16-byte stores; padding
+// packs are written as zero packs without a load. CC is the class count,
+// fixed at compile time on the packed path so the packs stay in registers;
+// 0 (the one-value path) reads C at run time, up to kMaxC.
+//
+// Registers: the mix reads each value of J C times, so nvcc widens all of a
+// thread's bf16 values to f32 once and keeps them; at the 128 registers of
+// two CTAs an SM, 16-byte bf16 packs of more than 10 classes (88 values and
+// up) spill, and such class counts take 8-byte packs (hmix_pack_values).
+constexpr int kHmixThreads = 256;
+constexpr int kHmixChunk = 32;   // samples whose H rows a CTA stages at once
+constexpr int kHmixValues = 64;  // values of J a thread loads before it stores
+
+// values of T in a pack of the packed path for CC classes
 template <typename T>
-__global__ void retile_hmix_kernel(const T* __restrict__ J, const float* __restrict__ H,
-                                   T* __restrict__ Jt, T* __restrict__ Kt,
-                                   int S, int C, int D, int Dp) {
-  __shared__ float sH[kMaxC * kMaxC];
-  const int s = blockIdx.x;
-  for (int i = threadIdx.x; i < C * C; i += blockDim.x) sH[i] = H[(size_t)s * C * C + i];
-  __syncthreads();
-  const int d = blockIdx.y * blockDim.x + threadIdx.x;
-  if (d >= Dp) return;
-  float jf[kMaxC];
+__host__ __device__ constexpr int hmix_pack_values(int CC) {
+  return sizeof(T) == 2 && CC > 10 ? 4 : 16 / (int)sizeof(T);
+}
+
+// samples a thread holds at once: U = kHmixValues / (CC * V), at least 1
+__host__ __device__ constexpr int hmix_samples(int CC, int V) {
+  return CC == 0 || CC * V >= kHmixValues ? 1 : kHmixValues / (CC * V);
+}
+
+template <typename T, int V, int CC>
+__global__ void __launch_bounds__(kHmixThreads, 2)
+retile_hmix_kernel(const T* __restrict__ J, const float* __restrict__ H,
+                   const T* __restrict__ g, T* __restrict__ Jt, T* __restrict__ Kt,
+                   float* __restrict__ part, int S, int C, int D, int Dp, int rps) {
+  using P = Pack<T, V>;
+  constexpr int CM = CC ? CC : kMaxC;  // class slots in registers
+  constexpr int U = hmix_samples(CC, V);
+  extern __shared__ float smem[];
+  const int nc = CC ? CC : C;
+  float* sH = smem;                         // [kHmixChunk][C][C]
+  float* sG = smem + kHmixChunk * nc * nc;  // [C][kHmixChunk]
+  const int nv = Dp / V, nvd = D / V;       // packs a row, of them from J
+  const int p = blockIdx.x * kHmixThreads + threadIdx.x;
+  const bool live = p < nv, data = p < nvd;
+  const int s0 = blockIdx.y * rps, s1 = min(S, s0 + rps);
+  const P* Jp = reinterpret_cast<const P*>(J);
+  P* Jtp = reinterpret_cast<P*>(Jt);
+  P* Ktp = reinterpret_cast<P*>(Kt);
+  float bs[V];
 #pragma unroll
-  for (int e = 0; e < kMaxC; ++e)
-    jf[e] = (e < C && d < D) ? to_f32(J[((size_t)s * C + e) * D + d]) : 0.f;
-  for (int c = 0; c < C; ++c) {
-    const size_t o = ((size_t)c * S + s) * Dp + d;
-    float acc = __fmul_rn(sH[c * C], jf[0]);
+  for (int j = 0; j < V; ++j) bs[j] = 0.f;
+  for (int c0 = s0; c0 < s1; c0 += kHmixChunk) {
+    const int n = min(kHmixChunk, s1 - c0);
+    __syncthreads();  // the last chunk's readers are done
+    for (int i = threadIdx.x; i < n * nc * nc; i += kHmixThreads)
+      sH[i] = H[(size_t)c0 * nc * nc + i];
+    if (g)
+      for (int i = threadIdx.x; i < nc * n; i += kHmixThreads)
+        sG[(i / n) * kHmixChunk + i % n] = to_f32(g[(size_t)(i / n) * S + c0 + i % n]);
+    __syncthreads();
+    if (!live) continue;
+    for (int k = 0; k < n; k += U) {
+      P x[U][CM];
 #pragma unroll
-    for (int e = 1; e < kMaxC; ++e)
-      if (e < C) acc = __fadd_rn(acc, __fmul_rn(sH[c * C + e], jf[e]));
-    Jt[o] = from_f32<T>(jf[c]);
-    Kt[o] = from_f32<T>(acc);
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int e = 0; e < CM; ++e)
+          if (data && k + u < n && (CC || e < nc))
+            x[u][e] = Jp[((size_t)(c0 + k + u) * nc + e) * nvd + p];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k + u >= n) break;
+        const int s = c0 + k + u;
+        const float* h = sH + (k + u) * nc * nc;
+#pragma unroll
+        for (int c = 0; c < CM; ++c) {
+          if (!(CC || c < nc)) break;
+          const size_t o = ((size_t)c * S + s) * nv + p;
+          if (!data) {
+            Jtp[o] = zero_pack<T, V>();
+            Ktp[o] = zero_pack<T, V>();
+            continue;
+          }
+          float a[V];
+          const float h0 = h[c * nc];
+#pragma unroll
+          for (int j = 0; j < V; ++j) a[j] = __fmul_rn(h0, to_f32(x[u][0].v[j]));
+#pragma unroll
+          for (int e = 1; e < CM; ++e) {
+            if (!(CC || e < nc)) break;
+            const float he = h[c * nc + e];
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              a[j] = __fadd_rn(a[j], __fmul_rn(he, to_f32(x[u][e].v[j])));
+          }
+          P kp;
+#pragma unroll
+          for (int j = 0; j < V; ++j) kp.v[j] = from_f32<T>(a[j]);
+          Jtp[o] = x[u][c];
+          Ktp[o] = kp;
+          if (g) {
+            const float gc = sG[c * kHmixChunk + k + u];
+#pragma unroll
+            for (int j = 0; j < V; ++j) bs[j] = __fmaf_rn(gc, to_f32(x[u][c].v[j]), bs[j]);
+          }
+        }
+      }
+    }
   }
+  if (g && live) {
+    float* dst = part + (size_t)blockIdx.y * Dp + (size_t)p * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = bs[j];
+  }
+}
+
+// b[d] = part[0, d] + part[1, d] + ..., in run order.
+__global__ void hmix_b_reduce_kernel(const float* __restrict__ part, float* __restrict__ b,
+                                     int runs, int Dp) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= Dp) return;
+  float s = part[d];
+  for (int z = 1; z < runs; ++z) s = __fadd_rn(s, part[(size_t)z * Dp + d]);
+  b[d] = s;
+}
+
+struct HmixArgs {
+  const void* J;
+  const float* H;
+  const void* g;
+  void* Jt;
+  void* Kt;
+  float* part;
+  int S, C, D, Dp, rps;
+};
+
+template <typename T, int V, int CC>
+void launch_hmix_kernel(const HmixArgs& a, dim3 grid, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kHmixChunk * a.C * a.C + a.C * kHmixChunk);
+  retile_hmix_kernel<T, V, CC><<<grid, kHmixThreads, smem, stream>>>(
+      (const T*)a.J, a.H, (const T*)a.g, (T*)a.Jt, (T*)a.Kt, a.part, a.S, a.C, a.D, a.Dp,
+      a.rps);
+}
+
+// the packed kernel for the class count a.C (1..kMaxC), fixed at compile time
+template <typename T, int CC>
+void launch_hmix_packed(const HmixArgs& a, dim3 grid, cudaStream_t stream) {
+  constexpr int V = hmix_pack_values<T>(CC);
+  if constexpr (CC <= kMaxC) {
+    if (a.C == CC)
+      launch_hmix_kernel<T, V, CC>(a, grid, stream);
+    else
+      launch_hmix_packed<T, CC + 1>(a, grid, stream);
+  }
+}
+
+// K1 over runs of rps samples, then (with g and more than one run) the
+// reduction of b's partials from `part` ((runs, Dp) f32) into b.
+template <typename T>
+int launch_retile_hmix(HmixArgs a, float* b, cudaStream_t stream) {
+  if (a.S < 1 || a.C < 1 || a.C > kMaxC || a.D < 1 || a.Dp < a.D || a.rps < 1 ||
+      (a.g && !b))
+    return (int)cudaErrorInvalidValue;
+  const int runs = (a.S + a.rps - 1) / a.rps;
+  if (a.g && runs > 1 && !a.part) return (int)cudaErrorInvalidValue;
+  if (runs == 1) a.part = b;
+  const int V = hmix_pack_values<T>(a.C);
+  auto al = [V](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & (V * sizeof(T) - 1)) == 0;
+  };
+  const bool vec = a.D % V == 0 && a.Dp % V == 0 && al(a.J) && al(a.Jt) && al(a.Kt);
+  const int nv = vec ? a.Dp / V : a.Dp;
+  const dim3 grid((nv + kHmixThreads - 1) / kHmixThreads, runs);
+  if (vec)
+    launch_hmix_packed<T, 1>(a, grid, stream);
+  else
+    launch_hmix_kernel<T, 1, 0>(a, grid, stream);
+  if (a.g && runs > 1) {
+    const int status = (int)cudaGetLastError();
+    if (status) return status;
+    hmix_b_reduce_kernel<<<(a.Dp + 255) / 256, 256, 0, stream>>>(a.part, b, runs, a.Dp);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K8
@@ -76,11 +262,6 @@ __global__ void retile_hmix_kernel(const T* __restrict__ J, const float* __restr
 // read of X, one or two writes. A thread moves packs of V values (V = 16
 // bytes' worth where D, Dp and the pointers allow, else 1): each grid-stride
 // pass loads kRU packs before it stores them, and the grid is sized to the SMs.
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
 constexpr int kRU = 4;  // packs a thread has in flight
 
 template <typename T, int V>
@@ -242,23 +423,20 @@ inline int launch_status() { return (int)cudaGetLastError(); }
 
 extern "C" {
 
-int tnf_retile_hmix_bf16(const void* J, const void* H, void* Jt, void* Kt,
-                         int S, int C, int D, int Dp, void* stream) {
-  if (C > kMaxC) return (int)cudaErrorInvalidValue;
-  dim3 grid(S, (Dp + 255) / 256);
-  retile_hmix_kernel<__nv_bfloat16><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)J, (const float*)H, (__nv_bfloat16*)Jt, (__nv_bfloat16*)Kt,
-      S, C, D, Dp);
-  return launch_status();
+int tnf_retile_hmix_bf16(const void* J, const void* H, const void* g, void* Jt, void* Kt,
+                         void* part, void* b, int S, int C, int D, int Dp, int rps,
+                         void* stream) {
+  return launch_retile_hmix<__nv_bfloat16>(
+      HmixArgs{J, (const float*)H, g, Jt, Kt, (float*)part, S, C, D, Dp, rps}, (float*)b,
+      (cudaStream_t)stream);
 }
 
-int tnf_retile_hmix_f32(const void* J, const void* H, void* Jt, void* Kt,
-                        int S, int C, int D, int Dp, void* stream) {
-  if (C > kMaxC) return (int)cudaErrorInvalidValue;
-  dim3 grid(S, (Dp + 255) / 256);
-  retile_hmix_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)J, (const float*)H, (float*)Jt, (float*)Kt, S, C, D, Dp);
-  return launch_status();
+int tnf_retile_hmix_f32(const void* J, const void* H, const void* g, void* Jt, void* Kt,
+                        void* part, void* b, int S, int C, int D, int Dp, int rps,
+                        void* stream) {
+  return launch_retile_hmix<float>(
+      HmixArgs{J, (const float*)H, g, Jt, Kt, (float*)part, S, C, D, Dp, rps}, (float*)b,
+      (cudaStream_t)stream);
 }
 
 int tnf_retile_rows_bf16(const void* X, const void* h, void* Jt, void* Kt, int rows, int D,

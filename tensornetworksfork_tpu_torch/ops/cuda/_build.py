@@ -33,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "tnf_retile_hmix_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "tnf_retile_hmix_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tnf_retile_hmix_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tnf_retile_hmix_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tnf_quantize_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tnf_gram_q": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tnf_retile_rows_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -44,6 +44,11 @@ BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
 # quantiser's threads a CTA (csrc/gram.cu)
 QTILE = 128
 QUANT_THREADS = 512
+# K1 (csrc/gram.cu retile_hmix_kernel): threads a CTA, each on one 16-byte
+# pack of a column strip, and the CTAs one SM holds at once (its launch
+# bounds promise two)
+HMIX_THREADS = 256
+HMIX_RESIDENT = 2
 
 # The split Gram (K7, K9, K10, K11; csrc/wgram.cu): its output tile, the
 # shortest split it plans, and how many of its f32 kernel's CTAs one SM holds
@@ -231,39 +236,76 @@ def _pair_table(ntiles: int, slab_tiles: int, band: bool,
 
 
 # ---------------------------------------------------------------- K1
-def retile_hmix(J3: torch.Tensor, H: torch.Tensor, Dp: int):
-    """Fused class-major retile + Hessian class mixing.
+def hmix_pack_values(C: int, itemsize: int) -> int:
+    """Values of a pack of K1's packed path: 16 bytes, or 8 for bf16 beyond
+    10 classes (csrc/gram.cu hmix_pack_values: wider packs would spill)."""
+    return 4 if itemsize == 2 and C > 10 else 16 // itemsize
 
-    J3 (S, C, D) packed Jacobian (bf16 or f32), H (S, C, C) f32. Returns
-    (Jt, Kt), both (C*S, Dp) in J3's dtype, rows class-major (row c*S + s),
-    columns zero-padded from D to Dp, with Kt[c*S+s] = sum_e H[s,c,e] J[s,e]
-    mixed in f32 in order e = 0..C-1 and rounded once.
+
+def hmix_plan(S: int, C: int, Dp: int, itemsize: int, sms: int) -> Tuple[int, int]:
+    """(runs, samples per run) of K1's grid: strips of HMIX_THREADS packs
+    across Dp, times runs of samples, make one wave of HMIX_RESIDENT CTAs an
+    SM (fewer runs than that where S is short; more strips where K1 takes
+    its one-value path, whose CTAs then run in more waves)."""
+    strips = -(-Dp // (hmix_pack_values(C, itemsize) * HMIX_THREADS))
+    return split_rows(S, max(1, min(S, HMIX_RESIDENT * sms // strips)))
+
+
+def retile_hmix(J3: torch.Tensor, H: torch.Tensor, Dp: int,
+                gvec: Optional[torch.Tensor] = None):
+    """Fused class-major retile + Hessian class mixing (+ the rhs).
+
+    J3 (S, C, D) packed Jacobian (bf16 or f32), H (S, C, C) f32, gvec
+    (C*S,) class-major gradient (row c*S + s) in J3's dtype, or None.
+    Returns (Jt, Kt, b): Jt and Kt (C*S, Dp) in J3's dtype, rows class-major
+    (row c*S + s), columns zero-padded from D to Dp, with Kt[c*S+s] =
+    sum_e H[s,c,e] J[s,e] mixed in f32 in order e = 0..C-1 and rounded once;
+    b = Jtᵀ gvec, (Dp,) f32 summed in f32 (None without gvec).
 
     Replaces tensornetworksfork_tpu/ops/pallas/gram.py:retile_hmix
-    (_make_retile_hmix_kernel). Bound on the card: memory — it reads J once
-    and writes 2x its bytes; one thread per (s, d) column keeps the C class
-    values in registers, so J is read exactly once and both outputs are
-    written in coalesced rows."""
+    (_make_retile_hmix_kernel), and the reference engine's separate rhs dot
+    over Jt (engine.py packed_gram_rhs): b is summed from the J values the
+    retile has in registers. Bound on the card: memory — one read of J and
+    two writes of its size. csrc/gram.cu retile_hmix_kernel: a CTA owns a strip of 16-byte
+    packs and a run of samples (hmix_plan), stages the run's H rows and g in
+    shared memory, and a thread moves the C class packs of a sample or
+    several; b's per-run partials are added in run order by a second small
+    kernel, so b is the same from run to run. Jt is bit-equal to the plain
+    version; Kt too where both round the same f32 products and sums (the
+    card's plain version does); b agrees to the order of its f32 sums."""
     S, C, D = J3.shape
-    if _on_cpu(J3, H):
-        return retile_hmix_plain(J3, H, Dp)
+    if _on_cpu(J3, H, *(() if gvec is None else (gvec,))):
+        return retile_hmix_plain(J3, H, Dp, gvec)
     _check(J3, "J3", (torch.bfloat16, torch.float32), 3)
     _check(H, "H", (torch.float32,), 3)
     if tuple(H.shape) != (S, C, C):
         raise ValueError(f"H shape {tuple(H.shape)} != {(S, C, C)}")
     if Dp < D or C > 16:
         raise ValueError(f"retile_hmix: need Dp >= D and C <= 16 (D={D}, Dp={Dp}, C={C})")
-    Jt = torch.empty((C * S, Dp), dtype=J3.dtype, device=J3.device)
-    Kt = torch.empty_like(Jt)
+    if gvec is not None:
+        _check(gvec, "gvec", (J3.dtype,), 1)
+        if gvec.shape[0] != C * S:
+            raise ValueError(f"gvec has {gvec.shape[0]} rows, Jt {C * S}")
+    Jt = J3.new_empty((C * S, Dp))
+    Kt = J3.new_empty((C * S, Dp))
+    runs, rps = hmix_plan(S, C, Dp, J3.element_size(), sm_count(J3.device))
+    b = part = None
+    if gvec is not None:
+        b = torch.empty(Dp, dtype=torch.float32, device=J3.device)
+        if runs > 1:
+            part = torch.empty((runs, Dp), dtype=torch.float32, device=J3.device)
     fn = (_build.lib().tnf_retile_hmix_bf16 if J3.dtype == torch.bfloat16
           else _build.lib().tnf_retile_hmix_f32)
-    _raise_on(fn(J3.data_ptr(), H.data_ptr(), Jt.data_ptr(), Kt.data_ptr(),
-                 S, C, D, Dp, _stream()), "retile_hmix")
+    _raise_on(fn(J3.data_ptr(), H.data_ptr(), None if gvec is None else gvec.data_ptr(),
+                 Jt.data_ptr(), Kt.data_ptr(), None if part is None else part.data_ptr(),
+                 None if b is None else b.data_ptr(), S, C, D, Dp, rps, _stream()),
+              "retile_hmix")
     LAUNCHES["retile_hmix"] += 1
-    return Jt, Kt
+    return Jt, Kt, b
 
 
-def retile_hmix_plain(J3: torch.Tensor, H: torch.Tensor, Dp: int):
+def retile_hmix_plain(J3: torch.Tensor, H: torch.Tensor, Dp: int,
+                      gvec: Optional[torch.Tensor] = None):
     S, C, D = J3.shape
     jf = J3.float()
     Hf = H.float()
@@ -271,9 +313,10 @@ def retile_hmix_plain(J3: torch.Tensor, H: torch.Tensor, Dp: int):
     for e in range(1, C):
         K = K + Hf[:, :, e, None] * jf[:, e, None, :]
     pad = (0, Dp - D)
-    Jt = torch.nn.functional.pad(J3.transpose(0, 1), pad).reshape(C * S, Dp)
+    Jt = torch.nn.functional.pad(J3.transpose(0, 1), pad).reshape(C * S, Dp).contiguous()
     Kt = torch.nn.functional.pad(K.to(J3.dtype).transpose(0, 1), pad)
-    return Jt.contiguous(), Kt.reshape(C * S, Dp).contiguous()
+    b = None if gvec is None else gvec.float() @ Jt.float()
+    return Jt, Kt.reshape(C * S, Dp).contiguous(), b
 
 
 # ---------------------------------------------------------------- K8

@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: every kernel of csrc/gram.cu, csrc/qgram.cu
 and csrc/wgram.cu against its plain version on the card, at small, ragged
-shapes (K6 in f32 also against float64; K2, K3/K4 and K8 bit for bit).
+shapes (K6 in f32 also against float64; K2, K3/K4 and K8 bit for bit, K1's
+Jt too, and its Kt in f32).
 
 This file imports no JAX, so it also runs on a machine without it (the
 suite's conftest.py imports JAX, hence --noconftest there):
@@ -28,6 +29,30 @@ def test_all_kernels_match_plain_on_cuda():
     device = torch.device("cuda")
     chip_smoke.check_kernels(device, S=40, D=700, rows4=333, D4=137)
     chip_smoke.check_weighted_kernels(device, small=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D,shift", [(1, 701, 0), (3, 701, 0), (9, 701, 0), (16, 701, 0),
+                                       (1, 1000, 0), (3, 1000, 0), (9, 1000, 0),
+                                       (10, 1000, 0), (11, 1000, 0), (16, 1000, 0),
+                                       (9, 1000, 1), (9, 16200, 0)])
+def test_retile_hmix_matches_plain_on_cuda(C, D, shift, dtype):
+    """K1 with the fused rhs against its plain version (chip_smoke's
+    check_retile_hmix): Jt bit-equal, Kt bit-equal in f32 and within 1 bf16
+    ulp in bf16, b per column within 4 sqrt(S*C) 2^-24 of sum |g||J|, one
+    launch counted. D = 701 and J one value off a 16-byte boundary take the
+    one-value path, D = 1,000 the packs with zero packs past D (16-byte
+    packs; 8-byte ones for bf16 beyond 10 classes);
+    9,000 samples make runs of several staged chunks and ragged groups of
+    the samples a thread holds; the last case is the flagship's S = 2,048,
+    D = 16,200."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    S = 2048 if D == 16200 else chip_smoke.HMIX_SAMPLES
+    chip_smoke.check_retile_hmix(torch.device("cuda"), S, C, D, dtype, shift=shift)
 
 
 @pytest.mark.cuda

@@ -186,3 +186,30 @@ def test_forward_and_envs_match():
             assert a[0] == b[0]
             np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]), rtol=0,
                                        atol=1e-5 * np.abs(np.asarray(a[1])).max())
+
+
+@pytest.mark.parametrize("node", ["A2", "A3"])
+def test_packed_gram_rhs_full_hessian_bf16_matches_jax(node, monkeypatch):
+    """The tiled full-Hessian route of a middle core in the bf16 tier, where
+    K1 (retile_hmix) also sums b = Jtᵀg: A and b against the JAX engine's
+    (Pallas retile_hmix and Gram in interpret mode, b by its dot over Jt).
+    Each package forms J by f32 contractions in its own order and rounds it
+    to bf16, so an entry of J (and of K) may differ by one bf16 ulp, 2^-8 of
+    itself; the products are exact in f32 and the sums differ only in
+    order. Both held to 2^-8 of their largest entry (tests/test_torch_gram.py
+    holds b on one Jt to the order of its sums alone)."""
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "bf16")
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    jl, tl = tiny_layers()
+    X, _ = tiny_data()
+    jnet = JNetwork(jl.topology, use_pallas=True)
+    p_np = {k: np.asarray(v) for k, v in jl.params.items()}
+    ni = jl.topology.by_name[node]
+    Aj, bj, _, j_packed = _node_system(
+        jnet, jl.params, jnp.asarray(X), ni, np.asarray, JXE(1.0), jnp.asarray)
+    At, bt, _, t_packed = _node_system(
+        tl.network, params_from_numpy(p_np, device="cpu"), torch.tensor(X), ni,
+        lambda a: a.numpy(), TXE(1.0), torch.tensor)
+    assert t_packed and j_packed
+    np.testing.assert_allclose(bt, bj, rtol=0, atol=2.0 ** -8 * np.abs(bj).max())
+    np.testing.assert_allclose(At, Aj, rtol=0, atol=2.0 ** -8 * np.abs(Aj).max())

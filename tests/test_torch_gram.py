@@ -41,26 +41,93 @@ def bf16(x):
     return torch.tensor(x).to(torch.bfloat16)
 
 
-def test_retile_hmix_matches_pallas():
-    """Jt equal; Kt within 1 bf16 ulp — K is mixed in f32 and rounded once
-    on both sides, but the reference builds its ragged tail tile with an XLA
-    einsum whose summation order may move that one rounding."""
-    rng = np.random.default_rng(0)
-    S, C, D, tile = 64, 3, 300, 128  # two full 128-tiles + a ragged tail
-    n = (D + tile - 1) // tile
+def _hmix_inputs(S, C, D, seed=0):
+    rng = np.random.default_rng(seed)
     J = rng.standard_normal((S, C, D)).astype(np.float32)
     h = rng.standard_normal((S, C, C)).astype(np.float32)
-    H = (h + h.transpose(0, 2, 1)) / 2
-    J_bf = jnp.asarray(J, jnp.bfloat16)
-    Jt_j, Kt_j = jg.retile_hmix(J_bf, jnp.asarray(H), n, tile, interpret=True)
+    g = rng.standard_normal((S, C)).astype(np.float32)
+    return J, (h + h.transpose(0, 2, 1)) / 2, g
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_retile_hmix_matches_pallas(dtype):
+    """Jt equal. Kt: in bf16 within 1 bf16 ulp — K is mixed in f32 and
+    rounded once on both sides, but the reference builds its ragged tail
+    tile with an XLA einsum whose summation order may move that one
+    rounding; in f32 within C 2^-23 of sum_e |H[s,c,e] J[s,e,d]| (an f32
+    sum of C products, which the einsum and XLA's fused multiply-adds may
+    round in another order)."""
+    S, C, D, tile = 64, 3, 300, 128  # two full 128-tiles + a ragged tail
+    n = (D + tile - 1) // tile
+    J, H, _ = _hmix_inputs(S, C, D)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
+                                                                      torch.float32)
+    Jj = jnp.asarray(J, jdt)
+    Jt_j, Kt_j = jg.retile_hmix(Jj, jnp.asarray(H), n, tile, interpret=True)
     # (n, C, S, tile) -> class-major rows (C*S, n*tile)
     to_rows = lambda a: np.asarray(a.astype(jnp.float32)).transpose(
         1, 2, 0, 3).reshape(C * S, n * tile)
-    Jt_t, Kt_t = tg.retile_hmix(bf16(J), torch.tensor(H), n * tile)
+    Jt_t, Kt_t, b = tg.retile_hmix(torch.tensor(J).to(tdt), torch.tensor(H), n * tile)
+    assert b is None
     np.testing.assert_array_equal(Jt_t.float().numpy(), to_rows(Jt_j))
     Kj = to_rows(Kt_j)
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(Kj), 1e-30))) - 7)
-    assert np.all(np.abs(Kt_t.float().numpy() - Kj) <= ulp)
+    if dtype == "bf16":
+        tol = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(Kj), 1e-30))) - 7)
+    else:
+        mag = np.einsum("sce,sed->csd", np.abs(H), np.abs(np.asarray(Jj, np.float32)))
+        tol = np.pad(C * 2.0 ** -23 * mag.reshape(C * S, D), ((0, 0), (0, n * tile - D)))
+    assert np.all(np.abs(Kt_t.float().numpy() - Kj) <= tol)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_retile_hmix_rhs_matches_jax_dot(dtype):
+    """b = Jtᵀg from retile_hmix (gvec class-major, in J's dtype) against the
+    reference engine's dot_general(Jt, g) over the Pallas retile's Jt, f32
+    results. bf16 products are exact in f32 and f32 ones rounded alike, so
+    only the order of the S*C-term f32 sums differs: held per column to
+    4 sqrt(S*C) 2^-24 of sum_r |g_r||Jt_rd|, and columns past D are zero."""
+    S, C, D, tile = 64, 3, 300, 128
+    n = (D + tile - 1) // tile
+    J, H, g = _hmix_inputs(S, C, D, seed=1)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
+                                                                      torch.float32)
+    Jj = jnp.asarray(J, jdt)
+    Jt_j, _ = jg.retile_hmix(Jj, jnp.asarray(H), n, tile, interpret=True)
+    gvec_j = jnp.transpose(jnp.asarray(g)).reshape(C * S).astype(jdt)
+    b_j = np.asarray(jax.lax.dot_general(
+        Jt_j.reshape(n, C * S, tile), gvec_j, (((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32)).reshape(n * tile)
+    gvec = torch.tensor(g).T.reshape(-1).to(tdt)
+    Jt, _, b = tg.retile_hmix(torch.tensor(J).to(tdt), torch.tensor(H), n * tile, gvec)
+    assert b.dtype == torch.float32 and tuple(b.shape) == (n * tile,)
+    scale = gvec.float().abs() @ Jt.float().abs()
+    tol = 4 * np.sqrt(S * C) * 2.0 ** -24 * scale.numpy()
+    assert np.all(np.abs(b.numpy() - b_j) <= tol)
+    assert not b[D:].any()
+
+
+@pytest.mark.parametrize("S,C,Dp,itemsize,sms,plan", [
+    (2048, 9, 16384, 2, 132, (33, 63)),    # the flagship chunk, bf16: 8 strips
+    (2048, 9, 16384, 4, 132, (16, 128)),   # f32: 16 strips
+    (2048, 16, 16384, 2, 132, (16, 128)),  # bf16 beyond 10 classes: 8-byte packs
+    (40, 3, 1024, 2, 132, (40, 1)),        # short S: a run a sample
+    (40, 3, 1024, 4, 132, (40, 1)),
+    (5, 9, 98304, 2, 132, (5, 1)),         # more strips than CTA slots: one run
+    (1000, 1, 512, 4, 4, (8, 125)),
+])
+def test_hmix_plan_fills_one_wave(S, C, Dp, itemsize, sms, plan):
+    """K1's runs of samples: every run non-empty and all S covered, and
+    strips x runs at most HMIX_RESIDENT CTAs an SM (one wave), as many
+    runs as fit; a strip is HMIX_THREADS packs of 16 bytes, or of 8 for
+    bf16 beyond 10 classes."""
+    runs, rps = tg.hmix_plan(S, C, Dp, itemsize, sms)
+    assert (runs, rps) == plan
+    assert (runs - 1) * rps < S <= runs * rps
+    pack = tg.hmix_pack_values(C, itemsize) * itemsize
+    assert pack == (8 if itemsize == 2 and C > 10 else 16)
+    strips = -(-Dp * itemsize // (pack * tg.HMIX_THREADS))
+    assert runs == 1 or strips * runs <= tg.HMIX_RESIDENT * sms
 
 
 @pytest.mark.parametrize("rows,block,zero_col", [
@@ -324,7 +391,7 @@ def test_launch_counters_and_kernel_source():
     assert all(v == 0 for v in tg.LAUNCHES.values())
     J = bf16(np.ones((4, 2, 10), np.float32))
     H = torch.ones((4, 2, 2))
-    Jt, Kt = tg.retile_hmix(J, H, 512)
+    Jt, Kt, _ = tg.retile_hmix(J, H, 512, bf16(np.ones(8, np.float32)))
     Q, s = tg.quantize_tiled(Jt)
     tg.gram_pair_band_q(Q, s, Q, s, torch.zeros((512, 512)))
     tg.gram_pair(Jt, Kt)
