@@ -42,8 +42,12 @@ printing its own lines:
    (N=4, r=18, CB=8, 50 patches x 17 pixels, 9 logits, random weights from a
    seed) over 8192 synthetic samples in the int8 Gram tier (K1, K2, K3;
    K10 on bf16 operands), then one in the f32 tier (K1, K6; K10 on f32
-   operands) and one in the bf16 tier (K1, K6 and K10 on bf16 operands);
-   the launch counters show every kernel of each run ran, and
+   operands), one in the bf16 tier (K1, K6 and K10 on bf16 operands) and
+   one in `bench.py`'s tier, PRECISION=fastest (int8 Gram operands and the
+   bf16 aux tier: K1, K2, K3, K10), whose loss must agree with the f32-aux
+   int8 swipe's within AUX_LOSS_RTOL (where their time goes:
+   `experiments/probes/aux_tier_probe.py`); the launch counters show every
+   kernel of each run ran, and
    each swipe must lower the training loss, keep every parameter finite and
    report no singular solve;
 5. regression — `TensorTrainRegressor(N=3, r=8)` fitted for two swipes on
@@ -53,10 +57,29 @@ printing its own lines:
    and launch K8, K7 (at least 128 times) and K9; then one more swipe with
    the opt-in own-out kernel (K11), which must agree with the default
    route, and one in the int8 tier (K8, K2, K3);
-6. reference — a tiny conv-TT swipe (f32, int8) and a tiny TT-regression
-   swipe (f32, bf16, int8) with the kernels on the card agree with the same
-   swipes through the plain versions on the CPU (which the CPU tests hold
-   against the JAX package).
+6. reference — a tiny conv-TT swipe (f32, int8, f32 with the bf16 aux
+   tier, fastest) and a tiny TT-regression swipe (f32, bf16, int8) with the
+   kernels and the aux products on the card agree with the same swipes
+   through the plain versions on the CPU (which the CPU tests hold against
+   the JAX package); each aux product of the card's swipe with the aux
+   tier is held to float64 of its bf16-rounded operands, a bound that a
+   bf16-output product and an unrounded f32 product of the same operands
+   must both fail;
+7. image trainer — `experiments/train_image.py` at the headline MNIST
+   configuration (type-I sum of conv-TTs of 1-4 carriages, r=18, CB=8,
+   kernel 4/4, batch 2048, eps 5.0 x 0.25) on its synthetic stand-in
+   (8,192 samples, 50 patches x 17 pixels, 10 classes), PRECISION=fastest,
+   one whole swipe (a patience beyond its 40 updates): it must launch K1 24
+   times, K2, K3 and K10, keep its parameters finite and beat chance on its
+   test rows; then the digits gate, `reproduce_result.main("digits")`
+   (seeds 42-51) in the reference tier (K1, K6 in f32, K10) and in the
+   fastest tier: each tier's mean test accuracy must lie within the printed
+   noise floor of 96.55 % and no seed may end with non-finite parameters.
+   Each of these runs records the shapes it gives K1, K2, K6 and K10, and
+   every kernel is then held to its plain version at each of them (K1 in
+   bf16 and f32, K2 and K3 bit for bit, K6 in f32 against float64 too, K10
+   in the path's type), the largest of each timed into the kernels line
+   under the path's name.
 
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
@@ -82,6 +105,7 @@ BATCH = 2048
 REGRESSION = dict(N=3, r=8, d=128, fit=65536, val=16384, batch=512)
 # the kernels each path must launch (the flagship's by Gram tier)
 FLAGSHIP_KERNELS = {"int8": ("retile_hmix", "quantize_tiled", "gram_pair_q", "gram_pair"),
+                    "fastest": ("retile_hmix", "quantize_tiled", "gram_pair_q", "gram_pair"),
                     "f32": ("retile_hmix", "gram_pair_tiled", "gram_pair"),
                     "bf16": ("retile_hmix", "gram_pair_tiled", "gram_pair")}
 REGRESSION_KERNELS = ("retile_rows", "weighted_gram_tiled", "weighted_gram")
@@ -324,11 +348,12 @@ def int_mm_ms(Q1, Q2, BS: int):
                 f"(int32 output written per block, every tile, no rescale)")
 
 
-def int8_gram_entry(where, Q1, s1, Q2, s2, acc):
+def int8_gram_entry(where, Q1, s1, Q2, s2, acc, timed=True):
     """K3 (gram_pair_band_q) on the K-major codes Q1, Q2 into `acc` over two
-    chained chunks, held bit for bit (torch.equal) to its plain version,
-    then timed beside its bound, the plain version and torch._int_mm over
-    the same blocks; returns its kernels entry."""
+    chained chunks, held bit for bit (torch.equal) to its plain version;
+    with `timed`, then timed beside its bound, the plain version and
+    torch._int_mm over the same blocks, and its kernels entry returned
+    (else None)."""
     import torch
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
     acc_p = acc.clone()
@@ -340,6 +365,8 @@ def int8_gram_entry(where, Q1, s1, Q2, s2, acc):
         raise AssertionError(f"gram_pair_band_q ({where}): differs from its plain "
                              f"version by {float((acc - acc_p).abs().max())}")
     del acc_p
+    if not timed:
+        return None
     Bp, Dp = Q1.shape
     BS = Bp // s1.shape[0]
     nslab = Dp // kg.TILE
@@ -453,14 +480,183 @@ def check_retile_hmix(device, S, C, D, dtype, shift=0, timed=False):
     return entry, Jt, Kt
 
 
+def quantize_entry(where, Jt, Kt, block, timed):
+    """K2 on K1's Jt and Kt against its plain version (values, the K-major
+    layout, the zero pad). Returns the codes (Q1, s1, Q2, s2) and, with
+    `timed`, K2's kernels entry (its time on Kt beside its bound), else
+    None."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    q = kg.quantize_tiled(Jt, block) + kg.quantize_tiled(Kt, block)
+    plain = kg.quantize_tiled_plain(Jt, block) + kg.quantize_tiled_plain(Kt, block)
+    torch.cuda.synchronize()
+    check_quantized(f"quantize_tiled ({where})", q, plain)
+    del plain
+    if not timed:
+        return q, None
+    Q2, s2 = q[2:]
+    return q, dict(
+        name="quantize_tiled", dtype="bf16", err=0.0,
+        ms=time_ms(lambda: kg.quantize_tiled(Kt, block)),
+        plain_ms=time_ms(lambda: kg.quantize_tiled_plain(Kt, block)),
+        library_ms=None,
+        # |x|, max, x * (1/s), round: 4 operations an element
+        bound=bound(4.0 * Kt.numel(), nbytes(Kt, Q2, s2), "f32"),
+        note=f"{where} ({Kt.shape[0]}x{Kt.shape[1]}), Q and s bit-equal, Q K-major "
+             f"(strides {Q2.stride()}) as the plain version's; strip of "
+             f"{kg.quant_strip(kg.quant_block(Kt.shape[0], block))} columns a CTA")
+
+
+def carry_gram(X, Y, D):
+    """K6 (gram_pair with a carry, over the node's D of the (rows, Dp)
+    tiled operands X, Y) and its plain version from a zero carry, held to
+    1e-5 of max|A|: (err, tol, the kernel's carry)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    Dp = X.shape[1]
+    acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=X.device)
+    acc_p = torch.zeros_like(acc)
+    kg.gram_pair(X, Y, acc=acc, D=D)
+    kg.gram_pair_plain(X, Y, acc=acc_p)
+    A, A_p = kg.mirror_gram(acc), kg.mirror_gram(acc_p)
+    torch.cuda.synchronize()
+    err = float((A - A_p).abs().max())
+    tol = 1e-5 * float(A_p.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"gram_pair ({X.shape[0]}x{Dp}, D {D}, carry, {X.dtype}): "
+                             f"max|dA| {err} > {tol}")
+    return err, tol, acc
+
+
+def k6_bf16_entry(where, Jt, Kt, D, timed):
+    """K6 in bf16 on K1's outputs Jt, Kt against its plain version; with
+    `timed`, its kernels entry (else None)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    err, tol, acc = carry_gram(Jt, Kt, D)
+    if not timed:
+        return None
+    rows, Dp = Jt.shape
+    with bf16_f32_reduction():
+        lib = time_ms(lambda: torch.mm(Jt.T, Kt))
+    Jf, Kf = Jt.float(), Kt.float()
+    up = time_ms(lambda: acc.addmm_(Jf.T, Kf))
+    del Jf, Kf
+    return dict(
+        name="gram_pair_tiled", dtype="bf16", err=err,
+        ms=time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc, D=D)),
+        plain_ms=time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc)),
+        library_ms=lib,
+        bound=bound(gram_ops(rows, D), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
+        note=f"{where} with carry ({rows}x{Dp}, D {D}, bf16 from K1), tol {tol:.3g}; "
+             f"split Gram wgmma, 1 split; library: torch.mm on the bf16 operands "
+             f"(bf16 out, f32 sums); acc.addmm_ on them upcast to f32 {up:.3f} ms")
+
+
+def k6_f32_entry(device, where, rows, D, timed):
+    """K6 in f32 at (rows, Dp) over the node's D, on full-mantissa operands
+    (the f32 tier's): against its plain version and, entry by entry, float64,
+    with bf16- and TF32-rounded controls that must fail; with `timed`, its
+    kernels entry (else None)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    Dp = kg.plan_tiles(D)[3]
+    gen = torch.Generator(device=device).manual_seed(6)
+    J6, K6 = (torch.nn.functional.pad(
+        torch.randn((rows, D), generator=gen, device=device) * 0.05, (0, Dp - D))
+        for _ in range(2))
+    err, tol, acc = carry_gram(J6, K6, D)
+    e64, r64, e64_p, r64_p, ctl = hold_to_float64(
+        f"gram_pair_tiled (f32, {where})", acc[:D, :D],
+        kg.gram_pair_plain(J6[:, :D], K6[:, :D]), J6[:, :D], K6[:, :D], controls=True)
+    if not timed:
+        return None
+    # the split Gram's f32 FMA kernel on the same operands: the route K6 in
+    # f32 would take if the 3xTF32 kernel were not faster
+    fma = time_ms(lambda: kg._launch_wgram_split(J6, None, 0, None, acc, D, True, 1,
+                                                 "gram_pair", Y=K6, has_acc=True))
+    u = 2.0 ** -24
+    return dict(
+        name="gram_pair_tiled", dtype="f32", err=err,
+        ms=time_ms(lambda: kg.gram_pair(J6, K6, acc=acc, D=D)),
+        plain_ms=time_ms(lambda: kg.gram_pair_plain(J6, K6, acc=acc)),
+        library_ms=time_ms(lambda: acc.addmm_(J6.T, K6)),
+        # three TF32 products a multiply-add
+        bound=bound(3 * gram_ops(rows, D), nbytes(J6, K6) + 2 * nbytes(acc), "tf32"),
+        note=f"{where} with carry ({rows}x{Dp}, D {D}, full-mantissa f32), tol "
+             f"{tol:.3g}; 3xTF32 wgmma; float64 error {e64:.3g} (plain f32 {e64_p:.3g}), "
+             f"{r64 / u:.3g} 2^-24 of the scale (plain {r64_p / u:.3g}){ctl}; the split "
+             f"Gram's f32 FMA kernel on them {fma:.3f} ms; library: acc.addmm_")
+
+
+def k10_entry(device, where, rows, D4, kind, timed, seed=0):
+    """K10 (the flat split Gram) at (rows, D4) in `kind` against its plain
+    version and float64 (pair_errors); in f32 the operands rounded to bf16
+    or TF32 must fail the float64 check, so it sees a kernel that rounds f32
+    operands. With `timed`, its kernels entry (else None)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    rng = np.random.default_rng(seed)
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    sms = kg.sm_count(device)
+    _, splits, rps = kg.wgram_plan(rows, D4, 1, True, sms)
+    log(f"[kernels] gram_pair plan at {rows}x{D4} ({where}): {splits} row splits of "
+        f"{rps} rows on {sms} SMs")
+    X, Y = (torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
+                         device=device).to(dt) for _ in range(2))
+    A = kg.mirror_gram(kg.gram_pair(X, Y))
+    A_p = kg.mirror_gram(kg.gram_pair_plain(X, Y))
+    torch.cuda.synchronize()
+    err = float((A - A_p).abs().max())
+    scale = float(A_p.abs().max())
+    log(f"[kernels] gram_pair ({kind}, {where}) max|dA| vs plain {err:.3g} "
+        f"(1e-5*max|A| = {1e-5 * scale:.3g})")
+    e64, r64, e64_p, r64_p, controls = hold_to_float64(
+        f"gram_pair ({where}, {kind})", A, A_p, X, Y, controls=kind == "f32")
+    tol, rule = 1e-5 * scale, "1e-5*max|A|"
+    if not err <= tol:
+        # the kernel's order of sums, not a looser check: held to gram_tol
+        # (as K7, K9, K11) and to the exact sum, whose error it may not
+        # exceed twice the plain version's
+        tol, rule = gram_tol(rows) * scale, "gram_tol(rows)*max|A| and float64"
+        if not (err <= tol and e64 <= 2 * e64_p):
+            raise AssertionError(
+                f"gram_pair ({where}, {kind}): max|dA| {err} (tol {tol}), "
+                f"float64 error {e64} vs plain {e64_p}")
+        log(f"[kernels] gram_pair ({kind}, {where}) above 1e-5*max|A|: held to {rule}")
+    del A, A_p
+    if not timed:
+        return None
+    u = 2.0 ** -24
+    ms = time_ms(lambda: kg.gram_pair(X, Y))
+    note = (f"{where} ({rows}x{D4} {kind}), {splits} row splits, tol {tol:.3g} "
+            f"({rule}), float64 error {e64:.3g} (plain f32 {e64_p:.3g}), "
+            f"{r64 / u:.3g} 2^-24 of the scale{controls}; ")
+    if kind == "bf16":
+        with bf16_f32_reduction():
+            lib = time_ms(lambda: torch.mm(X.T, Y))
+        Xf, Yf = X.float(), Y.float()
+        mm32 = time_ms(lambda: torch.mm(Xf.T, Yf))
+        del Xf, Yf
+        note += (f"library: torch.mm on the bf16 operands (bf16 out, f32 "
+                 f"sums); torch.mm on them widened to f32 {mm32:.3f} ms")
+    else:
+        lib = time_ms(lambda: torch.mm(X.T, Y))
+        note += "library: torch.mm on the f32 operands"
+    return dict(name="gram_pair", dtype=kind, err=err, ms=ms,
+                plain_ms=time_ms(lambda: kg.gram_pair_plain(X, Y)), library_ms=lib,
+                bound=bound(gram_ops(rows, D4), nbytes(X, Y) + 4 * D4 * D4, kind),
+                note=note)
+
+
 def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
-    """Phase 3: every kernel against its plain version, by default at the
-    flagship shapes: A2/A3 (S=2048 per chunk, C=9, D=r*P*r=16,200) for K1,
-    K2, K3 and K6, A4 (8192*9 merged rows, D=r*P=900) for K10."""
+    """Phase 3: every kernel against its plain version, timed, by default
+    at the flagship's shapes: A2/A3 (S=2048 per chunk, C=9, D=r*P*r=16,200)
+    for K1, K2, K3, K4 and K6, A4 (8192*9 merged rows, D=r*P=900) for K10;
+    K1 also at HMIX_SHAPES."""
     import torch
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
 
-    rng = np.random.default_rng(0)
     C = FLAGSHIP["C"]
     D = D or FLAGSHIP["r"] * FLAGSHIP["P"] * FLAGSHIP["r"]
     _, block, _, Dp = kg.plan_tiles(D)
@@ -478,34 +674,16 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     log(f"[kernels] retile_hmix: held to its plain version at S={HMIX_SAMPLES}, "
         f"(C, D, offset) in {HMIX_SHAPES}, bf16 and f32")
 
-    # K2 quantize_tiled: Q and s bit-equal, Q in the same K-major layout
-    Q1, s1 = kg.quantize_tiled(Jt, block)
-    Q2, s2 = kg.quantize_tiled(Kt, block)
-    Q1_p, s1_p = kg.quantize_tiled_plain(Jt, block)
-    Q2_p, s2_p = kg.quantize_tiled_plain(Kt, block)
-    torch.cuda.synchronize()
-    check_quantized("quantize_tiled", (Q1, s1, Q2, s2), (Q1_p, s1_p, Q2_p, s2_p))
-    results.append(dict(
-        name="quantize_tiled", dtype="bf16", err=0.0,
-        ms=time_ms(lambda: kg.quantize_tiled(Kt, block)),
-        plain_ms=time_ms(lambda: kg.quantize_tiled_plain(Kt, block)),
-        library_ms=None,
-        # |x|, max, x * (1/s), round: 4 operations an element
-        bound=bound(4.0 * Kt.numel(), nbytes(Kt, Q2, s2), "f32"),
-        note=f"Q and s bit-equal, Q K-major (strides {Q2.stride()}) as the plain "
-             f"version's; strip of {kg.quant_strip(kg.quant_block(Kt.shape[0], block))} "
-             "columns a CTA"))
-    del Q1_p, s1_p, Q2_p, s2_p
-
-    # K3 gram_pair_band_q over two chained chunks: bit-equal to its plain
-    # version, then mirror_band
+    # K2 quantize_tiled, then K3 gram_pair_band_q over two chained chunks:
+    # both bit-equal to their plain versions
+    (Q1, s1, Q2, s2), k2 = quantize_entry("flagship A2 chunk", Jt, Kt, block, timed=True)
+    results.append(k2)
     acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
-    k3 = int8_gram_entry("flagship A2 chunk", Q1, s1, Q2, s2, acc)
+    results.append(int8_gram_entry("flagship A2 chunk", Q1, s1, Q2, s2, acc))
     A = kg.mirror_band(acc)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(A).all()):
         raise AssertionError("gram_pair_band_q: non-finite Gram")
-    results.append(k3)
     del acc, A
     # K4 gram_pair_tiled_q, K3's carry-less entry (on no path of the port):
     # bit-equal to its plain version, and its time at this chunk beside its
@@ -527,124 +705,121 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
         f"bound {b4[0]:.3f} ms ({b4[1]}), bit-equal (torch.equal) to its plain version")
     del Q1, s1, Q2, s2
 
-    # K6: the float Gram with carry at the A2 shape, over the node's D of the
-    # (rows, Dp) tiled operands. bf16: K1's operands (the bf16 swipe's);
-    # f32: full-mantissa f32 ones (the f32 swipe's), held to float64 as K10
-    # in f32 is, with bf16- and TF32-rounded controls that must fail
-    def carry_gram(X, Y):
-        """K6 and its plain version from a zero carry: (err, tol, acc)."""
-        acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
-        acc_p = torch.zeros_like(acc)
-        kg.gram_pair(X, Y, acc=acc, D=D)
-        kg.gram_pair_plain(X, Y, acc=acc_p)
-        A, A_p = kg.mirror_gram(acc), kg.mirror_gram(acc_p)
-        torch.cuda.synchronize()
-        err = float((A - A_p).abs().max())
-        tol = 1e-5 * float(A_p.abs().max())
-        if not err <= tol:
-            raise AssertionError(f"gram_pair (A2, carry, {X.dtype}): max|dA| {err} > {tol}")
-        return err, tol, acc
+    # K6, the float Gram with carry at the A2 shape: bf16 on K1's operands
+    # (the bf16 swipe's), f32 on full-mantissa ones (the f32 swipe's)
+    results.append(k6_bf16_entry("A2 shape", Jt, Kt, D, timed=True))
+    del Jt, Kt
+    results.append(k6_f32_entry(device, "A2 shape", C * S, D, timed=True))
 
-    rows2 = Jt.shape[0]
-    err6b, tol6b, acc = carry_gram(Jt, Kt)
-    with bf16_f32_reduction():
-        lib6b = time_ms(lambda: torch.mm(Jt.T, Kt))
-    Jf, Kf = Jt.float(), Kt.float()
-    up6b = time_ms(lambda: acc.addmm_(Jf.T, Kf))
-    del Jf, Kf
-    results.append(dict(
-        name="gram_pair_tiled", dtype="bf16", err=err6b,
-        ms=time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc, D=D)),
-        plain_ms=time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc)),
-        library_ms=lib6b,
-        bound=bound(gram_ops(rows2, D), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
-        note=f"A2 shape with carry ({rows2}x{Dp}, D {D}, bf16 from K1), tol {tol6b:.3g}; "
-             f"split Gram wgmma, 1 split; library: torch.mm on the bf16 operands "
-             f"(bf16 out, f32 sums); acc.addmm_ on them upcast to f32 {up6b:.3f} ms"))
-    del acc, Jt, Kt
-    gen = torch.Generator(device=device).manual_seed(6)
-    J6, K6 = (torch.nn.functional.pad(
-        torch.randn((rows2, D), generator=gen, device=device) * 0.05, (0, Dp - D))
-        for _ in range(2))
-    err6, tol6, acc = carry_gram(J6, K6)
-    e64, r64, e64_p, r64_p, ctl = hold_to_float64(
-        "gram_pair_tiled (f32)", acc[:D, :D], kg.gram_pair_plain(J6[:, :D], K6[:, :D]),
-        J6[:, :D], K6[:, :D], controls=True)
-    # the split Gram's f32 FMA kernel on the same operands: the route K6 in
-    # f32 would take if the 3xTF32 kernel were not faster
-    fma = time_ms(lambda: kg._launch_wgram_split(J6, None, 0, None, acc, D, True, 1,
-                                                 "gram_pair", Y=K6, has_acc=True))
-    u = 2.0 ** -24
-    results.append(dict(
-        name="gram_pair_tiled", dtype="f32", err=err6,
-        ms=time_ms(lambda: kg.gram_pair(J6, K6, acc=acc, D=D)),
-        plain_ms=time_ms(lambda: kg.gram_pair_plain(J6, K6, acc=acc)),
-        library_ms=time_ms(lambda: acc.addmm_(J6.T, K6)),
-        # three TF32 products a multiply-add
-        bound=bound(3 * gram_ops(rows2, D), nbytes(J6, K6) + 2 * nbytes(acc), "tf32"),
-        note=f"A2 shape with carry ({rows2}x{Dp}, D {D}, full-mantissa f32), tol "
-             f"{tol6:.3g}; 3xTF32 wgmma; float64 error {e64:.3g} (plain f32 {e64_p:.3g}), "
-             f"{r64 / u:.3g} 2^-24 of the scale (plain {r64_p / u:.3g}){ctl}; the split "
-             f"Gram's f32 FMA kernel on them {fma:.3f} ms; library: acc.addmm_"))
-    del acc, J6, K6
-
-    # K10: the flat float Gram at the A4 shape (the split Gram of
+    # K10, the flat float Gram at the A4 shape (the split Gram of
     # csrc/wgram.cu), on bf16 operands (the int8 and bf16 swipes) and on
-    # full-mantissa f32 ones (the f32 swipe), each held to its plain version
-    # and to float64 of its operands (pair_errors); in f32, the operands
-    # rounded to bf16 or to TF32 must fail the float64 check, so the check
-    # sees a kernel that rounds f32 operands
-    rows = rows4 or SLICE_SAMPLES * C
+    # full-mantissa f32 ones (the f32 swipe)
+    rows4 = rows4 or SLICE_SAMPLES * C
     D4 = D4 or FLAGSHIP["r"] * FLAGSHIP["P"]
-    sms = kg.sm_count(device)
-    _, splits, rps = kg.wgram_plan(rows, D4, 1, True, sms)
-    log(f"[kernels] gram_pair plan at {rows}x{D4}: {splits} row splits of {rps} "
-        f"rows on {sms} SMs")
-    for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        X, Y = (torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
-                             device=device).to(dt) for _ in range(2))
-        A = kg.mirror_gram(kg.gram_pair(X, Y))
-        A_p = kg.mirror_gram(kg.gram_pair_plain(X, Y))
-        torch.cuda.synchronize()
-        err10 = float((A - A_p).abs().max())
-        scale = float(A_p.abs().max())
-        log(f"[kernels] gram_pair ({kind}) max|dA| vs plain {err10:.3g} "
-            f"(1e-5*max|A| = {1e-5 * scale:.3g})")
-        e64, r64, e64_p, r64_p, controls = hold_to_float64(
-            f"gram_pair (A4, {kind})", A, A_p, X, Y, controls=kind == "f32")
-        tol10, rule = 1e-5 * scale, "1e-5*max|A|"
-        if not err10 <= tol10:
-            # the kernel's order of sums, not a looser check: held to
-            # gram_tol (as K7, K9, K11) and to the exact sum, whose error it
-            # may not exceed twice the plain version's
-            tol10, rule = gram_tol(rows) * scale, "gram_tol(rows)*max|A| and float64"
-            if not (err10 <= tol10 and e64 <= 2 * e64_p):
-                raise AssertionError(
-                    f"gram_pair (A4, {kind}): max|dA| {err10} (tol {tol10}), "
-                    f"float64 error {e64} vs plain {e64_p}")
-            log(f"[kernels] gram_pair ({kind}) above 1e-5*max|A|: held to {rule}")
-        del A, A_p
-        ms = time_ms(lambda: kg.gram_pair(X, Y))
-        note = (f"A4 shape ({rows}x{D4} {kind}), {splits} row splits, tol {tol10:.3g} "
-                f"({rule}), float64 error {e64:.3g} (plain f32 {e64_p:.3g}), "
-                f"{r64 / u:.3g} 2^-24 of the scale{controls}; ")
-        if kind == "bf16":
-            with bf16_f32_reduction():
-                lib = time_ms(lambda: torch.mm(X.T, Y))
-            Xf, Yf = X.float(), Y.float()
-            mm32 = time_ms(lambda: torch.mm(Xf.T, Yf))
-            del Xf, Yf
-            note += (f"library: torch.mm on the bf16 operands (bf16 out, f32 "
-                     f"sums); torch.mm on them widened to f32 {mm32:.3f} ms")
-        else:
-            lib = time_ms(lambda: torch.mm(X.T, Y))
-            note += "library: torch.mm on the f32 operands"
-        results.append(dict(
-            name="gram_pair", dtype=kind, err=err10, ms=ms,
-            plain_ms=time_ms(lambda: kg.gram_pair_plain(X, Y)), library_ms=lib,
-            bound=bound(gram_ops(rows, D4), nbytes(X, Y) + 4 * D4 * D4, kind),
-            note=note))
-        del X, Y
+    for kind in ("bf16", "f32"):
+        results.append(k10_entry(device, "A4 shape", rows4, D4, kind, timed=True))
+    log_kernels(results)
+    return results
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """Records the shapes and types a path gives K1 (J3's S, C, D), K2 (the
+    operand it quantises), and K6 and K10 (X's rows and width, and D), by
+    wrapping their entry points in ops/cuda/gram.py, which the engine calls
+    through the module; the wrappers only record and call through. K3 takes
+    K2's codes. Yields the set of (kernel, shape, dtype[, D]) seen."""
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    seen = set()
+    hmix, quant, pair = kg.retile_hmix, kg.quantize_tiled, kg.gram_pair
+
+    def retile_hmix(J3, H, Dp, gvec=None):
+        seen.add(("retile_hmix", tuple(J3.shape), J3.dtype))
+        return hmix(J3, H, Dp, gvec)
+
+    def quantize_tiled(X, block=kg.BLOCK):
+        seen.add(("quantize_tiled", tuple(X.shape), X.dtype))
+        return quant(X, block)
+
+    def gram_pair(X, Y, acc=None, splits=None, D=None):
+        name = "gram_pair" if acc is None else "gram_pair_tiled"
+        seen.add((name, tuple(X.shape), X.dtype, X.shape[1] if D is None else D))
+        return pair(X, Y, acc=acc, splits=splits, D=D)
+
+    kg.retile_hmix, kg.quantize_tiled, kg.gram_pair = retile_hmix, quantize_tiled, gram_pair
+    try:
+        yield seen
+    finally:
+        kg.retile_hmix, kg.quantize_tiled, kg.gram_pair = hmix, quant, pair
+
+
+def check_path_shapes(device, path, seen, done):
+    """Phase 7's kernels against their plain versions at every shape the
+    path gave them (`seen`, from recorded_shapes); K6 in f32 and K10, held to
+    float64 too, skip the shapes in `done` (checked for an earlier path;
+    updated) unless they are timed here: K1 in bf16 and in f32 at each
+    (S, C, D) (its one-value path where D is not a multiple of 8); K2 and K3
+    bit for bit on K1's bf16 outputs where the path quantised that chunk;
+    K6 in f32 on full-mantissa operands at each chunk (held to float64 too),
+    and in bf16 on K1's outputs where the path ran it so; K10 in the path's
+    type at each (rows, D). The largest shape of each kernel the path
+    launched is timed: returns those kernels entries, their dtype naming the
+    path."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    log(f"[path] {path}: shapes {sorted(str(s) for s in seen)}")
+    hmix = sorted((s for s in seen if s[0] == "retile_hmix"),
+                  key=lambda s: (s[1][0] * s[1][2], str(s[2])))
+    quantised = {s[1] for s in seen if s[0] == "quantize_tiled"}
+    tiled = {(s[1], s[2]) for s in seen if s[0] == "gram_pair_tiled"}
+    flat = sorted((s for s in seen if s[0] == "gram_pair"),
+                  key=lambda s: (s[1][0] * s[1][1] ** 2, str(s[2])))
+    kinds = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    results = []
+
+    def label(entry, kind):
+        return dict(entry, dtype=f"{kind}, {path}")
+
+    for i, (_, (S, C, D), dtype) in enumerate(hmix):
+        last = i == len(hmix) - 1
+        _, block, _, Dp = kg.plan_tiles(D)
+        rows = C * S
+        for dt in (torch.bfloat16, torch.float32):
+            timed = last and dt == dtype
+            entry, Jt, Kt = check_retile_hmix(device, S, C, D, dt, timed=timed)
+            if timed:
+                results.append(label(entry, kinds[dt]))
+            if dt == torch.bfloat16 and (rows, Dp) in quantised:
+                (Q1, s1, Q2, s2), k2 = quantize_entry(f"{path} chunk", Jt, Kt, block,
+                                                      timed=last)
+                acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
+                k3 = int8_gram_entry(f"{path} chunk", Q1, s1, Q2, s2, acc, timed=last)
+                if last:
+                    results += [label(k2, "bf16"), label(k3, "int8")]
+                del Q1, s1, Q2, s2, acc
+            if dt == torch.bfloat16 and ((rows, Dp), dt) in tiled:
+                k6 = k6_bf16_entry(f"{path} chunk", Jt, Kt, D, timed=last)
+                if last:
+                    results.append(label(k6, "bf16"))
+            del Jt, Kt
+        # K6 in f32 is held to float64, the costly check: once a shape
+        key = ("gram_pair_tiled", rows, D)
+        timed = last and ((rows, Dp), torch.float32) in tiled
+        if key not in done or timed:
+            done.add(key)
+            k6 = k6_f32_entry(device, f"{path} chunk", rows, D, timed=timed)
+            if timed:
+                results.append(label(k6, "f32"))
+    for i, (_, (rows, D4), dtype, _) in enumerate(flat):
+        key = ("gram_pair", rows, D4, dtype)
+        timed = i == len(flat) - 1
+        if key in done and not timed:
+            continue
+        done.add(key)
+        k10 = k10_entry(device, f"{path}", rows, D4, kinds[dtype], timed=timed)
+        if timed:
+            results.append(label(k10, kinds[dtype]))
+    log(f"[path] {path}: every kernel held to its plain version at the path's shapes")
     log_kernels(results)
     return results
 
@@ -883,33 +1058,58 @@ def flagship_data(S: int, seed: int, device):
     return torch.tensor(X, device=device), torch.tensor(y, device=device)
 
 
-def run_slice(device, tier):
-    """Phase 4: one flagship swipe through Sweeper.run in the Gram `tier`."""
-    import torch
-    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
-    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
-    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
-    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+# the Gram tier of each flagship swipe and what it sets: TNF_GRAM_DTYPE with
+# the aux contractions in f32, or `bench.py`'s tier, PRECISION=fastest (int8
+# Gram operands and the bf16 aux tier, TNF_AUX_PRECISION=default)
+SLICE_TIERS = {"int8": dict(TNF_GRAM_DTYPE="int8", TNF_AUX_PRECISION="highest"),
+               "f32": dict(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"),
+               "bf16": dict(TNF_GRAM_DTYPE="bf16", TNF_AUX_PRECISION="highest"),
+               "fastest": dict(TNF_GRAM_DTYPE="int8", TNF_AUX_PRECISION="default")}
+# |loss(fastest) - loss(int8)| / loss(int8) after the flagship swipe: the
+# bf16 aux tier moved it by 5.4e-6..1.97e-4 over weights and data of seeds
+# 0-3 on an H100 (experiments/probes/aux_tier_probe.py, PERF.md section 5);
+# held to about twice the largest
+AUX_LOSS_RTOL = 4e-4
 
+
+def flagship_layer(device, seed: int):
+    """The flagship conv-TT layer with random weights from `seed`."""
+    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
     c = FLAGSHIP
-    X, y = flagship_data(SLICE_SAMPLES, 0, device)
     layer = TensorConvolutionTrainLayer(
         num_carriages=c["N"], bond_dim=c["r"], num_patches=c["P"],
         patch_pixels=c["pp"], output_shape=(c["C"],),
-        convolution_bond=c["CB"], seed=0, device=device)
+        convolution_bond=c["CB"], seed=seed, device=device)
     if not layer.network.use_kernels:
         raise AssertionError("the network on CUDA must use the kernels")
+    return layer
+
+
+# the flagship's sweep: one swipe over 2,048-sample chunks, eps 5.0 x 0.25
+SLICE_CONFIG = dict(num_swipes=1, batch_size=BATCH, method="ridge_cholesky",
+                    eps=5.0, eps_decay=0.25)
+
+
+def run_slice(device, tier, seed: int = 0):
+    """Phase 4: one flagship swipe through Sweeper.run in `tier`
+    (SLICE_TIERS), weights and data from `seed`. Returns the launches, the
+    wall time and the losses before and after."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    X, y = flagship_data(SLICE_SAMPLES, seed, device)
     loss_fn = XEBregman(w=1.0)
 
-    def mean_loss():
+    def mean_loss(layer):
         pred = layer.forward_batch(X, BATCH)
         return float(loss_fn(pred, y, only_loss=True).mean())
 
-    loss0 = mean_loss()
-    cfg = SweepConfig(num_swipes=1, batch_size=BATCH, method="ridge_cholesky",
-                      eps=5.0, eps_decay=0.25)
-    sweeper = Sweeper(layer.network, loss_fn, cfg)
-    with env(TNF_GRAM_DTYPE=tier):
+    layer = flagship_layer(device, seed)
+    loss0 = mean_loss(layer)
+    sweeper = Sweeper(layer.network, loss_fn, SweepConfig(**SLICE_CONFIG))
+    with env(**SLICE_TIERS[tier]):
         torch.cuda.synchronize()
         kg.reset_launches()
         t0 = time.perf_counter()
@@ -920,9 +1120,9 @@ def run_slice(device, tier):
     params = params[0]
     finite = all(bool(torch.isfinite(v).all()) for v in params.values())
     layer.params = params
-    loss1 = mean_loss()
-    log(f"[slice] {tier} swipe wall {wall:.3f} s over {SLICE_SAMPLES} samples "
-        f"(batch {BATCH}), ok={ok}, loss {loss0:.6f} -> {loss1:.6f}, "
+    loss1 = mean_loss(layer)
+    log(f"[slice] {tier} swipe (seed {seed}) wall {wall:.3f} s over {SLICE_SAMPLES} "
+        f"samples (batch {BATCH}), ok={ok}, loss {loss0:.6f} -> {loss1:.6f}, "
         f"launches {launches}, peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not ok:
@@ -934,7 +1134,7 @@ def run_slice(device, tier):
     missing = [k for k in FLAGSHIP_KERNELS[tier] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return launches
+    return dict(launches=launches, wall=wall, loss0=loss0, loss1=loss1)
 
 
 def run_regression(device):
@@ -1018,10 +1218,83 @@ def run_regression(device):
     return launches, own, q
 
 
+@contextlib.contextmanager
+def recorded_aux_products():
+    """Records each product the engine makes at the aux tier's precision
+    ("default"): its operands as given and its result. Yields the list of
+    (a, b, out)."""
+    from tensornetworksfork_tpu_torch.core import contract as cmod, engine
+    plain, records = cmod.matmul, []
+
+    def recording(a, b, precision="highest"):
+        out = plain(a, b, precision)
+        if precision == "default" and not (a.is_complex() or b.is_complex()):
+            records.append((a, b, out))
+        return out
+
+    cmod.matmul = engine.matmul = recording
+    try:
+        yield records
+    finally:
+        cmod.matmul = engine.matmul = plain
+
+
+# an aux product's largest error over its entry's natural size sum_k |a||b|,
+# in units of sqrt(K) 2^-24: f32 sums of the exact products of bf16
+# operands, in any order (the card's products read 0.05-1.2 at phase 6's
+# shapes and 0.12 at the flagship's packed prediction,
+# experiments/probes/aux_reference_probe.py and aux_probe.py)
+AUX_PRODUCT_BOUND = 4.0
+
+
+def check_aux_products(what, records) -> None:
+    """Each recorded aux product against the float64 product of its
+    operands rounded to bf16, held to AUX_PRODUCT_BOUND; two controls on the
+    same operands must fail it: a bf16-output product (a bf16 torch.mm/bmm
+    without out_dtype) and the f32 product of the operands as given (the
+    rounding skipped)."""
+    import torch
+    worst = {"card": 0.0, "bf16-output control": 0.0, "unrounded control": 0.0}
+    for a, b, out in records:
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        exact = a16.double() @ b16.double()
+        size = (a16.double().abs() @ b16.double().abs()).clamp_min(1e-300)
+        unit = a.shape[-1] ** 0.5 * 2.0 ** -24
+        fn = torch.bmm if a.ndim == 3 else torch.mm
+        for k, v in (("card", out), ("bf16-output control", fn(a16, b16)),
+                     ("unrounded control", a.float() @ b.float())):
+            worst[k] = max(worst[k], float(((v.double() - exact).abs() / size).max()) / unit)
+    log(f"[reference] {what}: {len(records)} aux products against float64 of their "
+        f"bf16-rounded operands, largest error over sum|a||b| in sqrt(K) 2^-24 (bound "
+        f"{AUX_PRODUCT_BOUND}; the controls must exceed it): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    if not records:
+        raise AssertionError(f"{what}: the swipe made no aux product")
+    if not worst["card"] <= AUX_PRODUCT_BOUND:
+        raise AssertionError(f"{what}: an aux product is off by {worst['card']:.3g} "
+                             f"sqrt(K) 2^-24 (> {AUX_PRODUCT_BOUND})")
+    passed = [k for k, v in worst.items() if k != "card" and v <= AUX_PRODUCT_BOUND]
+    if passed:
+        raise AssertionError(f"{what}: {passed} pass the aux products' check, so it "
+                             "cannot see the aux tier's rounding")
+
+
+# phase 6's tiers: the Gram operands' type and the aux contractions'
+# precision ("default": bf16 operands, f32 sums, the aux tier)
+REFERENCE_TIERS = {"f32": dict(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"),
+                   "bf16": dict(TNF_GRAM_DTYPE="bf16", TNF_AUX_PRECISION="highest"),
+                   "int8": dict(TNF_GRAM_DTYPE="int8", TNF_AUX_PRECISION="highest"),
+                   "f32, bf16 aux": dict(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="default"),
+                   "fastest": dict(TNF_GRAM_DTYPE="int8", TNF_AUX_PRECISION="default")}
+
+
 def check_reference(device):
-    """Phase 6: a tiny conv-TT swipe (f32, int8 tiers) and a tiny
-    TT-regression swipe (f32, bf16, int8) with the kernels on the card agree
-    with the plain versions on the CPU."""
+    """Phase 6: a tiny conv-TT swipe (f32, int8, f32 with the bf16 aux tier,
+    fastest) and a tiny TT-regression swipe (f32, bf16, int8) with the
+    kernels and the aux tier's products on the card agree with the plain
+    versions on the CPU. Each aux product of the card's swipe in f32 with
+    the aux tier is held to float64 of its bf16-rounded operands
+    (check_aux_products)."""
     import torch
     from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
     from tensornetworksfork_tpu_torch.models.layers import (
@@ -1046,18 +1319,22 @@ def check_reference(device):
         return TensorTrainLayer(3, 4, F, output_shape=(1,), seed=0, device=dev,
                                 use_kernels=True)
 
-    # tolerances: f32 — sums in another order, 1e-4 relative; bf16 and int8
-    # — a bf16 rounding that differs by one ulp (and, in int8, the code it
-    # flips) carried through the chained solves, 2e-2
+    # tolerances: f32 — sums in another order, 1e-4 relative; bf16, int8
+    # and the aux tier — a bf16 rounding that differs by one ulp (and, in
+    # int8, the code it flips) carried through the chained solves, 2e-2 (the
+    # aux tier in f32 reads 2e-3: its first 155 of 176 products get the same
+    # bf16 operands on the card and the CPU, then 2 of a node's 96 values
+    # round the other way, aux_reference_probe.py)
     for model, make, loss, Xn, yn, tiers in (
             ("conv-TT", conv_tt, XEBregman(1.0), X, y,
-             (("f32", 1e-4), ("int8", 2e-2))),
+             (("f32", 1e-4), ("int8", 2e-2), ("f32, bf16 aux", 2e-2), ("fastest", 2e-2))),
             ("TT regression", tt, SquareBregFunction(), Xr, yr,
              (("f32", 1e-4), ("bf16", 2e-2), ("int8", 2e-2)))):
         for tier, rtol in tiers:
             outs = {}
             for dev in ("cpu", device):
-                with env(TNF_GRAM_DTYPE=tier, TNF_PACKED_SYRK_MIN_D=1):
+                with env(TNF_PACKED_SYRK_MIN_D=1, **REFERENCE_TIERS[tier]), \
+                        recorded_aux_products() as records:
                     layer = make(dev)
                     cfg = SweepConfig(num_swipes=1, batch_size=48,
                                       method="ridge_cholesky", eps=5.0,
@@ -1069,6 +1346,9 @@ def check_reference(device):
                         raise AssertionError(
                             f"reference swipe ({model}, {tier}, {dev}) failed")
                     outs[dev] = layer.network.forward(params[0], Xd).cpu()
+                if dev != "cpu" and tier == "f32, bf16 aux":
+                    check_aux_products(f"{model} {tier} on {device}", records)
+                del records
             err = float((outs[device] - outs["cpu"]).abs().max())
             scale = float(outs["cpu"].abs().max())
             log(f"[reference] {model} {tier}: kernels on {device} vs plain on "
@@ -1077,8 +1357,140 @@ def check_reference(device):
                 raise AssertionError(f"reference check ({model}, {tier}) failed: {err}")
 
 
+# phase 7: the image trainer. The headline MNIST configuration at full width
+# on train_image's synthetic stand-in (8,192 samples: 28x28 -> 50 patches x
+# 17 pixels, 10 classes), one swipe in bench.py's tier; then the digits gate,
+# 10 seeds in the reference and the fastest tiers, each tier's mean held to
+# the test set's noise floor around the TPU's 10-seed mean (RESULTS.md).
+# The stand-in is separable: its validation error reaches 0 within the
+# first members, after which the headline's patience (10 updates without
+# improvement) would end the run a few updates later; a patience beyond the
+# swipe's 40 node updates lets the one swipe run through
+IMAGE_ENV = dict(NUM_SWIPES=1, SYNTHETIC_SAMPLES=8192, PRECISION="fastest",
+                 EARLY_STOPPING=1000, DATA_PATH="build/no_mnist_staged", VERBOSE=0,
+                 RESULTS_FILE="build/chip_smoke_image.csv")
+IMAGE_KERNELS = ("retile_hmix", "quantize_tiled", "gram_pair_q", "gram_pair")
+# K1's launches in the whole swipe: the middle cores with D = 18*49*18 (one
+# of member 3, two of member 4), each updated once a pass, two passes, over
+# the 4 chunks of the 7,372 training samples (8,192 less the 10 % held out
+# to validate) at 2,048 a chunk
+IMAGE_K1_SWIPE = 3 * 2 * 4
+DIGITS_TARGET = 96.55
+DIGITS_KERNELS = {"reference": ("retile_hmix", "gram_pair_tiled", "gram_pair"),
+                  "fastest": ("retile_hmix", "quantize_tiled", "gram_pair_q",
+                              "gram_pair")}
+
+
+@contextlib.contextmanager
+def built_models(train_image):
+    """Records each model train_image builds (to check its parameters)."""
+    models, build = [], train_image.build_model
+
+    def recording(*args):
+        models.append(build(*args))
+        return models[-1]
+
+    train_image.build_model = recording
+    try:
+        yield models
+    finally:
+        train_image.build_model = build
+
+
+def all_finite(model) -> bool:
+    import torch
+    return all(bool(torch.isfinite(v).all())
+               for layer in model.layers for v in layer.params.values())
+
+
+def run_image_trainer(device):
+    """Phase 7a: train_image at the headline MNIST configuration (type-I,
+    members of 1-4 carriages, r=18, CB=8, kernel 4/4, batch 2048, eps 5.0 x
+    0.25) on the synthetic stand-in, PRECISION=fastest, one whole swipe
+    (IMAGE_ENV). Returns its launches and the kernel shapes it recorded."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import reproduce_result, train_image
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    with env(**{**reproduce_result.HEADLINE["mnist"], **IMAGE_ENV,
+                "DEVICE": str(device)}), built_models(train_image) as models, \
+            recorded_shapes() as seen:
+        config = train_image.get_config_from_env()
+        torch.cuda.synchronize()
+        kg.reset_launches()
+        t0 = time.perf_counter()
+        res = train_image.train_model(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kg.LAUNCHES)
+    used = {k: v for k, v in launches.items() if v}
+    log(f"[image] train_image {res['dataset']} N={res['N']} r={res['r']} "
+        f"CB={res['CB']} kernel {res['kernel_size']}/{res['kernel_stride']}, "
+        f"{config['synthetic_samples']} samples, batch {config['batch_size']}, "
+        f"precision {res['precision']}, {res['num_parameters']} params: "
+        f"train_seconds {res['train_seconds']}, test accuracy "
+        f"{res['test_accuracy']} %, singular={res['singular']}, wall "
+        f"{wall:.2f} s (data and model included), launches {used}")
+    if res["singular"]:
+        raise AssertionError("train_image reported a singular solve")
+    if not all_finite(models[0]):
+        raise AssertionError("train_image left non-finite parameters")
+    if not res["test_accuracy"] > 100.0 / 10:
+        raise AssertionError(f"test accuracy {res['test_accuracy']} % is not above chance")
+    missing = [k for k in IMAGE_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"train_image never launched {missing}")
+    if launches["retile_hmix"] != IMAGE_K1_SWIPE:
+        raise AssertionError(f"train_image launched K1 {launches['retile_hmix']} times, "
+                             f"not the whole swipe's {IMAGE_K1_SWIPE}")
+    return launches, seen
+
+
+def run_digits_gate(device, tier):
+    """Phase 7b: reproduce_result digits, seeds 42-51, in `tier`: each seed's
+    accuracy and time, the mean +/- std and the noise floor; the mean must
+    lie within the floor of DIGITS_TARGET and no seed may end with
+    non-finite parameters. Returns its launches and the kernel shapes it
+    recorded."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import reproduce_result, train_image
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    with env(PRECISION=tier, DEVICE=str(device)), built_models(train_image) as models, \
+            recorded_shapes() as seen:
+        torch.cuda.synchronize()
+        kg.reset_launches()
+        t0 = time.perf_counter()
+        results = reproduce_result.main("digits")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kg.LAUNCHES)
+    mean, std, floor, line = reproduce_result.summarize("digits", results)
+    secs = [r["train_seconds"] for r in results]
+    log(f"[digits] {tier}: accuracies {[r['test_accuracy'] for r in results]}, "
+        f"train_seconds {secs} (mean {np.mean(secs):.2f}), wall {wall:.1f} s for "
+        f"{len(results)} seeds, launches {({k: v for k, v in launches.items() if v})}")
+    log(f"[digits] {tier}: {line}; |mean - {DIGITS_TARGET}| = "
+        f"{abs(mean - DIGITS_TARGET):.2f}")
+    singular = [r["seed"] for r in results if r["singular"]]
+    if singular:
+        log(f"[digits] {tier}: seeds {singular} reported a singular solve (the node "
+            "kept its value)")
+    bad = [r["seed"] for r, m in zip(results, models) if not all_finite(m)]
+    if bad:
+        raise AssertionError(f"digits {tier}: seeds {bad} ended with non-finite parameters")
+    if not abs(mean - DIGITS_TARGET) <= floor:
+        raise AssertionError(f"digits {tier}: mean {mean:.2f} % is outside the noise "
+                             f"floor {floor:.2f} of {DIGITS_TARGET} %")
+    missing = [k for k in DIGITS_KERNELS[tier] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"digits {tier} never launched {missing}")
+    return launches, seen
+
+
 def main() -> int:
     import torch
+    start = time.perf_counter()
 
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -1107,11 +1519,32 @@ def main() -> int:
         log(f"[build] {ln.strip()}")
 
     kernels = check_kernels(device) + check_weighted_kernels(device)
-    flagship = run_slice(device, "int8")
-    flagship32 = run_slice(device, "f32")
-    flagship16 = run_slice(device, "bf16")
+    int8 = run_slice(device, "int8")
+    flagship = int8["launches"]
+    flagship32 = run_slice(device, "f32")["launches"]
+    flagship16 = run_slice(device, "bf16")["launches"]
+    fastest = run_slice(device, "fastest")
+    drift = abs(fastest["loss1"] - int8["loss1"]) / int8["loss1"]
+    log(f"[slice] {smi}: fastest (bench.py's tier) {fastest['wall']:.3f} s, loss "
+        f"{fastest['loss1']:.6f}; int8 with f32 aux {int8['wall']:.3f} s, loss "
+        f"{int8['loss1']:.6f}; |d loss| / loss {drift:.3g} (bound {AUX_LOSS_RTOL})")
+    if not drift <= AUX_LOSS_RTOL:
+        raise AssertionError(f"the bf16 aux tier moved the swipe's loss by {drift:.3g}")
     fit, own, fit8 = run_regression(device)
     check_reference(device)
+    t7 = time.perf_counter()
+    image, image_seen = run_image_trainer(device)
+    digits, digits_seen = {}, {}
+    for tier in ("reference", "fastest"):
+        digits[tier], digits_seen[tier] = run_digits_gate(device, tier)
+    # the kernels at every shape phase 7's paths gave them
+    done = set()
+    path_runs = {"train_image fastest": (image, image_seen),
+                 "digits reference": (digits["reference"], digits_seen["reference"]),
+                 "digits fastest": (digits["fastest"], digits_seen["fastest"])}
+    for path, (_, seen) in path_runs.items():
+        kernels += check_path_shapes(device, path, seen, done)
+    log(f"[env] phase 7 took {time.perf_counter() - t7:.1f} s, its shape checks included")
 
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
@@ -1128,7 +1561,17 @@ def main() -> int:
                 ("gram_pair_tiled", "bf16"): flagship16["gram_pair_tiled"],
                 ("gram_pair", "f32"): flagship32["gram_pair"],
                 **{(k, "f32"): fit[k] for k in REGRESSION_KERNELS},
-                ("own_out_gram", "f32"): own["own_out_gram"]}
+                ("own_out_gram", "f32"): own["own_out_gram"],
+                # phase 7's kernels at its paths' shapes: that path's launches
+                **{(k["name"], k["dtype"]): path_runs[k["dtype"].split(", ", 1)[1]][0][k["name"]]
+                   for k in kernels if k["dtype"].split(", ", 1)[-1] in path_runs}}
+    # this slice's paths: bf16 J (int8 codes) in the fastest tier, f32 J in
+    # the reference tier
+    low, full = ("bf16", "int8"), ("f32",)
+    paths = {"flagship fastest": (fastest["launches"], low),
+             "train_image fastest": (image, low),
+             "digits reference": (digits["reference"], full),
+             "digits fastest": (digits["fastest"], low)}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,
@@ -1141,6 +1584,7 @@ def main() -> int:
     def source_file(name):
         return ("wgram.cu" if name in float_gram else
                 "qgram.cu" if name == "gram_pair_q" else "gram.cu")
+    log(f"[env] chip_smoke.py took {time.perf_counter() - start:.1f} s, the build included")
     print(json.dumps({"kernels": [
         {"name": k["name"], "dtype": k["dtype"], "route": "cuda",
          "source": f"{csrc}/{source_file(k['name'])}",
@@ -1150,7 +1594,12 @@ def main() -> int:
          "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
          "bound_type": k["bound"][2] + (", 3 products a multiply-add" if k["bound"][2] == "tf32" else ""),
          "library_ms": k["library_ms"],
-         **({"int_mm_ms": k["int_mm_ms"]} if "int_mm_ms" in k else {})}
+         **({"int_mm_ms": k["int_mm_ms"]} if "int_mm_ms" in k else {}),
+         # launches of this slice's paths, each run with the counts reset,
+         # under the kernels whose operand type the path gives them
+         "launches_by_path": {
+             path: counts[k["name"]] for path, (counts, kind) in paths.items()
+             if k["dtype"].split(",")[0] in kind}}
         for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

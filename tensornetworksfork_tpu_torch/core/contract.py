@@ -11,6 +11,12 @@ summed once.
 is planned here with `numpy.einsum_path` over zero-stride dummy operands
 (shapes only, no data), cached per (expression, shapes), and executed as a
 sequence of pairwise `torch.einsum` calls.
+
+`precision` is the JAX package's dot precision, by name. "highest" runs
+each pairwise step in f32. "default" runs it as the TPU runs a
+`Precision.DEFAULT` dot: operands rounded to bf16, products summed in f32,
+an f32 result (`matmul`). "high" (the TPU's bf16x3) is not ported (ROADMAP
+item 19).
 """
 from __future__ import annotations
 
@@ -100,11 +106,98 @@ def _plan(expr: str, shapes: Tuple[Tuple[int, ...], ...], cap: int):
     return steps
 
 
+PRECISIONS = ("highest", "default")
+
+
+def check_precision(precision: str) -> str:
+    """`precision` if this port runs it; NotImplementedError for "high"."""
+    if precision == "high":
+        raise NotImplementedError(
+            "precision 'high' (the TPU's bf16x3 dot) has no exact "
+            "counterpart on the card and is not ported (ROADMAP item 19)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, not {precision!r}")
+    return precision
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           precision: str = "highest") -> torch.Tensor:
+    """a @ b of 2-D or batched 3-D operands at `precision`, f32 out.
+
+    "highest": in the operands' promoted dtype, bf16 operands upcast to f32
+    (their products are exact in f32). "default": the operands rounded to
+    bf16, the products summed in f32 and returned in f32 (the JAX package's
+    DEFAULT dot with `preferred_element_type=float32`). On the card that is
+    a bf16 product with an f32 output (`out_dtype`), never a bf16-output
+    product, which rounds its result; on the CPU, whose torch has no such
+    kernel, the rounded operands are multiplied in f32: the same products,
+    summed in another order."""
+    if precision == "default" and not (a.is_complex() or b.is_complex()):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if a16.device.type == "cpu":
+            return a16.float() @ b16.float()
+        fn = torch.bmm if a16.ndim == 3 else torch.mm
+        return fn(a16, b16, out_dtype=torch.float32)
+    rt = torch.promote_types(a.dtype, b.dtype)
+    if rt == torch.bfloat16:
+        rt = torch.float32
+    return a.to(rt) @ b.to(rt)
+
+
+def _einsum_pair_default(sub: str, x: torch.Tensor, y: torch.Tensor
+                         ) -> torch.Tensor:
+    """One pairwise einsum step "x,y->z" lowered to `matmul(..., "default")`:
+    letters of one operand that the result drops are summed first (in f32,
+    as XLA reduces before its dot), then the operands are permuted to
+    (batch, free, contracted) and (batch, contracted, free) and multiplied."""
+    ins, out = sub.split("->")
+    tx, ty = ins.split(",")
+    if len(set(tx)) != len(tx) or len(set(ty)) != len(ty):
+        # a repeated letter takes a diagonal, which no product lowers
+        return torch.einsum(sub, x.to(torch.bfloat16).float(),
+                            y.to(torch.bfloat16).float())
+
+    def drop_own(t, arr, other):
+        own = [ch for ch in t if ch not in other and ch not in out]
+        if not own:
+            return t, arr
+        return ("".join(ch for ch in t if ch not in own),
+                arr.sum(dim=[t.index(ch) for ch in own]))
+
+    tx, x = drop_own(tx, x, ty)
+    ty, y = drop_own(ty, y, tx)
+    batch = [ch for ch in tx if ch in ty and ch in out]
+    contr = [ch for ch in tx if ch in ty and ch not in out]
+    fx = [ch for ch in tx if ch not in ty]
+    fy = [ch for ch in ty if ch not in tx]
+    size = {ch: d for t, arr in ((tx, x), (ty, y)) for ch, d in zip(t, arr.shape)}
+
+    def prod(chs):
+        n = 1
+        for ch in chs:
+            n *= size[ch]
+        return n
+
+    xm = x.permute(*[tx.index(ch) for ch in batch + fx + contr])
+    ym = y.permute(*[ty.index(ch) for ch in batch + contr + fy])
+    if batch:
+        xm = xm.reshape(prod(batch), prod(fx), prod(contr))
+        ym = ym.reshape(prod(batch), prod(contr), prod(fy))
+    else:
+        xm = xm.reshape(prod(fx), prod(contr))
+        ym = ym.reshape(prod(contr), prod(fy))
+    z = matmul(xm, ym, "default").reshape([size[ch] for ch in batch + fx + fy])
+    cur = batch + fx + fy
+    return z.permute(*[cur.index(ch) for ch in out])
+
+
 def contract(operands: Sequence[Tuple[Axes, torch.Tensor]],
-             keep: Axes) -> torch.Tensor:
+             keep: Axes, precision: str = "highest") -> torch.Tensor:
     """Contracts labelled operands into a tensor whose axes are `keep`, in
     order. Every axis id not in `keep` is summed over; ids shared between
-    operands are matched (connected edges)."""
+    operands are matched (connected edges). Each pairwise step runs at
+    `precision` (module docstring); a lone operand's sums are no product
+    and stay f32."""
     expr = einsum_expr([axes for axes, _ in operands], keep)
     arrays: List[torch.Tensor] = [arr for _, arr in operands]
     cap_s = os.environ.get("TNF_CONTRACT_MAX_ELEMS", "")
@@ -115,7 +208,10 @@ def contract(operands: Sequence[Tuple[Axes, torch.Tensor]],
         picked = [work[i] for i in step]
         for i in sorted(step, reverse=True):
             del work[i]
-        work.append(torch.einsum(sub, *picked))
+        if precision == "default" and len(picked) == 2:
+            work.append(_einsum_pair_default(sub, *picked))
+        else:
+            work.append(torch.einsum(sub, *picked))
     (out,) = work
     # the final step's output order is `keep` by construction
     return out

@@ -9,12 +9,18 @@ Functions over a static `Topology` + a params dict:
 - `packed_gram_rhs`    A = JᵀHJ, b = Jᵀg on the packed form (kernel route)
 - `gram_and_rhs`       A, b on the generic form (flat, own-out, einsum)
 
-Everything runs in f32 ("highest"): TNF_AUX_PRECISION and TNF_PRECISION
-accept only "highest" in this port. The Gram operands follow TNF_GRAM_DTYPE
-(f32 | bf16 | int8) and the route thresholds follow TNF_PACKED_SYRK_MIN_D,
-with the JAX package's defaults, so both packages take the same route for a
-node. Where XLA was asked for a bf16 dot with an f32 result, the operands
-are upcast to f32 instead (bf16 products are exact in f32).
+The auxiliary contractions (environment chains, Jacobian builds,
+predictions, right-hand sides) run at `Network.aux_precision`
+(TNF_AUX_PRECISION = highest | default, read on every call): "default"
+rounds their operands to bf16 and sums in f32, as the TPU runs a DEFAULT
+dot (`contract.matmul`). A's own product follows TNF_GRAM_DTYPE
+(f32 | bf16 | int8) and the Cholesky solves stay f32. The route thresholds
+follow TNF_PACKED_SYRK_MIN_D, with the JAX package's defaults, so both
+packages take the same route for a node. Where XLA was asked for a bf16 dot
+with an f32 result on the Gram ladder, the operands are upcast to f32
+instead (bf16 products are exact in f32). TNF_PRECISION (which in the JAX
+package also relaxes A's f32 product and the forward) and
+TNF_AUX_PRECISION=high are not ported (ROADMAP item 19).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 
 from ..ops.cuda import gram as kgram
 from ..utils.device import resolve_device
-from .contract import contract
+from .contract import check_precision, contract, matmul
 from .topology import CONST, INPUT, PARAM, Topology
 
 Operand = Tuple[Tuple[int, ...], torch.Tensor]
@@ -37,14 +43,14 @@ def _prime(a):
 
 
 def _check_precision_env() -> None:
-    """Only full-f32 contractions are ported; the JAX package's reduced aux
-    precisions (TNF_AUX_PRECISION / TNF_PRECISION = high|default) are not."""
-    for var in ("TNF_AUX_PRECISION", "TNF_PRECISION"):
-        val = os.environ.get(var, "highest").lower()
-        if val != "highest":
-            raise NotImplementedError(
-                f"{var}={val!r}: this port runs every contraction in full "
-                "f32; reduced precisions are not ported yet")
+    """TNF_PRECISION relaxes every contraction of the JAX package, A's f32
+    product and the forward included; only its "highest" is ported."""
+    val = os.environ.get("TNF_PRECISION", "highest").lower()
+    if val != "highest":
+        raise NotImplementedError(
+            f"TNF_PRECISION={val!r}: this port runs A's f32 product and the "
+            "forward in full f32 (ROADMAP item 19); TNF_AUX_PRECISION=default "
+            "relaxes the auxiliary contractions")
 
 
 def _packed_min_d() -> int:
@@ -75,6 +81,7 @@ class Network:
                  consts: Optional[Dict[str, torch.Tensor]] = None,
                  device="cuda", use_kernels: Optional[bool] = None):
         _check_precision_env()
+        self.aux_precision  # raises for a TNF_AUX_PRECISION not ported
         self.device = resolve_device(device)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
@@ -90,6 +97,17 @@ class Network:
             set().union(*(set(t.node_axes[ni]) for ni in col)) if col else set()
             for col in t.columns
         ]
+
+    @property
+    def aux_precision(self) -> str:
+        """Precision of the auxiliary contractions: environment chains,
+        Jacobian builds, predictions, rhs products. Read from
+        TNF_AUX_PRECISION on every call, as in the JAX package; A's product
+        keeps its own ladder (TNF_GRAM_DTYPE) and the solves stay f32.
+        "highest" (also when unset) or "default"; "high" raises
+        NotImplementedError (ROADMAP item 19)."""
+        return check_precision(
+            os.environ.get("TNF_AUX_PRECISION", "highest").lower())
 
     # ------------------------------------------------------------------ inputs
     def bind_inputs(self, x) -> Dict[str, torch.Tensor]:
@@ -152,7 +170,7 @@ class Network:
             if fast is not None:
                 return (keep, fast)
         ops = ([prev] if prev is not None else []) + col_ops
-        return (keep, contract(ops, keep))
+        return (keep, contract(ops, keep, self.aux_precision))
 
     def _env_step_conv_fast(self, prev, col_ops, keep):
         """Staged lowering of a conv-TT-like column advance, or None.
@@ -235,22 +253,24 @@ class Network:
         for a in outs:
             O *= sz[a]
         B = X.shape[x_axes.index(s)]
+        prec = self.aux_precision
         rt = torch.promote_types(torch.promote_types(X.dtype, CONV.dtype),
                                  torch.promote_types(P.dtype, CORE.dtype))
 
         X3 = X.to(rt).permute(x_axes.index(s), x_axes.index(p), x_axes.index(q))
         convm = CONV.permute(conv_ax.index(q), conv_ax.index(cb_b),
                              conv_ax.index(cb_k)).reshape(Qn, CBb * CBk)
-        U = (X3.reshape(B * Pn, Qn) @ convm.to(rt)).reshape(B, Pn, CBb, CBk)
+        U = matmul(X3.reshape(B * Pn, Qn), convm.to(rt), prec).reshape(
+            B, Pn, CBb, CBk)
         pe = P.permute(*[prev_axes.index(a) for a in (s,) + outs + (r_b, cb_b)])
         pe = pe.reshape(B, O * Rb, CBb)
-        V = torch.bmm(U.permute(0, 1, 3, 2).reshape(B, Pn * CBk, CBb),
-                      pe.to(rt).transpose(1, 2))  # (B, P*CBk, O*Rb)
+        V = matmul(U.permute(0, 1, 3, 2).reshape(B, Pn * CBk, CBb),
+                   pe.to(rt).transpose(1, 2), prec)  # (B, P*CBk, O*Rb)
         V = V.reshape(B, Pn, CBk, O, Rb)
         Vp = V.permute(0, 2, 3, 4, 1).reshape(B * CBk * O, Rb * Pn)
         corem = CORE.permute(core_ax.index(r_b), core_ax.index(p),
                              core_ax.index(r_k)).reshape(Rb * Pn, Rk)
-        out = Vp @ corem.to(rt)
+        out = matmul(Vp, corem.to(rt), prec)
         out = out.reshape((B, CBk) + tuple(sz[a] for a in outs) + (Rk,))
         cur = (s, cb_k) + outs + (r_k,)
         return out.permute(*[cur.index(a) for a in keep])
@@ -328,7 +348,7 @@ class Network:
         Jacobian of the (multi-linear) output w.r.t. that node."""
         ops = self.jacobian_operands(ni, params, inputs, left_env, right_env)
         keep = self.jacobian_keep(ni, [ax for ax, _ in ops])
-        return (keep, contract(ops, keep))
+        return (keep, contract(ops, keep, self.aux_precision))
 
     # ------------------------------------------------------ packed jacobian
     def column_operand_axes(self, ni: int, left_axes, right_axes
@@ -421,7 +441,8 @@ class Network:
         L_axes, L_arr = ops[li]
         others = [op for i, op in enumerate(ops) if i != li]
         # stage 1: everything but L, rest axes flattened last
-        W = contract(others, (s,) + bridges + rest)
+        prec = self.aux_precision
+        W = contract(others, (s,) + bridges + rest, prec)
         S_sz = W.shape[0]
         b_sz = 1
         for a in bridges:
@@ -434,7 +455,7 @@ class Network:
         for a in out_part:
             c_sz *= t.axis_size[a]
         L3 = L_arr.permute(*perm).reshape(S_sz, c_sz * plan["a0_sz"], b_sz)
-        J2 = torch.bmm(L3, W2)
+        J2 = matmul(L3, W2, prec)
         gd = kgram.gram_dtype()
         if gd is not None:
             # stored in the Gram operand dtype: every consumer wants bf16
@@ -445,11 +466,12 @@ class Network:
         return dict(plan, arr=J2)
 
     def packed_predict(self, pj, core: torch.Tensor) -> torch.Tensor:
-        """J · core in f32 (bf16 J and core upcast: exact products)."""
+        """J · core at the aux precision, f32 out; the core is cast to J's
+        dtype first, as in the JAX package."""
         J2 = pj["arr"]
         D = pj["a0_sz"] * pj["r_sz"]
-        core2 = core.reshape(D).to(J2.dtype).float()
-        pred = J2.reshape(-1, D).float() @ core2
+        core2 = core.reshape(D, 1).to(J2.dtype)
+        pred = matmul(J2.reshape(-1, D), core2, self.aux_precision)
         pred = pred.reshape(J2.shape[:-2])
         if pj["pad_out"]:
             pred = pred.reshape(pred.shape + (1,) * pj["pad_out"])
@@ -502,6 +524,7 @@ class Network:
         diag = hess.ndim == grad.ndim
         g2 = grad.reshape(S_sz, -1).to(J3.dtype)
         gd = kgram.gram_dtype()
+        prec = self.aux_precision
         if self.packed_kernel_route(pj):
             finish = acc is None
             if finish:
@@ -514,14 +537,21 @@ class Network:
                 h = hess.reshape(S_sz * C_sz).float().contiguous()
                 Jt, Kt = kgram.retile_rows(J3.reshape(S_sz * C_sz, D).contiguous(),
                                            Dp, h if quant else None)
-                b = (g2.reshape(-1).float() @ Jt.float())[:D]
+                b = matmul(g2.reshape(1, -1), Jt, prec).reshape(-1)[:D]
             else:
                 H3 = hess.reshape(S_sz, C_sz, C_sz).float().contiguous()
                 # fused class-major retile + class mix, which also sums the
-                # rhs Jtᵀg from the J it reads: rows come back (c, s)
-                # ordered, so g is reordered to match
+                # rhs Jtᵀg from the J it reads, in f32: rows come back (c, s)
+                # ordered, so g is reordered to match. g is in J's dtype, so
+                # a bf16 J makes that the aux tier's product already; under
+                # the aux tier an f32 J takes b's product outside K1, which
+                # must not round the J it retiles
                 gvec = g2.reshape(S_sz, C_sz).T.reshape(-1).contiguous()
-                Jt, Kt, b = kgram.retile_hmix(J3.contiguous(), H3, Dp, gvec)
+                fused = prec == "highest" or J3.dtype == torch.bfloat16
+                Jt, Kt, b = kgram.retile_hmix(J3.contiguous(), H3, Dp,
+                                              gvec if fused else None)
+                if not fused:
+                    b = matmul(gvec.reshape(1, -1), Jt, prec).reshape(-1)
                 b = b[:D]
             if quant:
                 Q1, s1 = kgram.quantize_tiled(Jt, block)
@@ -538,7 +568,7 @@ class Network:
             if finish:
                 return self.packed_gram_finisher(pj)(acc), b
             return acc, b
-        b = g2.reshape(-1).float() @ J3.reshape(-1, D).float()
+        b = matmul(g2.reshape(1, -1), J3.reshape(-1, D), prec).reshape(-1)
         if diag:
             h2 = hess.reshape(S_sz, -1)
             K3 = J3 * h2[:, :, None].to(J3.dtype)
@@ -559,7 +589,8 @@ class Network:
         each node."""
         J_axes, J_arr = J
         node_axes = self.topology.node_axes[ni]
-        return contract([(J_axes, J_arr), (node_axes, core)], self.output_keep())
+        return contract([(J_axes, J_arr), (node_axes, core)], self.output_keep(),
+                        self.aux_precision)
 
     # ------------------------------------------------------------------- A, b
     def _kernel_gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -595,7 +626,8 @@ class Network:
             raise ValueError(f"node axes {missing} appear in neither jacobian nor outputs")
 
         g_axes = (s,) + out_axes
-        b = contract([(J_axes, J_arr), (g_axes, grad)], node_axes)
+        b = contract([(J_axes, J_arr), (g_axes, grad)], node_axes,
+                     self.aux_precision)
 
         diag = hess.ndim == grad.ndim
 

@@ -124,6 +124,7 @@ class Sweeper:
         # dict entries with new tensors)
         self._near_hist: Dict = {}
         self._near_hist_bytes = 0
+        self._hist_aux = None  # the TNF_AUX_PRECISION the history was made at
         self._data_cache = None
         # deferred per-node ok flags (device tensors) — see _flush_ok
         self._pending_ok: List = []
@@ -216,14 +217,23 @@ class Sweeper:
     def _prepare_cached(self, x, y, sample_weight):
         """_prepare memoised on input identity: repeated run() calls on the
         same tensors skip re-chunking and keep the environment history
-        valid across epochs."""
+        valid across epochs. The history is keyed on TNF_AUX_PRECISION as
+        well (environments depend on the contraction precision), as in the
+        JAX package."""
+        aux = os.environ.get("TNF_AUX_PRECISION", "")
+        data = None
         if self._data_cache is not None:
-            (ox, oy, ow, ob), data = self._data_cache
+            (ox, oy, ow, ob), cached = self._data_cache
             if ox is x and oy is y and ow is sample_weight and ob == self.cfg.batch_size:
-                return data
-        data = self._prepare(x, y, sample_weight)
-        self._data_cache = ((x, y, sample_weight, self.cfg.batch_size), data)
-        # recorded environments were computed from the previous data
+                data = cached
+        if data is None:
+            data = self._prepare(x, y, sample_weight)
+            self._data_cache = ((x, y, sample_weight, self.cfg.batch_size), data)
+        elif self._hist_aux == aux:
+            return data
+        # recorded environments were computed from other data, or at
+        # another precision
+        self._hist_aux = aux
         self._near_hist.clear()
         self._near_hist_bytes = 0
         return data

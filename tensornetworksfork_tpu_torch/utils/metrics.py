@@ -1,6 +1,6 @@
 """Metrics and the results-file protocol (port of
 tensornetworksfork_tpu/utils/metrics.py: rmse, r2_score, accuracy,
-append_results_csv). Inputs are numpy arrays or anything np.asarray takes.
+balanced_accuracy, error_rate, append_results_csv). Inputs are numpy arrays or anything np.asarray takes.
 """
 from __future__ import annotations
 
@@ -31,6 +31,21 @@ def accuracy(y_true, y_pred) -> float:
     if y_pred.ndim > 1 and y_pred.shape[-1] > 1:
         y_pred = y_pred.argmax(-1)
     return float(np.mean(y_true == y_pred))
+
+
+def balanced_accuracy(y_true, y_pred) -> float:
+    """The mean over the true classes of each class's accuracy."""
+    y_true, y_pred = np.asarray(y_true), np.asarray(y_pred)
+    if y_true.ndim > 1 and y_true.shape[-1] > 1:
+        y_true = y_true.argmax(-1)
+    if y_pred.ndim > 1 and y_pred.shape[-1] > 1:
+        y_pred = y_pred.argmax(-1)
+    accs = [np.mean(y_pred[y_true == c] == c) for c in np.unique(y_true)]
+    return float(np.mean(accs))
+
+
+def error_rate(y_true, y_pred) -> float:
+    return 1.0 - accuracy(y_true, y_pred)
 
 
 def append_results_csv(results: Dict, path: str) -> None:

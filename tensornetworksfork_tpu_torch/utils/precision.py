@@ -8,9 +8,9 @@ duration and restores the ambient values after:
 - "fast": bf16 Gram operands and the bf16 aux tier;
 - "fastest": int8 Gram operands and the bf16 aux tier.
 
-The port runs every contraction in full f32 and refuses
-TNF_AUX_PRECISION=default when a `Network` is built, so "fast" and
-"fastest" raise NotImplementedError until the bf16 aux tier is ported.
+The bf16 aux tier (TNF_AUX_PRECISION=default) rounds the operands of the
+environment chains, Jacobian builds, predictions and rhs products to bf16
+and sums in f32 (core/engine.py `Network.aux_precision`).
 """
 from __future__ import annotations
 

@@ -1,0 +1,361 @@
+"""The bf16 aux tier (TNF_AUX_PRECISION=default; PRECISION=fast|fastest):
+the port against the JAX package on the CPU.
+
+On a TPU a DEFAULT-precision dot rounds its operands to bf16 and sums the
+products in f32. XLA on the CPU ignores DEFAULT and runs the dot in f32, so
+the JAX side is made to round as the TPU does in one of two ways: its
+operands are rounded to bf16 before the call (a single product), or
+`tpu_default_dots` wraps the `dot_general` behind `jax.lax.dot_general`
+and `jnp.einsum` for the test's duration, rounding the operands of every
+dot asked for at DEFAULT precision (products chained through rounded
+intermediates). Nothing in the JAX package changes.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from tensornetworksfork_tpu.core import contract as jcon  # noqa: E402
+from tensornetworksfork_tpu.core.engine import Network as JNetwork  # noqa: E402
+from tensornetworksfork_tpu.core.sweep import SweepConfig as JConfig  # noqa: E402
+from tensornetworksfork_tpu.core.sweep import Sweeper as JSweeper  # noqa: E402
+from tensornetworksfork_tpu.models.layers import (  # noqa: E402
+    TensorConvolutionTrainLayer as JLayer)
+from tensornetworksfork_tpu.ops.bregman import XEBregman as JXE  # noqa: E402
+from tensornetworksfork_tpu_torch.core import contract as tcon  # noqa: E402
+from tensornetworksfork_tpu_torch.core.engine import Network  # noqa: E402
+from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper  # noqa: E402
+from tensornetworksfork_tpu_torch.models.layers import (  # noqa: E402
+    TensorConvolutionTrainLayer as TLayer)
+from tensornetworksfork_tpu_torch.ops.bregman import XEBregman as TXE  # noqa: E402
+from tensornetworksfork_tpu_torch.utils.convert import (  # noqa: E402
+    params_from_numpy, params_to_numpy)
+
+
+def bf16(a):
+    """a (numpy f32) rounded to bf16, as f32."""
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _is_default(p):
+    D = jax.lax.Precision.DEFAULT
+    if isinstance(p, (tuple, list)):
+        return len(p) > 0 and all(q == D for q in p)
+    return p == D
+
+
+@pytest.fixture
+def tpu_default_dots(monkeypatch):
+    """The JAX package's DEFAULT dots round their f32 operands to bf16 and
+    sum in f32, as on the TPU."""
+    orig = jax.lax.dot_general
+
+    def dot(lhs, rhs, dimension_numbers, precision=None,
+            preferred_element_type=None, **kw):
+        if _is_default(precision):
+            lhs, rhs = (x.astype(jnp.bfloat16).astype(jnp.float32)
+                        if x.dtype == jnp.float32 else x for x in (lhs, rhs))
+            precision = jax.lax.Precision.HIGHEST
+        return orig(lhs, rhs, dimension_numbers, precision,
+                    preferred_element_type=preferred_element_type, **kw)
+
+    monkeypatch.setattr(jax.lax, "dot_general", dot)
+    monkeypatch.setattr(jnp, "einsum", functools.partial(jnp.einsum, _dot_general=dot))
+
+
+# two-operand contractions: a product, a batched product, an outer product
+# with a batch axis, two contracted axes
+PAIRS = [
+    ([(0, 1), (1, 2)], (0, 2), [(37, 45), (45, 11)]),
+    ([(0, 1, 2), (0, 2, 3)], (0, 3, 1), [(5, 7, 30), (5, 30, 6)]),
+    ([(0, 1), (0, 2)], (0, 1, 2), [(9, 4), (9, 6)]),
+    ([(0, 1, 2), (1, 2, 3)], (3, 0), [(6, 8, 9), (8, 9, 5)]),
+]
+
+
+@pytest.mark.parametrize("axes,keep,shapes", PAIRS)
+def test_contract_default_matches_jax_on_rounded_operands(axes, keep, shapes):
+    """contract(..., "default") equals the JAX contract of the
+    bf16-rounded operands to f32 rounding (1e-6 of max|A|); the unrounded
+    product is off by far more (so a port that skips the rounding fails
+    here), and "highest" equals the unrounded product."""
+    rng = np.random.default_rng(len(shapes[0]))
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    got = tcon.contract([(a, torch.from_numpy(x)) for a, x in zip(axes, arrs)],
+                        keep, "default").numpy()
+    want = np.asarray(jcon.contract([(a, jnp.asarray(bf16(x)))
+                                     for a, x in zip(axes, arrs)], keep))
+    plain = np.asarray(jcon.contract([(a, jnp.asarray(x))
+                                      for a, x in zip(axes, arrs)], keep))
+    scale = np.abs(want).max()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    assert np.abs(got - plain).max() > 1e-4 * scale
+    high = tcon.contract([(a, torch.from_numpy(x)) for a, x in zip(axes, arrs)],
+                         keep).numpy()
+    np.testing.assert_allclose(high, plain, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("axes,keep,shapes", PAIRS + [
+    # an axis of one operand that the result drops (summed before the dot)
+    ([(0, 1, 7), (1, 2)], (2, 0), [(6, 8, 3), (8, 5)]),
+    # three operands: the second product rounds the first one's result
+    ([(0, 1), (1, 2), (2, 3)], (0, 3), [(12, 20), (20, 15), (15, 4)]),
+])
+def test_contract_default_matches_jax_tpu_rounding(axes, keep, shapes,
+                                                   tpu_default_dots):
+    """contract(..., "default") against the JAX contract at DEFAULT with
+    the TPU's rounding: 1e-6 of max|A| (f32 sums in another order)."""
+    rng = np.random.default_rng(7 + len(axes))
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    got = tcon.contract([(a, torch.from_numpy(x)) for a, x in zip(axes, arrs)],
+                        keep, "default").numpy()
+    want = np.asarray(jcon.contract([(a, jnp.asarray(x)) for a, x in zip(axes, arrs)],
+                                    keep, jax.lax.Precision.DEFAULT))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_matmul_default_rounds_operands():
+    """matmul at "default": the rounded operands' product in f32, for 2-D
+    and batched operands, bf16 or f32; "highest" multiplies bf16 operands
+    in f32."""
+    rng = np.random.default_rng(3)
+    for sa, sb in (((30, 40), (40, 7)), ((3, 30, 40), (3, 40, 7))):
+        a = torch.from_numpy(rng.standard_normal(sa).astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(sb).astype(np.float32))
+        want = a.bfloat16().double() @ b.bfloat16().double()
+        for x, y in ((a, b), (a.bfloat16(), b)):
+            got = tcon.matmul(x, y, "default")
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.double().numpy(), want.numpy(),
+                                       rtol=0, atol=1e-6 * float(want.abs().max()))
+        hi = tcon.matmul(a.bfloat16(), b.bfloat16())
+        assert hi.dtype == torch.float32
+        np.testing.assert_allclose(hi.double().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+# a small conv-TT: 3 carriages, so the middle core A2 has a left and a right
+# environment and the column advance into column 1 takes the staged lowering
+N, R, CB, P, PP, C, S = 3, 4, 2, 6, 5, 3, 16
+
+
+def conv_pair(seed=0):
+    jl = JLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=seed)
+    tl = TLayer(N, R, P, PP, output_shape=(C,), convolution_bond=CB, seed=seed,
+                device="cpu")
+    tl.params = params_from_numpy({k: np.asarray(v) for k, v in jl.params.items()},
+                                  device="cpu")
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((S, P, PP)).astype(np.float32)
+    return jl, tl, X
+
+
+def test_env_step_conv_fast_default_matches_jax(monkeypatch, tpu_default_dots):
+    """The staged conv advance (three products, each rounding its operands)
+    at the aux tier against the JAX one with the TPU's rounding: 1e-6 of
+    max|env| (f32 sums in another order). The f32 result differs from it
+    by far more."""
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    jl, tl, X = conv_pair()
+    jnet, tnet = jl.network, tl.network
+    ji, ti = jnet.bind_inputs(jnp.asarray(X)), tnet.bind_inputs(torch.from_numpy(X))
+    jprev = jnet.env_step(None, 0, jl.params, ji, [0])
+    tprev = tnet.env_step(None, 0, tl.params, ti, [0])
+    keep = tnet.env_keep([0, 1])
+    got = tnet._env_step_conv_fast(tprev, tnet.column_operands(1, tl.params, ti), keep)
+    want = jnet._env_step_conv_fast(jprev, jnet.column_operands(1, jl.params, ji), keep)
+    assert got is not None and want is not None
+    got, want = got.numpy(), np.asarray(want)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    monkeypatch.setenv("TNF_AUX_PRECISION", "highest")
+    f32 = tnet._env_step_conv_fast(tprev, tnet.column_operands(1, tl.params, ti), keep)
+    assert np.abs(f32.numpy() - got).max() > 1e-4 * scale
+
+
+@pytest.mark.parametrize("gram", ["f32", "bf16"])
+def test_packed_jacobian_and_predict_default_match_jax(gram, monkeypatch,
+                                                       tpu_default_dots):
+    """The packed Jacobian of A2 (a contraction of the others, then a
+    batched product with the left env) and J·core at the aux tier, against
+    the JAX package with the TPU's rounding: J to 1e-6 of max|J| (2^-8 in
+    the bf16 Gram tier, where J is stored in bf16 and may round one ulp
+    apart), the prediction to 1e-5 of its max."""
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    monkeypatch.setenv("TNF_GRAM_DTYPE", gram)
+    jl, tl, X = conv_pair(1)
+    jnet, tnet = jl.network, tl.network
+    ni = [spec.name for spec in jl.topology.nodes].index("A2")
+    ji, ti = jnet.bind_inputs(jnp.asarray(X)), tnet.bind_inputs(torch.from_numpy(X))
+    jL = jnet.env_chain(jl.params, ji, "left")
+    jR = jnet.env_chain(jl.params, ji, "right")
+    tL = tnet.env_chain(tl.params, ti, "left")
+    tR = tnet.env_chain(tl.params, ti, "right")
+    ci = jl.topology.col_of[ni]
+    jpj = jnet.packed_jacobian(ni, jl.params, ji, jL[ci - 1], jR[ci + 1])
+    tpj = tnet.packed_jacobian(ni, tl.params, ti, tL[ci - 1], tR[ci + 1])
+    gj = np.asarray(jpj["arr"].astype(jnp.float32))
+    gt = tpj["arr"].float().numpy()
+    tol = 1e-6 if gram == "f32" else 2.0 ** -8
+    np.testing.assert_allclose(gt, gj, rtol=0, atol=tol * np.abs(gj).max())
+    pj = np.asarray(jnet.packed_predict(jpj, jl.params["A2"]))
+    pt = tnet.packed_predict(tpj, tl.params["A2"]).numpy()
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-5 * np.abs(pj).max())
+
+
+def test_aux_precision_reads_env_each_call(monkeypatch):
+    jl, tl, _ = conv_pair()
+    net = tl.network
+    monkeypatch.delenv("TNF_AUX_PRECISION", raising=False)
+    assert net.aux_precision == "highest"
+    monkeypatch.setenv("TNF_AUX_PRECISION", "DEFAULT")
+    assert net.aux_precision == "default"
+    monkeypatch.setenv("TNF_AUX_PRECISION", "high")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+        net.aux_precision
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+        Network(tl.topology, device="cpu")
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    monkeypatch.setenv("TNF_PRECISION", "default")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+        Network(tl.topology, device="cpu")
+
+
+# One swipe of a tiny conv-TT (4 carriages) in the fast and fastest tiers,
+# the port against the JAX package under the same environment with the
+# TPU's rounding (tpu_default_dots). TNF_PACKED_SYRK_MIN_D=1 takes the tiled
+# kernel route (K1, and in fastest K2/K3; plain versions here, Pallas in
+# interpret mode there). Tolerance on the predictions after the swipe,
+# relative to max|pred|, measured over seeds 0-2: fast 3.4e-7..2.2e-6,
+# fastest 2.7e-7..4.9e-7 (f32 sums in another order through 14 chained
+# solves); held to 5e-6 and 1e-6. Against the JAX package without the
+# rounding (as XLA runs DEFAULT on the CPU) the same swipes differ by
+# 2.3e-2..3.0e-2, so a port that skips the rounding fails here.
+SW = dict(N=4, R=4, CB=2, P=6, PP=5, C=3, S=64, B=32)
+
+
+def swipe_both(seed):
+    c = SW
+    jl = JLayer(c["N"], c["R"], c["P"], c["PP"], output_shape=(c["C"],),
+                convolution_bond=c["CB"], seed=seed)
+    tl = TLayer(c["N"], c["R"], c["P"], c["PP"], output_shape=(c["C"],),
+                convolution_bond=c["CB"], seed=seed, use_kernels=True, device="cpu")
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((c["S"], c["P"], c["PP"])).astype(np.float32)
+    Y = np.eye(c["C"] + 1, dtype=np.float32)[rng.integers(0, c["C"] + 1, c["S"])]
+    cfg = dict(num_swipes=1, batch_size=c["B"], method="ridge_cholesky",
+               eps=5.0, eps_decay=0.25)
+    p0 = {k: np.asarray(v) for k, v in jl.params.items()}
+    pj, okj = JSweeper(JNetwork(jl.topology, use_pallas=True), JXE(1.0),
+                       JConfig(**cfg)).run([jl.params], jnp.asarray(X), jnp.asarray(Y))
+    pt, okt = Sweeper(tl.network, TXE(1.0), SweepConfig(**cfg)).run(
+        [params_from_numpy(p0, device="cpu")], torch.tensor(X), torch.tensor(Y))
+    pred_j = np.asarray(jl.network.forward(pj[0], jnp.asarray(X)))
+    pred_t = tl.network.forward(pt[0], torch.tensor(X)).numpy()
+    return okj, okt, pred_j, pred_t, params_to_numpy(pt[0])
+
+
+@pytest.mark.parametrize("tier,rtol", [("fast", 5e-6), ("fastest", 1e-6)])
+def test_swipe_in_aux_tiers_matches_jax(tier, rtol, monkeypatch, tpu_default_dots):
+    from tensornetworksfork_tpu_torch.utils.precision import TIERS
+    for k, v in TIERS[tier].items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    monkeypatch.setenv("TNF_FULLBATCH_MAX_BYTES", "0")
+    okj, okt, pred_j, pred_t, pt = swipe_both(0)
+    assert okj and okt
+    assert all(np.isfinite(v).all() for v in pt.values())
+    np.testing.assert_allclose(pred_t, pred_j, rtol=0,
+                               atol=rtol * np.abs(pred_j).max())
+
+
+def test_history_keyed_on_aux_precision(monkeypatch):
+    """A second run of one Sweeper in another aux tier recomputes its
+    environments: it ends exactly where a fresh Sweeper does."""
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
+    jl, tl, X = conv_pair(2)
+    rng = np.random.default_rng(2)
+    Y = torch.from_numpy(np.eye(C + 1, dtype=np.float32)[rng.integers(0, C + 1, S)])
+    Xt = torch.from_numpy(X)
+    cfg = SweepConfig(num_swipes=1, batch_size=8, method="ridge_cholesky",
+                      eps=5.0, eps_decay=0.25)
+    sw = Sweeper(tl.network, TXE(1.0), cfg)
+    p1, ok = sw.run([tl.params], Xt, Y)
+    assert ok
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    p2, _ = sw.run([dict(p1[0])], Xt, Y)
+    p2_fresh, _ = Sweeper(tl.network, TXE(1.0), cfg).run([dict(p1[0])], Xt, Y)
+    for k in p2[0]:
+        torch.testing.assert_close(p2[0][k], p2_fresh[0][k], rtol=0, atol=0)
+
+
+def test_fused_rhs_outside_k1_for_f32_j(monkeypatch, tpu_default_dots):
+    """With f32 Gram operands and the aux tier, b is the product of the
+    rounded J and g, formed outside K1 (which sums the J it retiles
+    unrounded); in the bf16 tiers K1 sums it. Both against the JAX rhs with
+    the TPU's rounding: 1e-5 of max|b|."""
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    rng = np.random.default_rng(4)
+    Sx, Cx, D0, D1 = 40, 3, 4, 6
+    J = rng.standard_normal((Sx, Cx, D0, D1)).astype(np.float32)
+    g = rng.standard_normal((Sx, Cx)).astype(np.float32)
+    Hm = rng.standard_normal((Sx, Cx, Cx)).astype(np.float32)
+    H = np.einsum("sab,scb->sac", Hm, Hm).astype(np.float32)
+    jl, tl, _ = conv_pair()
+    for gram in ("f32", "bf16"):
+        monkeypatch.setenv("TNF_GRAM_DTYPE", gram)
+        dt = jnp.float32 if gram == "f32" else jnp.bfloat16
+        base = {"out_part": (0,), "n_out": 1, "node_shape": (D0, D1),
+                "a0_sz": D0, "r_sz": D1, "pad_out": 0}
+        jpj = dict(base, arr=jnp.asarray(J).astype(dt))
+        tpj = dict(base, arr=torch.from_numpy(np.asarray(jpj["arr"].astype(jnp.float32)))
+                   .to(torch.float32 if gram == "f32" else torch.bfloat16))
+        jnet = JNetwork(jl.topology, use_pallas=True)
+        tnet = Network(tl.topology, device="cpu", use_kernels=True)
+        _, bj = jnet.packed_gram_rhs(jpj, jnp.asarray(g), jnp.asarray(H))
+        _, bt = tnet.packed_gram_rhs(tpj, torch.from_numpy(g), torch.from_numpy(H))
+        bj = np.asarray(bj).reshape(-1)
+        np.testing.assert_allclose(bt.numpy(), bj, rtol=0, atol=1e-5 * np.abs(bj).max())
+
+
+def test_chip_smoke_aux_product_check_sees_rounding(monkeypatch):
+    """chip_smoke's check of the aux tier's products (phase 6), on a tiny
+    conv-TT swipe on the CPU: each recorded product lies within
+    AUX_PRODUCT_BOUND sqrt(K) 2^-24 of sum|a||b| of float64 of its
+    bf16-rounded operands; a matmul that returns bf16-rounded results, or
+    one that skips the rounding, fails it."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    rng = np.random.default_rng(1)
+    X = torch.tensor(rng.standard_normal((48, 6, 5)).astype(np.float32))
+    y = torch.tensor(np.eye(4, dtype=np.float32)[rng.integers(0, 4, 48)])
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+
+    def records():
+        with chip_smoke.recorded_aux_products() as rec:
+            layer = TLayer(4, 4, 6, 5, output_shape=(3,), convolution_bond=2, seed=0,
+                           device="cpu", use_kernels=True)
+            cfg = SweepConfig(num_swipes=1, batch_size=48, method="ridge_cholesky",
+                              eps=5.0, eps_decay=0.25)
+            Sweeper(layer.network, TXE(1.0), cfg).run([layer.params], X, y)
+        return rec
+
+    chip_smoke.check_aux_products("port", records())
+    plain = tcon.matmul
+    for wrong in (lambda a, b, p="highest": plain(a, b, p).bfloat16().float(),
+                  lambda a, b, p="highest": plain(a, b, "highest")):
+        monkeypatch.setattr(tcon, "matmul", wrong)
+        monkeypatch.setattr("tensornetworksfork_tpu_torch.core.engine.matmul", wrong)
+        with pytest.raises(AssertionError, match="off by"):
+            chip_smoke.check_aux_products("control", records())

@@ -343,3 +343,35 @@ def test_gram_pair_band_q_rejects_row_major_codes_on_cuda():
     odd = torch.zeros((512, 104), dtype=torch.int8, device=dev)[:, :96].T
     with pytest.raises(ValueError):
         kg.gram_pair_band_q(Q1, s1, odd, s2, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_a,shape_b", [((300, 17), (17, 64)),
+                                             ((40, 50, 8), (40, 8, 33)),
+                                             ((999, 4100), (4100, 1)),
+                                             ((18432, 16200), (16200, 1))])
+def test_aux_matmul_default_on_cuda(shape_a, shape_b):
+    """The bf16 aux tier's product on the card (bf16 operands, an f32
+    result) against its CPU plain form (the rounded operands multiplied in
+    f32): f32 out, each entry within 4 sqrt(K) 2^-24 of sum_k |a||b|, the
+    two forms' f32 sums in different orders; a bf16-output product of the
+    same operands, or any sum rounded to bf16 on the way, is outside it.
+    The last shape is the flagship's packed prediction (2,048 x 9 rows, D =
+    16,200), where cuBLAS's bf16 product sums less accurately than its f32
+    one (still well inside the bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.core.contract import matmul
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(shape_a, generator=gen)
+    b = torch.randn(shape_b, generator=gen)
+    got = matmul(a.cuda(), b.cuda(), "default")
+    plain = matmul(a, b, "default")
+    assert got.dtype == torch.float32 and got.is_cuda
+    K = shape_a[-1]
+    scale = matmul(a.bfloat16().abs(), b.bfloat16().abs(), "highest")
+    bound = 4 * K ** 0.5 * 2.0 ** -24
+    assert float(((got.cpu() - plain).abs() / scale).max()) <= bound
+    fn = torch.bmm if len(shape_a) == 3 else torch.mm
+    rounded_out = fn(a.cuda().bfloat16(), b.cuda().bfloat16()).float().cpu()
+    assert float(((rounded_out - plain).abs() / scale).max()) > bound

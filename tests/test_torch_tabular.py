@@ -317,18 +317,25 @@ def test_unported_estimator_options_raise(kw):
         TensorTrainRegressor(**kw, device="cpu")
 
 
-def test_fast_tiers_refused():
-    """"fast" and "fastest" set TNF_AUX_PRECISION=default, which the port
-    refuses while the bf16 aux tier is not ported; the ambient env comes
-    back after the fit."""
+def test_fast_tiers_refused(monkeypatch):
+    """"fast" and "fastest" (bf16 or int8 Gram operands and the bf16 aux
+    tier) fit, and the ambient env comes back after the fit; the aux tier
+    the port does not run, TNF_AUX_PRECISION=high, is refused with its
+    ROADMAP item."""
     import os
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
     X, Y = table(6, S=32, F=4)
     before = os.environ.get("TNF_AUX_PRECISION")
-    with pytest.raises(NotImplementedError):
-        TensorTrainRegressor(N=2, r=2, precision="fast",
-                             device="cpu").fit(X, Y)
-    assert os.environ.get("TNF_AUX_PRECISION") == before
+    for tier in ("fast", "fastest"):
+        est = TensorTrainRegressor(N=2, r=2, num_swipes=2, eps_start=5.0,
+                                   eps_decay=0.25, precision=tier,
+                                   device="cpu").fit(X, Y)
+        assert est.fit_ok_
+        assert np.isfinite(est.predict(X)).all()
+        assert os.environ.get("TNF_AUX_PRECISION") == before
+    monkeypatch.setenv("TNF_AUX_PRECISION", "high")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+        TensorTrainRegressor(N=2, r=2, device="cpu").fit(X, Y)
 
 
 def _no_card(monkeypatch):
