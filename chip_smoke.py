@@ -81,6 +81,29 @@ printing its own lines:
    in the path's type), the largest of each timed into the kernels line
    under the path's name.
 
+8. solver tiers — (a) the float64 solve tier on the card: the eps ladder of
+   tests/test_eps_ladder.py (D = 64, cond 1e8, eps 1e-3 down to 1e-12)
+   through solve_block, whose float64 tier must meet a numpy float64
+   oracle at every eps, with its control (cond 1e9, eps 1e-12: the f32
+   tier must fail, the float64 tier solve); the float64 and f32 solves'
+   device times at the regression's A2 (D = 8,256); phase 5's fit in f32
+   and in solve_dtype="float64" (the opt-in own-out kernel on), whose val
+   RMSEs must agree within 1 % and whose float64 run must launch K7, K8,
+   K9 and K11; (b) cg, minres and lanczos_galerkin on dense operators at
+   D = 4,096 (SPD; symmetric indefinite for MINRES), each held to a float64
+   solve at tests/test_matrixfree.py's bounds and to the same solver on the
+   CPU run for the card's iteration count; (c) one swipe of a small conv-TT
+   (XEBregman) and of a small TT (SquareBreg) in cg, minres, lanczos and
+   gradient from the same weights, card against CPU; (d) the CIFAR_minres
+   headline: train_image with PRESET=cifar_minres at the reference's width
+   (type-I sum of conv-TTs of 1-4 carriages, r=100, CB=5, kernel 8/8, batch
+   4096, MINRES with max_iter 50) on its 3-channel synthetic stand-in, 49,152
+   training samples, one whole swipe: its train_seconds, each node's MINRES
+   iterations, the peak memory and the test accuracy are printed; it must
+   beat chance, keep its parameters finite, report no singular solve, launch
+   no Gram kernel (the middle cores' D = 160,000 would make a dense A of
+   102 GB) and peak far below that.
+
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -1488,6 +1511,375 @@ def run_digits_gate(device, tier):
     return launches, seen
 
 
+# phase 8: the solver tiers (the module note, item 8). The regression's A2
+# has D = 8 * 129 * 8 = 8,256
+EPS_LADDER = (1e-3, 1e-6, 1e-9, 1e-12)
+F64_LADDER_BOUND = 1e-6  # tests/test_eps_ladder.py, the f64 tier at every eps
+F64_CORNER_BOUND = 1e-5  # and at its fixed corner
+REGRESSION_A2 = REGRESSION["r"] * (REGRESSION["d"] + 1) * REGRESSION["r"]
+# the float64 fit's val RMSE against the f32 fit's (relative)
+F64_RMSE_RTOL = 1e-2
+F64_FIT_KERNELS = ("retile_rows", "weighted_gram_tiled", "weighted_gram",
+                   "own_out_gram")
+KRYLOV_D = 4096
+# each solver's iterations and tolerance, and its bound against the float64
+# dense solve: tests/test_matrixfree.py's rtol = atol
+KRYLOV = {"cg": dict(maxiter=100, tol=1e-6, bound=1e-3),
+          "minres": dict(maxiter=300, tol=1e-6, bound=2e-2),
+          "lanczos": dict(maxiter=50, tol=1e-6, bound=1e-2)}
+# the card's solution against the same solver on the CPU run for the card's
+# k iterations, relative to max|x| (f32 recurrences over products summed in
+# another order)
+KRYLOV_CPU_RTOL = 1e-4
+# phase 8c: params after one swipe, card against CPU, relative to each
+# node's max|param|: Krylov recurrences in f32 over contractions summed in
+# another order read 5.9e-6..2.2e-5 on an H100 (PERF.md section 6), the
+# gradient steps 7.6e-8
+ITERATIVE_RTOL = {"cg": 2e-4, "minres": 2e-4, "lanczos": 2e-4, "gradient": 1e-6}
+# the headline: the reference's CIFAR_minres.py configuration (RESULTS.md:263,
+# N=4, r=100, CB=5) on train_image's 3-channel synthetic stand-in (32x32 ->
+# 17 patches x 193 pixels, 10 classes); 54,614 samples leave 49,152 to train
+# after the 10 % held out to validate: 12 chunks of 4,096. The stand-in is
+# separable, so the patience goes past the swipe's updates, as in phase 7
+CIFAR_SAMPLES = 54614
+CIFAR_ENV = dict(N=4, R=100, CB=5, NUM_SWIPES=1, SYNTHETIC_SAMPLES=CIFAR_SAMPLES,
+                 EARLY_STOPPING=1000, DATA_PATH="build/no_cifar_staged", VERBOSE=0,
+                 RESULTS_FILE="build/chip_smoke_cifar.csv")
+
+
+def sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ladder_system(D: int, cond_exp: float, seed: int, bseed: int):
+    """tests/test_eps_ladder.py's system: an SPD with eigenvalues
+    logspace(0, -cond_exp) and b = -A x, in f32."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((D, D)))
+    A = (Q * np.logspace(0.0, -cond_exp, D)) @ Q.T
+    A = (A + A.T) / 2.0
+    b = -(A @ np.random.default_rng(bseed).standard_normal(D))
+    return A.astype(np.float32), b.astype(np.float32)
+
+
+def ladder_oracle(A32, b32, eps):
+    """numpy float64 of solve_block's semantics on the f32 system."""
+    A = np.asarray(A32, np.float64)
+    b = np.asarray(b32, np.float64)
+    s = np.abs(np.diag(A)).mean()
+    return np.linalg.solve(A / s + 2.0 * eps * np.eye(A.shape[0]), -b / s)
+
+
+def check_f64_ladder(device):
+    """Phase 8a: the eps ladder through solve_block on the card, f32 and
+    float64 tiers against the oracle; the float64 tier must meet it at every
+    eps, and at the fixed corner the f32 tier must fail where the float64
+    tier solves."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.solve import solve_block
+
+    def solve(A, b, eps, dtype):
+        At, bt = torch.tensor(A, device=device), torch.tensor(b, device=device)
+        st, ok = solve_block(At, bt, torch.zeros_like(bt), "ridge_cholesky", eps,
+                             solve_dtype=dtype)
+        xo = ladder_oracle(A, b, eps)
+        err = float(np.linalg.norm(st.double().cpu().numpy() - xo) / np.linalg.norm(xo))
+        return err, bool(ok)
+
+    A, b = ladder_system(64, 8.0, 0, 100)
+    for eps in EPS_LADDER:
+        e32, ok32 = solve(A, b, eps, None)
+        e64, ok64 = solve(A, b, eps, "float64")
+        log(f"[f64] ladder D=64 cond 1e8 eps {eps:g}: f32 err {e32:.3g} ok={ok32}; "
+            f"float64 err {e64:.3g} ok={ok64} (bound {F64_LADDER_BOUND})")
+        if not (ok64 and e64 < F64_LADDER_BOUND):
+            raise AssertionError(f"float64 tier misses the oracle at eps {eps}: {e64}")
+    A, b = ladder_system(96, 9.0, 2, 3)
+    e32, ok32 = solve(A, b, 1e-12, None)
+    e64, ok64 = solve(A, b, 1e-12, "float64")
+    log(f"[f64] corner D=96 cond 1e9 eps 1e-12: f32 ok={ok32}; float64 err "
+        f"{e64:.3g} ok={ok64} (bound {F64_CORNER_BOUND})")
+    if ok32:
+        raise AssertionError("control: the f32 tier solved the corner it cannot")
+    if not (ok64 and e64 < F64_CORNER_BOUND):
+        raise AssertionError(f"float64 tier fails the corner: ok={ok64}, err {e64}")
+
+
+def f64_solve_times(device, card: str, D: int = REGRESSION_A2):
+    """Phase 8a: solve_block's device time at the regression's A2 size in the
+    f32 and float64 tiers (ridge_cholesky, an SPD Gram of random rows;
+    CUDA events, time_ms)."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.solve import solve_block
+    gen = torch.Generator(device=device).manual_seed(0)
+    X = torch.randn(D + 512, D, device=device, generator=gen)
+    A = X.T @ X / X.shape[0]
+    b = torch.randn(D, device=device, generator=gen)
+    nv = torch.zeros_like(b)
+    del X
+    out = {}
+    for dt in ("float32", "float64"):
+        st, ok = solve_block(A, b, nv, "ridge_cholesky", 1e-3, solve_dtype=dt)
+        if not bool(ok):
+            raise AssertionError(f"the {dt} solve at D={D} failed")
+        out[dt] = time_ms(lambda: solve_block(A, b, nv, "ridge_cholesky", 1e-3,
+                                              solve_dtype=dt))
+    log(f"[f64] {card}: solve_block ridge_cholesky at D={D}: f32 "
+        f"{out['float32']:.3f} ms, float64 {out['float64']:.3f} ms (CUDA events, "
+        "median of 5)")
+    return out
+
+
+def run_regression_f64(device, card: str):
+    """Phase 8a: phase 5's two-swipe fit (same data and configuration) in
+    the f32 tier and in solve_dtype="float64", each from the estimator's
+    own seeded init, with the opt-in own-out kernel so the fit reaches K11
+    too. The float64 fit's val RMSE must lie within F64_RMSE_RTOL of the
+    f32 fit's, and it must launch K7, K8, K9 and K11. Returns its launches."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    c = REGRESSION
+    X, y = make_regression(S=c["fit"] + c["val"], d=c["d"], degree=3, seed=0)
+    Xtr = torch.tensor(X[:c["fit"]], device=device)
+    ytr = torch.tensor(y[:c["fit"]], device=device)
+    Xva, yva = X[c["fit"]:], y[c["fit"]:]
+    res = {}
+    for dt in ("float32", "float64"):
+        est = TensorTrainRegressor(N=c["N"], r=c["r"], batch_size=c["batch"],
+                                   eps_start=5.0, eps_decay=0.25,
+                                   method="ridge_cholesky", num_swipes=2,
+                                   solve_dtype=dt, device=device)
+        with env(TNF_GRAM_DTYPE="f32", TNF_OWNOUT_KERNEL=1):
+            sync(device)
+            kg.reset_launches()
+            t = time.perf_counter()
+            est.fit(Xtr, ytr, X_val=Xva, y_val=yva)
+            sync(device)
+            wall = time.perf_counter() - t
+            launches = dict(kg.LAUNCHES)
+            pred = est.predict(Xva)
+        rmse = float(np.sqrt(np.mean((pred - yva) ** 2)))
+        finite = all(bool(torch.isfinite(v).all()) for v in est._model.params.values())
+        used = {k: v for k, v in launches.items() if v}
+        log(f"[f64] regression fit, 2 swipes, solve_dtype={dt}, TNF_OWNOUT_KERNEL=1: "
+            f"wall {wall:.3f} s, ok={est.fit_ok_}, val rmse {rmse:.6f}, launches {used}")
+        if not (est.fit_ok_ and finite):
+            raise AssertionError(f"the {dt} fit reported a singular solve or left "
+                                 "non-finite parameters")
+        res[dt] = (wall, rmse, launches)
+    rel = abs(res["float64"][1] - res["float32"][1]) / res["float32"][1]
+    log(f"[f64] {card}: float64 fit against f32: wall {res['float64'][0]:.3f} / "
+        f"{res['float32'][0]:.3f} s, val rmse {res['float64'][1]:.6f} / "
+        f"{res['float32'][1]:.6f}, |d rmse| / rmse {rel:.3g} (bound {F64_RMSE_RTOL})")
+    if not rel <= F64_RMSE_RTOL:
+        raise AssertionError(f"the float64 fit's val rmse moved by {rel:.3g}")
+    launches = res["float64"][2]
+    missing = [k for k in F64_FIT_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the float64 fit never launched {missing}")
+    return launches
+
+
+def krylov_operator(kind: str, D: int, device):
+    """A dense symmetric f32 operator with eigenvalues linspace(1, 4) ("spd")
+    or the same with every other one negated ("indefinite"), in a random
+    orthogonal basis made on `device` in float64."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(7)
+    Q, _ = torch.linalg.qr(torch.randn(D, D, dtype=torch.float64, device=device,
+                                       generator=gen))
+    ev = torch.linspace(1.0, 4.0, D, dtype=torch.float64, device=device)
+    if kind == "indefinite":
+        ev = ev * torch.where(torch.arange(D, device=device) % 2 == 1, -1.0, 1.0)
+    A = (Q * ev) @ Q.T
+    return ((A + A.T) / 2).float()
+
+
+def check_krylov(device, D: int = KRYLOV_D, names=tuple(KRYLOV), card: str = ""):
+    """Phase 8b: cg and lanczos_galerkin on an SPD operator, minres on a
+    symmetric indefinite one, at D = 4,096 on the card: each held to a
+    float64 dense solve at KRYLOV's bound, and to the same solver on the CPU
+    run for the card's iteration count."""
+    import torch
+    from tensornetworksfork_tpu_torch.core import krylov
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    b = torch.randn(D, device=device, generator=gen)
+    for name in names:
+        kind = "indefinite" if name == "minres" else "spd"
+        cfg = KRYLOV[name]
+        A = krylov_operator(kind, D, device)
+        x64 = torch.linalg.solve(A.double(), b.double())
+        sync(device)
+        t = time.perf_counter()
+        if name == "lanczos":
+            x = krylov.lanczos_galerkin(lambda v: A @ v, b, torch.zeros_like(b),
+                                        maxiter=cfg["maxiter"])
+            k = cfg["maxiter"]
+        else:
+            x, k = krylov.SOLVERS[name](lambda v: A @ v, b, maxiter=cfg["maxiter"],
+                                        tol=cfg["tol"])
+            k = int(k)
+        sync(device)
+        wall = time.perf_counter() - t
+        dev_err = float(((x.double() - x64).abs() - cfg["bound"] * x64.abs()).max())
+        Ac, bc = A.cpu(), b.cpu()
+        if name == "lanczos":
+            xc = krylov.lanczos_galerkin(lambda v: Ac @ v, bc, torch.zeros_like(bc),
+                                         maxiter=k)
+        else:
+            xc, kc = krylov.SOLVERS[name](lambda v: Ac @ v, bc, maxiter=k, tol=0.0)
+            if int(kc) != k:
+                raise AssertionError(f"{name} on the CPU ran {int(kc)} iterations, not {k}")
+        cpu_err = float((x.cpu() - xc).abs().max() / xc.abs().max())
+        log(f"[krylov] {name} D={D} ({kind}, eigenvalues in +-[1, 4]): k {k}, "
+            f"{wall * 1e3:.1f} ms ({card}); max(|x - x64| - {cfg['bound']}|x64|) {dev_err:.3g} "
+            f"(must be <= {cfg['bound']}); card vs CPU at k: {cpu_err:.3g} of max|x| "
+            f"(bound {KRYLOV_CPU_RTOL})")
+        if not dev_err <= cfg["bound"]:
+            raise AssertionError(f"{name} misses the float64 solve")
+        if not cpu_err <= KRYLOV_CPU_RTOL:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {cpu_err}")
+
+
+def check_iterative_sweeps(device):
+    """Phase 8c: one swipe of a small conv-TT (XEBregman, full H) and of a
+    small TT (SquareBreg, diagonal H) in cg, minres, lanczos and gradient,
+    from the same weights on the card and on the CPU; the card's params held
+    to the CPU's (ITERATIVE_RTOL) and no Gram kernel launched."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.models.layers import (
+        TensorConvolutionTrainLayer, TensorTrainLayer)
+    from tensornetworksfork_tpu_torch.ops.bregman import SquareBregFunction, XEBregman
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    from tensornetworksfork_tpu_torch.utils.convert import params_from_numpy, params_to_numpy
+
+    rng = np.random.default_rng(3)
+    S, P, pp, C, F = 96, 6, 5, 3, 9
+    X = rng.standard_normal((S, P, pp)).astype(np.float32)
+    y = np.eye(C + 1, dtype=np.float32)[rng.integers(0, C + 1, S)]
+    Xr = rng.uniform(-1, 1, (S, F)).astype(np.float32)
+    Xr[:, -1] = 1.0
+    yr = rng.standard_normal((S, 1)).astype(np.float32)
+    models = (("conv-TT", lambda dev: TensorConvolutionTrainLayer(
+                  4, 4, P, pp, output_shape=(C,), convolution_bond=2, seed=0,
+                  device=dev), XEBregman(1.0), X, y),
+              ("TT regression", lambda dev: TensorTrainLayer(
+                  3, 4, F, output_shape=(1,), seed=0, device=dev),
+               SquareBregFunction(), Xr, yr))
+    for model, make, loss, Xn, yn in models:
+        p0 = params_to_numpy(make("cpu").params)
+        for method, rtol in ITERATIVE_RTOL.items():
+            grad = method == "gradient"
+            cfg = SweepConfig(num_swipes=1, batch_size=48, method=method, eps=1.0,
+                              max_iter=60, tol=1e-5, lr=0.05 if grad else 1.0,
+                              adaptive_step=grad)
+            out, iters = {}, {}
+            for dev in ("cpu", device):
+                layer = make(dev)
+                sweeper = Sweeper(layer.network, loss, cfg)
+                with env(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"):
+                    kg.reset_launches()
+                    params, ok = sweeper.run([params_from_numpy(p0, device=dev)],
+                                             torch.tensor(Xn, device=dev),
+                                             torch.tensor(yn, device=dev))
+                if not ok:
+                    raise AssertionError(f"{model} {method} swipe on {dev} failed")
+                out[dev] = params_to_numpy(params[0])
+                iters[dev] = [int(k) for _, _, k in sweeper.krylov_iters]
+            if any(kg.LAUNCHES.values()):
+                raise AssertionError(f"{model} {method} launched a Gram kernel")
+            err = max(float(np.abs(out[device][k] - out["cpu"][k]).max()
+                            / np.abs(out["cpu"][k]).max()) for k in out["cpu"])
+            log(f"[iterative] {model} {method}: card vs CPU max|d param| / max|param| "
+                f"{err:.3g} (bound {rtol}); iterations card {iters[device]}, "
+                f"cpu {iters['cpu']}")
+            if not err <= rtol:
+                raise AssertionError(f"{model} {method}: card disagrees with the CPU")
+
+
+@contextlib.contextmanager
+def built_sweepers(train_image):
+    """Records each Sweeper train_image builds (to read its Krylov counts)."""
+    sweepers, make = [], train_image.Sweeper
+
+    def recording(*args, **kw):
+        sweepers.append(make(*args, **kw))
+        return sweepers[-1]
+
+    train_image.Sweeper = recording
+    try:
+        yield sweepers
+    finally:
+        train_image.Sweeper = make
+
+
+def run_cifar_minres(device, card: str):
+    """Phase 8d: train_image with PRESET=cifar_minres at the reference's
+    width (type-I sum of conv-TTs of 1-4 carriages, r=100, CB=5, kernel 8/8,
+    batch 4096, MINRES with max_iter 50, bf16 Gram and aux tiers) on the
+    3-channel synthetic stand-in, one whole swipe (CIFAR_ENV). Members 3-4's
+    middle cores have D = 100 * 16 * 100 = 160,000: a dense A would be a
+    102 GB f32 matrix, so the path must launch no Gram kernel. Prints
+    train_seconds, each node's Krylov iterations, the peak memory and the
+    test accuracy. Returns its launches and train_seconds."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import train_image
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    preset = train_image.PRESETS["cifar_minres"]
+    with env(PRESET="cifar_minres", **preset, **CIFAR_ENV, DEVICE=str(device)), \
+            built_models(train_image) as models, built_sweepers(train_image) as sweepers:
+        config = train_image.get_config_from_env()
+        torch.cuda.empty_cache()
+        sync(device)
+        torch.cuda.reset_peak_memory_stats()
+        kg.reset_launches()
+        t0 = time.perf_counter()
+        res = train_image.train_model(config)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(kg.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    model = models[0]
+    D = max(v.numel() for layer in model.layers for v in layer.params.values())
+    dense_a = 4.0 * D * D
+    per_member = {}
+    for mi, name, k in sweepers[0].krylov_iters:
+        per_member.setdefault(mi + 1, []).append(f"{name} {int(k)}")
+    log(f"[cifar] {card}: train_image PRESET=cifar_minres {res['dataset']} N={res['N']} "
+        f"r={res['r']} CB={res['CB']} kernel {res['kernel_size']}/{res['kernel_stride']}, "
+        f"{config['synthetic_samples']} samples ({int(config['synthetic_samples'] * 0.9)} "
+        f"to train), batch {config['batch_size']}, method {res['method']}, max_iter "
+        f"{config['max_iter']}, {res['num_parameters']} params: train_seconds "
+        f"{res['train_seconds']}, test accuracy {res['test_accuracy']} %, "
+        f"singular={res['singular']}, wall {wall:.2f} s (data and model included)")
+    for m, its in per_member.items():
+        log(f"[cifar] member {m} ({m} carriages), MINRES iterations in order of "
+            f"update: {', '.join(its)}")
+    log(f"[cifar] {card}: largest node D={D}: a dense f32 A would take {dense_a / 1e9:.1f} GB; "
+        f"peak memory allocated {peak / 1e9:.2f} GB; Gram kernel launches "
+        f"{sum(launches.values())} ({launches})")
+    if res["singular"]:
+        raise AssertionError("the CIFAR_minres swipe reported a singular solve")
+    if not all_finite(model):
+        raise AssertionError("the CIFAR_minres swipe left non-finite parameters")
+    if not res["test_accuracy"] > 100.0 / 10:
+        raise AssertionError(f"test accuracy {res['test_accuracy']} % is not above chance")
+    if any(launches.values()):
+        raise AssertionError(f"the matrix-free path launched Gram kernels: {launches}")
+    if not peak < dense_a / 4:
+        raise AssertionError(f"peak memory {peak / 1e9:.1f} GB is not far below the "
+                             f"dense A's {dense_a / 1e9:.1f} GB")
+    return launches, res["train_seconds"]
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -1546,6 +1938,17 @@ def main() -> int:
         kernels += check_path_shapes(device, path, seen, done)
     log(f"[env] phase 7 took {time.perf_counter() - t7:.1f} s, its shape checks included")
 
+    t8 = time.perf_counter()
+    check_f64_ladder(device)
+    f64_solve_times(device, smi)
+    fit64 = run_regression_f64(device, smi)
+    check_krylov(device, card=smi)
+    check_iterative_sweeps(device)
+    t8d = time.perf_counter()
+    cifar, _ = run_cifar_minres(device, smi)
+    log(f"[env] phase 8 took {time.perf_counter() - t8:.1f} s, its headline "
+        f"{time.perf_counter() - t8d:.1f} s")
+
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
@@ -1571,7 +1974,11 @@ def main() -> int:
     paths = {"flagship fastest": (fastest["launches"], low),
              "train_image fastest": (image, low),
              "digits reference": (digits["reference"], full),
-             "digits fastest": (digits["fastest"], low)}
+             "digits fastest": (digits["fastest"], low),
+             # phase 8: the float64 fit (f32 operands), and the matrix-free
+             # CIFAR_minres swipe, which launches none of the kernels
+             "regression float64": (fit64, full),
+             "train_image cifar_minres": (cifar, low + full)}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,

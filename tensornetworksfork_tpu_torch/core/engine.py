@@ -8,13 +8,17 @@ Functions over a static `Topology` + a params dict:
 - `packed_jacobian`    the same in the layout-packed (S, C, A0, REST) form
 - `packed_gram_rhs`    A = JᵀHJ, b = Jᵀg on the packed form (kernel route)
 - `gram_and_rhs`       A, b on the generic form (flat, own-out, einsum)
+- `jacobian_apply`, `jacobian_transpose_apply`, `hessian_apply`,
+  `gram_matvec`        J v, Jᵀ u, H u and JᵀHJ v for the matrix-free tier,
+                       each one contraction at `Network.precision`
 
 The auxiliary contractions (environment chains, Jacobian builds,
 predictions, right-hand sides) run at `Network.aux_precision`
 (TNF_AUX_PRECISION = highest | default, read on every call): "default"
 rounds their operands to bf16 and sums in f32, as the TPU runs a DEFAULT
 dot (`contract.matmul`). A's own product follows TNF_GRAM_DTYPE
-(f32 | bf16 | int8) and the Cholesky solves stay f32. The route thresholds
+(f32 | bf16 | int8) and the solves stay f32 (float64 where
+solve_dtype asks for it). The route thresholds
 follow TNF_PACKED_SYRK_MIN_D, with the JAX package's defaults, so both
 packages take the same route for a node. Where XLA was asked for a bf16 dot
 with an f32 result on the Gram ladder, the operands are upcast to f32
@@ -593,6 +597,15 @@ class Network:
                         self.aux_precision)
 
     # ------------------------------------------------------------------- A, b
+    def rhs(self, ni: int, J: Operand, grad: torch.Tensor) -> torch.Tensor:
+        """b = Jᵀ g over the node axes, at the aux precision: the rhs line
+        of gram_and_rhs, alone (the gradient method needs no A)."""
+        t = self.topology
+        J_axes, J_arr = J
+        g_axes = (t.sample_axis,) + t.output_axes
+        return contract([(J_axes, J_arr), (g_axes, grad)], t.node_axes[ni],
+                        self.aux_precision)
+
     def _kernel_gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """Symmetric Gram XᵀY of flat (rows, D) operands through the Gram
         kernel (K10), mirrored."""
@@ -625,9 +638,7 @@ class Network:
         if missing:
             raise ValueError(f"node axes {missing} appear in neither jacobian nor outputs")
 
-        g_axes = (s,) + out_axes
-        b = contract([(J_axes, J_arr), (g_axes, grad)], node_axes,
-                     self.aux_precision)
+        b = self.rhs(ni, J, grad)
 
         diag = hess.ndim == grad.ndim
 
@@ -783,6 +794,66 @@ class Network:
                             Afull.transpose(2, 3))
         A5 = Afull.reshape(out_sizes + out_sizes + rest_sizes + rest_sizes)
         return A5.permute(*perm_out)
+
+    # ------------------------------------------------------- matrix-free tier
+    # These contract at the network's matmul precision (`precision`), never
+    # at the aux tier's: only the operands they are handed (environments,
+    # jacobian_operands) come from the aux sites. Each is one contraction
+    # over the Jacobian's operands, planned under contract's memory cap, so
+    # J itself is never built.
+    precision = "highest"
+
+    def jacobian_apply(self, ni: int, operands: Sequence[Operand],
+                       v: torch.Tensor) -> torch.Tensor:
+        """(J v)[s, *out] as one contraction over the Jacobian operands."""
+        t = self.topology
+        keep = (t.sample_axis,) + t.output_axes
+        ops = list(operands) + [(t.node_axes[ni], v)]
+        return contract(ops, keep, self.precision)
+
+    def jacobian_transpose_apply(self, ni: int, operands: Sequence[Operand],
+                                 u: torch.Tensor) -> torch.Tensor:
+        """(Jᴴ u)[node axes] as one contraction; u axes (s, *out)."""
+        t = self.topology
+        u_axes = (t.sample_axis,) + t.output_axes
+        ops = [(axes, arr.conj() if arr.is_complex() else arr)
+               for axes, arr in operands] + [(u_axes, u)]
+        return contract(ops, t.node_axes[ni], self.precision)
+
+    def hessian_apply(self, hess: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """H u over the output axes; diagonal (ndim == u.ndim) or full."""
+        if hess.ndim == u.ndim:
+            return hess * u
+        t = self.topology
+        s = t.sample_axis
+        out = t.output_axes
+        H_axes = (s,) + out + tuple(_prime(a) for a in out)
+        u_axes = (s,) + tuple(_prime(a) for a in out)
+        return contract([(H_axes, hess), (u_axes, u)], (s,) + out,
+                        self.precision)
+
+    def gram_matvec(self, ni: int, J: Operand, hess: torch.Tensor,
+                    grad_ndim: int, v: torch.Tensor) -> torch.Tensor:
+        """(Jᴴ H J) v from a built J without materialising A: coeff = H (J v),
+        then Av = Jᴴ coeff."""
+        t = self.topology
+        J_axes, J_arr = J
+        node_axes = t.node_axes[ni]
+        out_axes = t.output_axes
+        s = t.sample_axis
+        coeff_keep = (s,) + out_axes
+        Jv = contract([(J_axes, J_arr), (node_axes, v)], coeff_keep,
+                      self.precision)
+        if hess.ndim == grad_ndim:
+            coeff = hess * Jv
+        else:
+            H_axes = (s,) + tuple(_prime(a) for a in out_axes) + out_axes
+            coeff = contract([(H_axes, hess),
+                              ((s,) + tuple(_prime(a) for a in out_axes), Jv)],
+                             coeff_keep, self.precision)
+        Jc = J_arr.conj() if J_arr.is_complex() else J_arr
+        return contract([(J_axes, Jc), (coeff_keep, coeff)], node_axes,
+                        self.precision)
 
 
 def _flat_gram(J3: torch.Tensor, W: torch.Tensor, diag: bool) -> torch.Tensor:

@@ -5,20 +5,28 @@ JAX package. A failed factorisation cannot raise mid-sweep: `solve_block`
 returns an `ok` flag that stays a device tensor (no host sync), and the
 sweep keeps the old node where it is False.
 
-The Cholesky factor is always full f32 (`torch.linalg.cholesky_ex`). The
-JAX package's blocked Cholesky, which drops the trailing GEMMs to DEFAULT
-precision on a TPU under the int8 tier, is TPU precision control and is not
-ported; nor is the host float64 tier (solve_dtype="float64").
+The Cholesky factor of the f32 tier is always full f32
+(`torch.linalg.cholesky_ex`). The JAX package's blocked Cholesky, which
+drops the trailing GEMMs to DEFAULT precision on a TPU under the int8 tier,
+is TPU precision control and is not ported.
+
+solve_dtype="float64" is the tier for the reference's deep-eps corners
+(eps <= 1e-9 at high condition numbers), where the f32 factor fails. The
+JAX package runs it on the host through a callback; the card has float64,
+so here it runs on the operands' device, with the host tier's semantics
+step for step (`_solve_f64`).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 _CHOLESKY = ("ridge_cholesky", "cholesky")
-_RIDGED = ("ridge_exact", "ridge_cholesky")
-_METHODS = ("exact", "ridge_exact", "ridge_cholesky", "cholesky")
+_RIDGED = ("ridge_exact", "ridge_cholesky", "ridge_trace")
+_METHODS = ("exact", "ridge_exact", "ridge_cholesky", "cholesky", "ridge_trace",
+            "gradient")
 
 
 def _flatten_system(A: torch.Tensor, b: torch.Tensor):
@@ -26,22 +34,70 @@ def _flatten_system(A: torch.Tensor, b: torch.Tensor):
     return A.reshape(D, D), b.reshape(D)
 
 
+def _solve_f64(A_f: torch.Tensor, b_f: torch.Tensor, node_f: torch.Tensor,
+               eps: float, method: str) -> torch.Tensor:
+    """The float64 tier: the JAX package's host solve (`_host_solve_f64`)
+    on the operands' device. The unrescaled system is promoted to float64,
+    rescaled by its diagonal mean, ridged in float64 (so eps far below f32
+    resolution still perturbs it), factored, solved, and the step returned
+    in the input dtype; NaN where the factorisation fails. The Cholesky
+    reads the upper triangle, as scipy's `cho_factor` there does."""
+    out_dtype = A_f.dtype
+    A = A_f.to(torch.float64)
+    b = b_f.to(torch.float64)
+    node = node_f.to(torch.float64)
+    # the JAX package hands eps over as an f32 array
+    e = float(np.float32(eps))
+    scale = torch.abs(torch.diagonal(A)).mean()
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    A = A / scale
+    b = b / scale
+    two_e = torch.tensor(2.0 * e, dtype=torch.float64, device=A.device)
+    if method == "ridge_trace":
+        two_e = two_e * torch.sum(torch.abs(b) ** 2)
+    if method in _RIDGED:
+        A.diagonal().add_(two_e)
+        b = b + two_e * node
+    if method in _CHOLESKY:
+        U, info = torch.linalg.cholesky_ex(A, upper=True)
+        x = torch.cholesky_solve(-b[:, None], U, upper=True)[:, 0]
+    else:
+        LU, piv, info = torch.linalg.lu_factor_ex(A)
+        x = torch.linalg.lu_solve(LU, piv, -b[:, None])[:, 0]
+    x = torch.where(info == 0, x, torch.full_like(x, float("nan")))
+    return x.to(out_dtype)
+
+
 def solve_block(A: torch.Tensor, b: torch.Tensor, node_value: torch.Tensor,
                 method: str = "exact", eps: float = 0.0, refine: bool = False,
                 solve_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (step, ok). step solves (A [+2eps I]) x = -(b [+2eps node]).
 
-    Methods: exact | ridge_exact | ridge_cholesky | cholesky. `ok` is a
-    0-dim bool tensor on A's device: the factorisation succeeded and the
-    step is finite."""
+    Methods: exact | ridge_exact | ridge_cholesky | cholesky | ridge_trace |
+    gradient. ridge_trace scales eps by |b|^2 after the rescale and solves by
+    LU; gradient returns -b (steepest descent on the local quadratic; A is
+    not read). `ok` is a 0-dim bool tensor on A's device: the factorisation
+    succeeded and the step is finite.
+
+    solve_dtype "float64" runs the float64 tier (`_solve_f64`; real systems
+    only, and `refine` is not applied there, as in the JAX package);
+    anything but f32/f64 raises ValueError."""
     method = method.lower()
     if method not in _METHODS:
-        raise NotImplementedError(f"solve method {method!r} is not ported yet "
-                                  f"(ported: {', '.join(_METHODS)})")
+        raise ValueError(f"unknown solve method {method!r} "
+                         f"(one of {', '.join(_METHODS)})")
+    if method == "gradient":
+        return -b, torch.ones((), dtype=torch.bool, device=b.device)
+
     if solve_dtype is not None and str(solve_dtype) not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"solve_dtype={solve_dtype!r}: the float64 solve tier is not "
-            "ported yet")
+        if str(solve_dtype) not in ("float64", "f64"):
+            raise ValueError(f"unsupported solve_dtype: {solve_dtype!r}")
+        if A.is_complex():
+            raise ValueError("solve_dtype='float64' supports real systems only")
+        A_f, b_f = _flatten_system(A, b)
+        node_f = node_value.reshape(-1).to(b_f.dtype)
+        x = _solve_f64(A_f, b_f, node_f, eps, method)
+        return x.reshape(b.shape), torch.isfinite(x).all()
 
     A_f, b_f = _flatten_system(A, b)
     dtype = A_f.dtype
@@ -49,7 +105,10 @@ def solve_block(A: torch.Tensor, b: torch.Tensor, node_value: torch.Tensor,
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     A_f = A_f / scale
     b_f = b_f / scale
-    two_eps = 2.0 * torch.tensor(eps, dtype=dtype, device=A_f.device)
+    eps_t = torch.tensor(eps, dtype=dtype, device=A_f.device)
+    if method == "ridge_trace":
+        eps_t = eps_t * torch.sum(torch.abs(b_f) ** 2)
+    two_eps = 2.0 * eps_t
     if method in _RIDGED:
         # A_f is a fresh tensor here, so the ridge goes onto its diagonal in
         # place instead of adding a materialised 2*eps*I

@@ -1,11 +1,16 @@
-"""Accumulating sweep optimizer (port of tensornetworksfork_tpu/core/sweep.py,
-dense-solve branch).
+"""Accumulating sweep optimizer (port of tensornetworksfork_tpu/core/sweep.py).
 
 Each node update accumulates the Gauss-Newton system A, b over the data
-chunks, solves it and applies the step. The JAX package jit-compiles one
-program per (node, direction) around a `lax.scan` over chunks; here the
-chunk loop is a Python loop and every route decision the JAX package takes
-at trace time is a plain Python decision taken before the loop.
+chunks, solves it and applies the step (the dense branch). The matrix-free
+branch (method cg | minres | lanczos) never forms A: it freezes each
+chunk's loss linearisation and runs a Krylov solve (`krylov.py`) whose
+matvec sums Jᵀ·H·(J·v) over the chunks through the engine's contractions,
+warm-started from the node's previous solution. The gradient branch takes
+one steepest-descent step per chunk, in sequence. The JAX package
+jit-compiles one program per (node, direction) around a `lax.scan` over
+chunks; here the chunk loop is a Python loop and every route decision the
+JAX package takes at trace time is a plain Python decision taken before
+the loop.
 
 - Environments are carried between node updates: far-side environments are
   computed once per column-monotone run, the near side advances one column
@@ -16,9 +21,8 @@ at trace time is a plain Python decision taken before the loop.
   flags stay on the device and are read with ONE host sync per half-pass
   (`_flush_ok`), as in the JAX package.
 
-Not ported yet (each raises NotImplementedError): the matrix-free Krylov
-methods, the gradient method, mesh (multi-device) runs, input-less members
-and orthonormalisation.
+Not ported yet (each raises NotImplementedError): mesh (multi-device)
+runs, input-less members and orthonormalisation.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.cuda import gram as kgram
+from . import krylov
 from .engine import Network
 from .solve import apply_update, cpd_diag_mask, solve_block
 from .topology import INPUT, PARAM
@@ -103,14 +108,8 @@ class Sweeper:
         self.members: List[Member] = list(members)
         self.loss_fn = loss_fn
         self.cfg = cfg
-        if cfg.method in ITERATIVE_METHODS or cfg.method == "gradient":
-            raise NotImplementedError(
-                f"method {cfg.method!r}: only the dense solves are ported yet")
         if cfg.orthonormalize:
             raise NotImplementedError("orthonormalize is not ported yet")
-        if cfg.solve_dtype is not None and str(cfg.solve_dtype) not in (
-                "float32", "f32"):
-            raise NotImplementedError("the float64 solve tier is not ported yet")
         for m in self.members:
             if not m.net.topology.input_nodes:
                 raise NotImplementedError("input-less members are not ported yet")
@@ -128,6 +127,12 @@ class Sweeper:
         self._data_cache = None
         # deferred per-node ok flags (device tensors) — see _flush_ok
         self._pending_ok: List = []
+        # matrix-free warm starts: the last solution of each (member, node),
+        # kept for the life of the Sweeper
+        self._node_sols: Dict = {}
+        # (member, node name, k) of each Krylov solve, k a device tensor
+        # (read it after the run: reading it here would sync every update)
+        self.krylov_iters: List = []
 
     def _defer_ok(self, ok, name: str) -> None:
         self._pending_ok.append((ok, name))
@@ -145,10 +150,14 @@ class Sweeper:
         if self.cfg.verbose > 0:
             bad = pending[int(torch.argmin(oks.int()))][1]
             print(f"Singular system for node {bad}")
-        warnings.warn(
-            "Singular/non-finite solve in an f32 sweep: the f32 tier's "
-            "supported eps floor is ~1e-6 on a unit-rescaled Gram.",
-            RuntimeWarning, stacklevel=2)
+        if self.cfg.solve_dtype is None:
+            warnings.warn(
+                "Singular/non-finite solve in an f32 sweep. The f32 tier's "
+                "supported eps floor is ~1e-6 on a unit-rescaled Gram; for "
+                "the reference's deep-eps corners (eps<=1e-9, high condition "
+                "number) set SweepConfig.solve_dtype='float64' (estimator "
+                "kwarg solve_dtype) to run the solve in float64.",
+                RuntimeWarning, stacklevel=2)
         return False
 
     def _timed(self, phase: str, fn, *args):
@@ -280,10 +289,13 @@ class Sweeper:
 
     # ---------------------------------------------------------------- update
     def _update(self, mid: int, ni: int, method: str, use_rest: bool,
-                return_pred: bool, params, L, R, inputs, y, w, y_rest, eps):
-        """One dense node update. Returns (new_core, loss_sum, ok, pred):
+                return_pred: bool, params, L, R, inputs, y, w, y_rest, eps,
+                x0=None):
+        """One node update. Returns (new_core, loss_sum, ok, pred, x_sol):
         loss_sum and ok stay on the device; pred is the chunked
-        (nchunks, B, *out) member output after the update, if asked for."""
+        (nchunks, B, *out) member output after the update, if asked for;
+        x_sol is the matrix-free branch's solution (zeros where the update
+        failed), its warm start at the node's next visit."""
         cfg = self.cfg
         net = self.members[mid].net
         t = net.topology
@@ -295,6 +307,7 @@ class Sweeper:
         L_axes = self._env_axes(mid, "left", ci - 1) if has_left else None
         R_axes = self._env_axes(mid, "right", ci + 1) if has_right else None
         loss_fn = self.loss_fn
+        gradient_mode = method == "gradient"
         core = params[name]
         mask = None
         if spec.cpd_mask:
@@ -313,10 +326,11 @@ class Sweeper:
         # Full-batch merge for small-D nodes: all chunks become ONE chunk
         # when the full-batch J stays under TNF_FULLBATCH_MAX_BYTES (default
         # 512 MB, 0 disables), itemsize 2 under the bf16/int8 tiers — the
-        # JAX package's rule, so both take the same route.
+        # JAX package's rule, so both take the same route. Never in gradient
+        # mode, whose chunks update the node in sequence.
         nc0 = y.shape[0]
         merged = False
-        if nc0 > 1:
+        if nc0 > 1 and not gradient_mode:
             out_elems = 1
             for d in y.shape[2:]:
                 out_elems *= d
@@ -346,14 +360,88 @@ class Sweeper:
             Rop = (R_axes, piece["R"]) if has_right else None
             return Lop, Rop
 
-        # Route, decided once from axes and sizes (the JAX package probes
-        # the first chunk at trace time): the packed Jacobian, and with it
-        # the tiled kernel route whose chunk carry lives inside the Gram
-        # kernel; otherwise the generic Jacobian, whose own-out Gram comes
-        # back deferred for an output-owning node.
+        def jac_ops(piece, prms):
+            return net.jacobian_operands(ni, prms, piece["x"], *env_ops(piece))
+
+        def weighted_terms(pred, piece):
+            loss, g, H = loss_fn(pred, piece["y"])
+            wc = piece["w"]
+            loss = loss * wc.to(loss.dtype)
+            g = g * wc.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
+            H = H * wc.to(H.dtype).reshape((-1,) + (1,) * (H.ndim - 1))
+            return loss, g, H
+
+        # the packed-Jacobian plan, decided once from axes and sizes (the
+        # JAX package probes the first chunk at trace time)
+        plan = (None if method in ITERATIVE_METHODS else net.packed_plan(
+            ni, net.column_operand_axes(ni, L_axes, R_axes)))
+        x_sol = None
+        if method in ITERATIVE_METHODS:
+            chunks = [piece_at(c) for c in range(nc)]
+            new_core, loss_acc, ok, x_sol = self._update_matrix_free(
+                net, mid, ni, method, core, mask, eps, x0, use_rest, chunks,
+                [jac_ops(piece, params) for piece in chunks], weighted_terms)
+        elif gradient_mode:
+            # one steepest-descent step per chunk, in sequence; only b is
+            # formed (gram_and_rhs's rhs line), never A
+            cur = core
+            loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
+            for c in range(nc):
+                piece = piece_at(c)
+                J = net.jacobian(ni, dict(params, **{name: cur}), piece["x"],
+                                 *env_ops(piece))
+                pred = net.predict_from_jacobian(ni, J, cur)
+                if use_rest:
+                    pred = pred + piece["rest"]
+                loss, g, _ = weighted_terms(pred, piece)
+                b = net.rhs(ni, J, g)
+                cur = apply_update(cur, -b, cfg.lr, cfg.adaptive_step,
+                                   cfg.max_norm, mask)
+                loss_acc = loss_acc + loss.sum()
+                del J, pred, g, b
+            ok = torch.isfinite(cur).all()
+            # singular guard (deferred-ok contract: see _flush_ok)
+            new_core = torch.where(ok, cur, core)
+        else:
+            new_core, loss_acc, ok = self._update_dense(
+                net, ni, plan, method, core, mask, eps, use_rest, nc,
+                piece_at, env_ops, params, weighted_terms)
+
+        pred_out = None
+        if return_pred:
+            prms = dict(params, **{name: new_core})
+            preds = []
+            for c in range(nc):
+                piece = piece_at(c)
+                if method in ITERATIVE_METHODS:
+                    preds.append(net.jacobian_apply(ni, jac_ops(piece, prms),
+                                                    new_core))
+                    continue
+                Lop, Rop = env_ops(piece)
+                pj = (net.packed_jacobian(ni, prms, piece["x"], Lop, Rop)
+                      if plan is not None else None)
+                if pj is not None:
+                    preds.append(net.packed_predict(pj, new_core))
+                else:
+                    J = net.jacobian(ni, prms, piece["x"], Lop, Rop)
+                    preds.append(net.predict_from_jacobian(ni, J, new_core))
+            pred_out = torch.stack(preds)
+            if merged:  # restore the (nchunks, B, *out) layout
+                pred_out = pred_out.reshape((nc0, -1) + tuple(pred_out.shape[2:]))
+        return new_core, loss_acc, ok, pred_out, x_sol
+
+    def _update_dense(self, net, ni, plan, method, core, mask, eps, use_rest,
+                      nc, piece_at, env_ops, params, weighted_terms):
+        """The dense branch: A and b accumulated over the chunks, one block
+        solve. Returns (new_core, loss_sum, ok).
+
+        Route: the packed Jacobian (`plan`), and with it the tiled kernel
+        route whose chunk carry lives inside the Gram kernel; otherwise the
+        generic Jacobian, whose own-out Gram comes back deferred for an
+        output-owning node."""
+        cfg = self.cfg
+        t = net.topology
         D = core.numel()
-        plan = net.packed_plan(
-            ni, net.column_operand_axes(ni, L_axes, R_axes))
         A_acc = (net.packed_gram_acc_init(plan, core.device)
                  if plan is not None else None)
         in_kernel_acc = A_acc is not None
@@ -379,11 +467,7 @@ class Sweeper:
                 pred = net.predict_from_jacobian(ni, J, core)
             if use_rest:
                 pred = pred + piece["rest"]
-            loss, g, H = loss_fn(pred, piece["y"])
-            wc = piece["w"]
-            loss = loss * wc.to(loss.dtype)
-            g = g * wc.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
-            H = H * wc.to(H.dtype).reshape((-1,) + (1,) * (H.ndim - 1))
+            loss, g, H = weighted_terms(pred, piece)
             if pj is not None and in_kernel_acc:
                 # the kernel adds this chunk's Gram into A_acc in place (the
                 # JAX package aliases the carry into the kernel output)
@@ -414,26 +498,71 @@ class Sweeper:
         new_core = apply_update(core, step.reshape(core.shape), cfg.lr,
                                 cfg.adaptive_step, cfg.max_norm, mask)
         # singular guard (deferred-ok contract: see _flush_ok)
-        new_core = torch.where(ok, new_core, core)
+        return torch.where(ok, new_core, core), loss_acc, ok
 
-        pred_out = None
-        if return_pred:
-            prms = dict(params, **{name: new_core})
-            preds = []
-            for c in range(nc):
-                piece = piece_at(c)
-                Lop, Rop = env_ops(piece)
-                pj = (net.packed_jacobian(ni, prms, piece["x"], Lop, Rop)
-                      if plan is not None else None)
-                if pj is not None:
-                    preds.append(net.packed_predict(pj, new_core))
-                else:
-                    J = net.jacobian(ni, prms, piece["x"], Lop, Rop)
-                    preds.append(net.predict_from_jacobian(ni, J, new_core))
-            pred_out = torch.stack(preds)
-            if merged:  # restore the (nchunks, B, *out) layout
-                pred_out = pred_out.reshape((nc0, -1) + tuple(pred_out.shape[2:]))
-        return new_core, loss_acc, ok, pred_out
+    def _update_matrix_free(self, net, mid, ni, method, core, mask, eps, x0,
+                            use_rest, pieces, ops_all, weighted_terms):
+        """The matrix-free branch (JAX sweep.py, the ITERATIVE_METHODS
+        branch of the update). Returns (new_core, loss_sum, ok, x_sol).
+
+        Linearise: per chunk pred = J·core, the weighted loss, g and H,
+        b = Jᵀg; every chunk's H is kept. Matvec: Σ over chunks of
+        Jᵀ·H·(J·v). Then the ridge and one scale probe along b, the Krylov
+        solve from x0, and the singular guard. No Gram kernel runs: A is
+        never formed."""
+        cfg = self.cfg
+        b_rhs = torch.zeros(core.shape, dtype=core.dtype, device=core.device)
+        loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
+        H_all = []
+        for piece, ops in zip(pieces, ops_all):
+            pred = net.jacobian_apply(ni, ops, core)
+            if use_rest:
+                pred = pred + piece["rest"]
+            loss, g, H = weighted_terms(pred, piece)
+            b_rhs = b_rhs + net.jacobian_transpose_apply(ni, ops, g)
+            loss_acc = loss_acc + loss.sum()
+            H_all.append(H)
+
+        def matvec_raw(v_flat):
+            v = v_flat.reshape(core.shape)
+            Av = torch.zeros(core.shape, dtype=core.dtype, device=core.device)
+            for ops, H in zip(ops_all, H_all):
+                coeff = net.hessian_apply(H, net.jacobian_apply(ni, ops, v))
+                Av = Av + net.jacobian_transpose_apply(ni, ops, coeff)
+            return Av.reshape(-1)
+
+        # The ridge (the reference's iterative tier has none) and a scale
+        # normalisation, so that f32 iterates cannot overflow on an
+        # ill-conditioned system: the dense branch's diagonal-mean rescale
+        # needs A, so ||A|| is estimated along b with one probe.
+        two_eps = 2.0 * torch.tensor(eps, dtype=core.dtype, device=core.device)
+        b_aug = b_rhs.reshape(-1) + two_eps * core.reshape(-1)
+        unit = b_aug / torch.clamp(torch.linalg.vector_norm(b_aug), min=1e-30)
+        scale = torch.linalg.vector_norm(matvec_raw(unit) + two_eps * unit)
+        scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
+
+        def matvec(v_flat):
+            return (matvec_raw(v_flat) + two_eps * v_flat) / scale
+
+        b_flat = -b_aug / scale
+        if x0 is None:
+            x0 = torch.zeros((core.numel(),), dtype=core.dtype, device=core.device)
+        if method == "lanczos":
+            x_sol = krylov.lanczos_galerkin(matvec, b_flat, x0, cfg.max_iter,
+                                            cfg.tol)
+            iters = torch.tensor(cfg.max_iter)
+        else:
+            x_sol, iters = krylov.SOLVERS[method](matvec, b_flat, x0=x0,
+                                                  maxiter=cfg.max_iter,
+                                                  tol=cfg.tol)
+        self.krylov_iters.append((mid, net.topology.nodes[ni].name, iters))
+        new_core = apply_update(core, x_sol.reshape(core.shape), cfg.lr,
+                                cfg.adaptive_step, cfg.max_norm, mask)
+        ok = torch.isfinite(new_core).all()
+        # singular guard (deferred-ok contract: see _flush_ok)
+        new_core = torch.where(ok, new_core, core)
+        x_sol = torch.where(ok, x_sol, torch.zeros_like(x_sol))
+        return new_core, loss_acc, ok, x_sol
 
     def _member_forward_chunked(self, mi: int, params_list, data):
         """Chunked (nc, B, *out) forward of member `mi`."""
@@ -687,10 +816,15 @@ class Sweeper:
 
             return_pred = use_rest and i == member_last_i[mi]
             name = t.nodes[ni].name
-            new_core, loss_sum, ok, pred = self._timed(
+            # matrix-free warm start: the node's previous solution; zeros
+            # (in _update_matrix_free) on its first visit
+            x0 = self._node_sols.get((mi, ni))
+            new_core, loss_sum, ok, pred, x_sol = self._timed(
                 f"update:{name}", self._update, mi, ni, method, use_rest,
                 return_pred, params_list[mi], L, R, data["inputs"][mi],
-                data["y"], data["w"], rest_for(mi), eps)
+                data["y"], data["w"], rest_for(mi), eps, x0)
+            if x_sol is not None:
+                self._node_sols[(mi, ni)] = x_sol
             self._defer_ok(ok, name)
             params_list[mi] = dict(params_list[mi], **{name: new_core})
             last_other = (mi, ci)

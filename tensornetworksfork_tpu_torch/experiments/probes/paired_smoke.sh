@@ -21,7 +21,7 @@ for tree in "$A" "$B" "$B" "$A"; do
   log="$OUT/smoke_${i}_$(basename "$tree").log"
   (cd "$tree" && timeout 900 python3 chip_smoke.py > "$log" 2>&1)
   echo "== run $i ($(basename "$tree")): rc=$?"
-  grep -E "^\[build\] /|spill stores|\[slice\]|\[regression\] (fit|swipe)|\[reference\]|\[kernels\] (retile_hmix|quantize_tiled|gram_pair_q|gram_pair_tiled|gram_pair|retile_rows|weighted_gram|own_out_gram):|^\{\"ok\"|Error|error" "$log" \
+  grep -E "^\[build\] /|spill stores|\[slice\]|\[regression\] (fit|swipe)|\[reference\]|\[image\]|\[digits\]|\[f64\]|\[krylov\]|\[cifar\]|\[env\] (phase|chip_smoke)|\[kernels\] (retile_hmix|quantize_tiled|gram_pair_q|gram_pair_tiled|gram_pair|retile_rows|weighted_gram|own_out_gram):|^\{\"ok\"|Error|error" "$log" \
     | grep -vE " 0 bytes spill stores" | cut -c1-600
 done
 (cd "$B" && timeout 600 python3 -m pytest --noconftest -p no:cacheprovider -q \

@@ -16,9 +16,13 @@ downloaded.
 DEVICE selects the device of the model, the data and the sweep: the card
 (`cuda`, the default) unless `cpu` is asked for; without a card `cuda`
 raises. PRECISION=reference|fast|fastest selects the numerics tier
-(utils/precision.py). Not ported: the matrix-free methods (METHOD=cg,
-minres, lanczos) and PRESET=cifar_minres, which need them (ROADMAP item 11);
-the JAX package's `precompile` (nothing compiles here).
+(utils/precision.py). METHOD=cg|minres|lanczos runs the matrix-free sweep
+(MAX_ITER Krylov iterations a node), METHOD=gradient the gradient one.
+PRESET=cifar_minres sets the reference's CIFAR_minres configuration: CIFAR10
+(its 3-channel synthetic stand-in when no batches are staged), MINRES,
+kernel 8/8, batch 4096, bf16 Gram operands and the bf16 aux tier; it fills
+only the variables the caller has not set. Not ported: the JAX package's
+`precompile` (nothing compiles here).
 
 Run:  DATASET=MNIST N=4 R=18 CB=8 python -m tensornetworksfork_tpu_torch.experiments.train_image
 """
@@ -42,15 +46,27 @@ from ..utils.metrics import accuracy, append_results_csv
 from ..utils.precision import numerics_tier
 from ..utils.timing import Timer
 
-MATRIX_FREE = ("cg", "minres", "lanczos")
+PRESETS = {
+    # the reference's CIFAR_minres.py: CIFAR10, the matrix-free MINRES sweep,
+    # bf16 operands (Gram and aux), kernel 8 / stride 8, batch 4096
+    "cifar_minres": {"DATASET": "CIFAR10", "METHOD": "minres",
+                     "KERNEL_SIZE": "8", "KERNEL_STRIDE": "8",
+                     "BATCH_SIZE": "4096", "MAX_ITER": "50",
+                     "TNF_GRAM_DTYPE": "bf16", "TNF_AUX_PRECISION": "default"},
+}
 
 
 def get_config_from_env():
-    """The JAX package's configuration, key for key, plus DEVICE."""
-    if os.environ.get("PRESET"):
-        raise NotImplementedError(
-            f"PRESET={os.environ['PRESET']!r}: the CIFAR_minres preset runs "
-            "the matrix-free MINRES sweep, not ported (ROADMAP item 11)")
+    """The JAX package's configuration, key for key, plus DEVICE.
+    PRESET=<name> fills the variables of PRESETS[name] that are not set
+    (os.environ.setdefault, as in the JAX package)."""
+    preset = os.environ.get("PRESET", "").lower()
+    if preset:
+        if preset not in PRESETS:
+            raise ValueError(f"unknown PRESET {preset!r}; valid: "
+                             f"{sorted(PRESETS)}")
+        for k, v in PRESETS[preset].items():
+            os.environ.setdefault(k, v)
     e = os.environ.get
     ds_info = DATASETS.get(e("DATASET", "MNIST").lower(), {})
     dk = str(ds_info.get("default_kernel", 4))
@@ -82,10 +98,6 @@ def get_config_from_env():
         "precision": e("PRECISION", "") or None,
         "device": e("DEVICE", "cuda"),
     }
-    if config["method"] in MATRIX_FREE:
-        raise NotImplementedError(
-            f"METHOD={config['method']!r}: the matrix-free Krylov methods are "
-            "not ported (ROADMAP item 11)")
     return config
 
 

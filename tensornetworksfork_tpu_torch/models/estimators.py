@@ -9,10 +9,14 @@ evaluation), and numerics tiers. It runs on `device`, the card unless the
 caller passes device="cpu" (no card raises, see utils/device.py); data goes
 there once per fit.
 
+`method` (the dense solves, `ridge_trace`, the matrix-free cg / minres /
+lanczos and `gradient`) and `solve_dtype` (None / "float32" or "float64")
+reach the sweep's `SweepConfig` as in the JAX package.
+
 Not ported yet, each raising NotImplementedError: model_type `cpd` /
-`cpd_type1`, `cum_sum` and `linear_dim` (ROADMAP item 14), the float64
-solve tier (item 10) and `export` (item 18). The JAX package's concurrent
-pre-compilation before the sweep has no counterpart: nothing compiles.
+`cpd_type1`, `cum_sum` and `linear_dim` (ROADMAP item 14) and `export`
+(item 18). The JAX package's concurrent pre-compilation before the sweep
+has no counterpart: nothing compiles.
 """
 from __future__ import annotations
 
@@ -206,9 +210,6 @@ class TensorTrainRegressor(BaseEstimator, RegressorMixin):
         if cum_sum or self.linear_dim is not None:
             raise NotImplementedError(
                 "cum_sum and linear_dim layers are not ported (ROADMAP item 14)")
-        if solve_dtype is not None and str(solve_dtype) not in ("float32", "f32"):
-            raise NotImplementedError(
-                "the float64 solve tier is not ported (ROADMAP item 10)")
         if self.perturb and self.output_dim > 1:
             raise ValueError("perturb not supported for output dim > 1")
 

@@ -3,8 +3,11 @@
 One dataclass for the tabular CLI, loadable from argparse flags
 (`from_args`) or an override dict (`merge`), with the JAX package's key
 names for the fields the port's CLIs read. The fields of code not ported
-yet (the image CLI's CB/kernel_*, tt_batch's swipe_method/stream, the
-iterative solvers' max_iter/tol) come with that code (ROADMAP item 18). The
+yet (the image CLI's CB/kernel_*, tt_batch's swipe_method/stream) come with
+that code (ROADMAP item 18). max_iter and tol are not fields: nothing
+reads them from a RunConfig in either package (train_image reads MAX_ITER
+from its environment, and the estimator leaves both at SweepConfig's
+defaults). The
 port adds `device` ("cuda" by default; "cpu" only when asked for, and no
 visible card raises), and writes its results under `build/` by default.
 """

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: every kernel of csrc/gram.cu, csrc/qgram.cu
 and csrc/wgram.cu against its plain version on the card, at small, ragged
 shapes (K6 in f32 also against float64; K2, K3/K4 and K8 bit for bit, K1's
-Jt too, and its Kt in f32).
+Jt too, and its Kt in f32); the Krylov solvers and the float64 solve tier
+on CUDA tensors against float64.
 
 This file imports no JAX, so it also runs on a machine without it (the
 suite's conftest.py imports JAX, hence --noconftest there):
@@ -375,3 +376,71 @@ def test_aux_matmul_default_on_cuda(shape_a, shape_b):
     fn = torch.bmm if len(shape_a) == 3 else torch.mm
     rounded_out = fn(a.cuda().bfloat16(), b.cuda().bfloat16()).float().cpu()
     assert float(((rounded_out - plain).abs() / scale).max()) > bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cg", "minres", "lanczos"])
+def test_krylov_on_cuda_against_float64(name):
+    """chip_smoke's phase 8b at D = 512: each solver on a CUDA operator held
+    to a float64 dense solve at tests/test_matrixfree.py's bound, and to the
+    same solver on the CPU run for the card's iteration count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.check_krylov(torch.device("cuda"), D=512, names=(name,))
+
+
+@pytest.mark.cuda
+def test_f64_ladder_on_cuda():
+    """chip_smoke's phase 8a ladder: the float64 tier on CUDA tensors meets
+    a numpy float64 oracle at every eps down to 1e-12, and at the corner
+    where the f32 tier fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.check_f64_ladder(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["exact", "ridge_exact", "ridge_cholesky",
+                                    "cholesky", "ridge_trace"])
+def test_f64_solve_block_on_cuda(method):
+    """solve_block(solve_dtype="float64") on CUDA tensors against the same
+    semantics in float64 on the CPU (diagonal-mean rescale, eps as an f32
+    value, ridge_trace's |b|^2 scale): within 2 f32 ulps of max|step| (both
+    float64, rounded to f32); the step stays on the card in f32, and a
+    singular system gives NaN and ok False there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from tensornetworksfork_tpu_torch.core.solve import solve_block
+    gen = torch.Generator().manual_seed(5)
+    D = 300
+    M = torch.randn(D, D, generator=gen, dtype=torch.float64)
+    A = (M @ M.T / D + 0.01 * torch.eye(D, dtype=torch.float64)).float()
+    A = torch.triu(A) + torch.triu(A, 1).T
+    b = torch.randn(D, generator=gen)
+    nv = torch.randn(D, generator=gen)
+    eps = 1e-4
+    step, ok = solve_block(A.cuda(), b.cuda(), nv.cuda(), method, eps,
+                           solve_dtype="float64")
+    assert step.is_cuda and step.dtype == torch.float32 and bool(ok)
+    A64, b64 = A.double(), b.double()
+    s = A64.diagonal().abs().mean()
+    A64, b64 = A64 / s, b64 / s
+    e = float(np.float32(eps))
+    if method == "ridge_trace":
+        e = e * float((b64 ** 2).sum())
+    if method != "exact" and method != "cholesky":
+        A64 = A64 + 2 * e * torch.eye(D, dtype=torch.float64)
+        b64 = b64 + 2 * e * nv.double()
+    ref = torch.linalg.solve(A64, -b64).float()
+    assert float((step.cpu() - ref).abs().max()) <= 2.5e-7 * float(ref.abs().max())
+    S = torch.zeros(D, D)
+    S[0, 0] = 1.0
+    bad, ok = solve_block(S.cuda(), b.cuda(), nv.cuda(),
+                          "cholesky" if "cholesky" in method else "exact", 0.0,
+                          solve_dtype="float64")
+    assert not bool(ok) and bool(torch.isnan(bad).all())

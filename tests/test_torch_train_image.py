@@ -207,10 +207,23 @@ def test_reproduce_digits_one_seed_cpu(monkeypatch, tmp_path, capsys):
     ({"PRESET": "cifar_minres"}, "ROADMAP item 11"),
 ])
 def test_unported_image_options_raise(env, match, monkeypatch):
+    """These options raised NotImplementedError naming `match` until the
+    matrix-free tier was ported; now they resolve to the JAX package's
+    configuration, key for key (the preset's TNF_* variables are set first,
+    so its setdefault leaves them and monkeypatch restores them)."""
+    for k in ("PRESET", "METHOD", "DATASET", "KERNEL_SIZE", "KERNEL_STRIDE",
+              "BATCH_SIZE", "MAX_ITER", "RESULTS_FILE", "DEVICE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "bf16")
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        tti.get_config_from_env()
+    t = tti.get_config_from_env()
+    assert t["method"] == env.get("METHOD", "minres")
+    j = jti.get_config_from_env()
+    for k in j:
+        if k != "results_file":
+            assert t[k] == j[k], (k, match)
 
 
 @pytest.mark.parametrize("env", [{"TNF_AUX_PRECISION": "high"},
