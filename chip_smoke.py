@@ -104,6 +104,27 @@ printing its own lines:
    no Gram kernel (the middle cores' D = 160,000 would make a dense A of
    102 GB) and peak far below that.
 
+9. the zoo — (i) one swipe of a small network of every layer builder and
+   loss that the zoo added (TensorTrainLinearLayer, CumSumLayer, CPDLayer,
+   CPDTrainLayer, OperatorTTLayer and its ring, TensorTrainSplitInputLayer,
+   TensorConvolutionGridTrainLayer, TensorConvOperatorLayer, complex64 and
+   complex128 ComplexTensorTrainLayer; SoftmaxSquaredLoss,
+   BinaryKLDivBregman, AutogradLoss, AutogradBregman,
+   UncertaintyAutogradLoss; a sweep with orthonormalize=True), kernels on
+   the card against plain versions on the CPU; (ii) the width path: phase
+   5's regression config (65,536 rows to fit, 16,384 to validate, N=3,
+   r=8, 2 swipes, f32) through TensorTrainRegressor for cpd, cpd_type1, tt
+   with linear_dim=4 and cum_sum at d = 64, then tnml on breast_cancer (30
+   carriages): each fit's time, val RMSE or accuracy and launches; each
+   must launch one of K7-K11, and every shape it gives K7, K8, K9 and K10
+   is held to the plain version, the largest timed; (iii) the zoo table
+   (experiments/zoo_eval.py, 5 datasets x 8 families x seeds 42-44) with 0
+   failed fits, polynomial's cells within compare_tables' 2 points of
+   results/zoo_eval.csv, and each other family's mean within 2 x its
+   within-cell seed sd x sqrt(1/15 + 1/15) of the committed table's: the
+   committed table's sd, and for tt_linear the JAX package's over 60 seeds
+   (studies/zoo_seed_sd.json, zoo_floors).
+
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -327,6 +348,38 @@ def hold_to_float64(name, B, B_plain, X, Y, controls: bool):
                                  f"{passed}, so it cannot see precision")
         note = f"; controls {note}"
     return e64, r64, e64_p, r64_p, note
+
+
+def weighted_to_float64(name, A, X, h):
+    """Hold a weighted Gram A = Xᵀ diag(h) X (mirrored, f32) of the f32
+    operand X (rows, D) to float64 with k9_ratios: within gram_tol(rows) on
+    the diagonal and 16 2^-24 off it. The plain version of X rounded to bf16
+    and to TF32 must fail the check, so it sees a kernel that rounds its f32
+    operands (a TF32 rounding moves an off-diagonal entry by ~24 2^-24 of
+    its natural size at 65,536 rows, the largest of hundreds by 3 sigma and
+    more). Returns a note for the kernels line."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    X64 = X.double()
+    A64 = (X64 * h.double()[:, None]).T @ X64
+    del X64
+    bounds = (gram_tol(X.shape[0]), 16 * 2.0 ** -24)
+    got = k9_ratios(A, A64)
+    ctl = {w: k9_ratios(kg.mirror_gram(kg.weighted_gram_plain(rnd(X), h)), A64)
+           for w, rnd in (("bf16", lambda t: t.to(torch.bfloat16)), ("TF32", tf32_round))}
+    u = 2.0 ** -24
+    note = (f"float64: {got[0] / u:.3g}, {got[1] / u:.3g} 2^-24 of sqrt(A_dd A_ee) on "
+            f"and off the diagonal (bounds {bounds[0] / u:.3g}, {bounds[1] / u:.3g}); "
+            + ", ".join(f"{w}-rounded {r[0] / u:.3g}, {r[1] / u:.3g}"
+                        for w, r in ctl.items()))
+    log(f"[kernels] {name} vs {note}")
+    if not (got[0] <= bounds[0] and got[1] <= bounds[1]):
+        raise AssertionError(f"{name}: float64 ratios {got} over the bounds {bounds}")
+    passed = [w for w, r in ctl.items() if r[0] <= bounds[0] and r[1] <= bounds[1]]
+    if passed:
+        raise AssertionError(f"{name}: the float64 check passes operands rounded to "
+                             f"{passed}, so it cannot see precision")
+    return note
 
 
 def check_quantized(what, got, plain) -> None:
@@ -748,13 +801,28 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
 @contextlib.contextmanager
 def recorded_shapes():
     """Records the shapes and types a path gives K1 (J3's S, C, D), K2 (the
-    operand it quantises), and K6 and K10 (X's rows and width, and D), by
-    wrapping their entry points in ops/cuda/gram.py, which the engine calls
-    through the module; the wrappers only record and call through. K3 takes
-    K2's codes. Yields the set of (kernel, shape, dtype[, D]) seen."""
+    operand it quantises), K6 and K10 (X's rows and width, and D), K8 (X
+    and Dp), K7 (Xt and D) and K9 (X), by wrapping their entry points in
+    ops/cuda/gram.py, which the engine calls through the module; the
+    wrappers only record and call through. K3 takes K2's codes. Yields the
+    set of (kernel, shape, dtype[, D or Dp]) seen."""
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
     seen = set()
     hmix, quant, pair = kg.retile_hmix, kg.quantize_tiled, kg.gram_pair
+    rows_, wtiled, wflat = kg.retile_rows, kg.weighted_gram_tiled, kg.weighted_gram
+
+    def retile_rows(X, Dp, h=None):
+        seen.add(("retile_rows", tuple(X.shape), X.dtype, Dp))
+        return rows_(X, Dp, h)
+
+    def weighted_gram_tiled(Xt, h, acc, D=None):
+        seen.add(("weighted_gram_tiled", tuple(Xt.shape), Xt.dtype,
+                  Xt.shape[1] if D is None else D))
+        return wtiled(Xt, h, acc, D)
+
+    def weighted_gram(X, h, splits=None):
+        seen.add(("weighted_gram", tuple(X.shape), X.dtype))
+        return wflat(X, h, splits)
 
     def retile_hmix(J3, H, Dp, gvec=None):
         seen.add(("retile_hmix", tuple(J3.shape), J3.dtype))
@@ -770,10 +838,13 @@ def recorded_shapes():
         return pair(X, Y, acc=acc, splits=splits, D=D)
 
     kg.retile_hmix, kg.quantize_tiled, kg.gram_pair = retile_hmix, quantize_tiled, gram_pair
+    kg.retile_rows, kg.weighted_gram_tiled, kg.weighted_gram = (
+        retile_rows, weighted_gram_tiled, weighted_gram)
     try:
         yield seen
     finally:
         kg.retile_hmix, kg.quantize_tiled, kg.gram_pair = hmix, quant, pair
+        kg.retile_rows, kg.weighted_gram_tiled, kg.weighted_gram = rows_, wtiled, wflat
 
 
 def check_path_shapes(device, path, seen, done):
@@ -1880,6 +1951,463 @@ def run_cifar_minres(device, card: str):
     return launches, res["train_seconds"]
 
 
+# phase 9: the zoo. (ii) the width path runs phase 5's regression config
+# (N=3, r=8, 65,536 rows to fit and 16,384 to validate, 512-row chunks, eps
+# 5.0 x 0.25, f32) for two swipes in each family through TensorTrainRegressor:
+# cpd, cpd_type1, tt with linear_dim=4, and cum_sum at d = 64 (its middle
+# cores' (f, f, f, f) CONST operators are 65^4 x 4 B = 71 MB each; at d = 128
+# one would be 1.1 GB, past the JAX package's 1 GB cap for that constant);
+# then tnml on breast_cancer, 30 carriages. Each must launch one of K7-K11.
+ZOO_WIDTH = {"cpd": (dict(model_type="cpd"), 128),
+             "cpd_type1": (dict(model_type="cpd_type1"), 128),
+             "tt linear_dim=4": (dict(linear_dim=4), 128),
+             "tt cum_sum d=64": (dict(cum_sum=True), 64)}
+ZOO_KERNELS = ("weighted_gram_tiled", "retile_rows", "weighted_gram", "gram_pair",
+               "own_out_gram")  # K7, K8, K9, K10, K11
+# (iii) the zoo table (experiments/zoo_eval.py: 5 datasets x 8 families x
+# seeds 42-44) against the JAX package's committed table
+ZOO_TABLE = "results/zoo_eval.csv"
+ZOO_CELL_PP = 2.0  # compare_tables' cell tolerance, for polynomial's cells
+
+
+def _zoo_layers():
+    """(name, make(device) -> layer, loss, inputs, target) of phase 9's
+    card-against-CPU swipes: every layer builder and loss the zoo added."""
+    import torch
+    from tensornetworksfork_tpu_torch.models import layers as L
+    from tensornetworksfork_tpu_torch.ops import bregman as B
+
+    rng = np.random.default_rng(9)
+    S, F, P, pp = 96, 9, 6, 5
+    X = rng.uniform(-1, 1, (S, F)).astype(np.float32)
+    X[:, -1] = 1.0
+    Xo = rng.uniform(-1, 1, (S, 5)).astype(np.float32)
+    Xp = rng.standard_normal((S, P, pp)).astype(np.float32)
+    Xs = [rng.standard_normal((S, 2, 3)).astype(np.float32) for _ in range(2)]
+    Xc = (rng.standard_normal((S, 4)) + 1j * rng.standard_normal((S, 4)))
+    y1 = rng.standard_normal((S, 1)).astype(np.float32)
+    y2 = rng.standard_normal((S, 2)).astype(np.float32)
+    y31 = rng.standard_normal((S, 3, 1)).astype(np.float32)
+    onehot = np.eye(4, dtype=np.float32)[rng.integers(0, 4, S)]
+    yc = (rng.standard_normal((S, 1)) + 1j * rng.standard_normal((S, 1)))
+    op = L.cum_sum_operator(1, 4, 5)
+    conv_op = rng.standard_normal((pp, 3))
+
+    def k(cls, *a, **kw):
+        return lambda dev: getattr(L, cls)(*a, **kw, seed=0, device=dev,
+                                           use_kernels=True)
+
+    def phi(x):
+        return torch.sum(x ** 2) + torch.sum(torch.exp(0.3 * x))
+
+    sq, xe = B.SquareBregFunction(), B.XEBregman(1.0)
+    return [
+        ("TensorTrainLinearLayer", k("TensorTrainLinearLayer", 3, 4, F, 3,
+                                     output_shape=(1,)), sq, X, y1),
+        ("CumSumLayer", k("CumSumLayer", 3, 4, F, output_shape=(1,)), sq, X, y1),
+        ("CPDLayer (XE)", k("CPDLayer", 3, 4, F, output_shape=(3,)), xe, X, onehot),
+        ("CPDTrainLayer", k("CPDTrainLayer", 3, 4, F, output_shape=(1,)), sq, X, y1),
+        ("OperatorTTLayer", k("OperatorTTLayer", op, 5, 3, 3, output_shape=(1,)),
+         sq, Xo, y1),
+        ("OperatorTTLayer ring", k("OperatorTTLayer", op, 5, 2, 3, output_shape=(1,),
+                                   ring=True), sq, Xo, y1),
+        ("TensorTrainSplitInputLayer", k("TensorTrainSplitInputLayer", 2, 3,
+                                         input_shape=(2, 3), output_shape=(1,),
+                                         axle_bond=2), sq, Xs, y1),
+        ("TensorConvolutionGridTrainLayer (XE)", k(
+            "TensorConvolutionGridTrainLayer", 2, 2, 3, 2, 2, P, pp,
+            output_shape=(3,), convolution_bond=2), xe, Xp, onehot),
+        ("TensorConvOperatorLayer", k("TensorConvOperatorLayer", conv_op, 3, 3, 2,
+                                      P, pp, output_shape=(3,), convolution_bond=2),
+         sq, Xp, y31),
+        ("ComplexTensorTrainLayer complex64", k(
+            "ComplexTensorTrainLayer", 3, 3, 4, output_shape=(1,)),
+         B.SquareComplexBregFunction(), Xc.astype(np.complex64), yc.astype(np.complex64)),
+        ("ComplexTensorTrainLayer complex128", k(
+            "ComplexTensorTrainLayer", 3, 3, 4, output_shape=(1,), dtype=torch.complex128),
+         B.SquareComplexBregFunction(), Xc, yc),
+        ("TT SoftmaxSquaredLoss", k("TensorTrainLayer", 3, 4, F, output_shape=(4,)),
+         B.SoftmaxSquaredLoss(1.0), X, onehot),
+        ("TT BinaryKLDivBregman", k("TensorTrainLayer", 3, 4, F, output_shape=(1,)),
+         B.BinaryKLDivBregman(1.0), X, rng.uniform(0.05, 0.95, (S, 1)).astype(np.float32)),
+        ("TT AutogradLoss", k("TensorTrainLayer", 3, 4, F, output_shape=(2,)),
+         B.AutogradLoss(), X, y2),
+        ("TT AutogradBregman", k("TensorTrainLayer", 3, 4, F, output_shape=(2,)),
+         B.AutogradBregman(phi), X, y2),
+        ("TT UncertaintyAutogradLoss", k("TensorTrainLayer", 3, 4, F, output_shape=(2,)),
+         B.UncertaintyAutogradLoss(), X, y1[:, 0]),
+    ]
+
+
+# card against CPU after one swipe, relative to max|pred|: f32 and complex64
+# sum in another order (phase 6's f32 bound); complex128 to 1e-9
+ZOO_REFERENCE_RTOL = {"float32": 1e-4, "complex64": 1e-4, "complex128": 1e-9}
+# the split-input layer's second column holds no input node, so its
+# environments carry no sample axis and the sweep's full-batch merge of
+# several chunks cannot place one (in both packages): it sweeps one chunk
+ZOO_ONE_CHUNK = ("TensorTrainSplitInputLayer",)
+
+
+def check_zoo_reference(device):
+    """Phase 9 (i): one swipe of a small network of every new layer builder
+    and loss (and one with orthonormalize=True), with the kernels on the
+    card and their plain versions on the CPU, from the same weights
+    (TNF_PACKED_SYRK_MIN_D=1, so the packed routes take the kernels even at
+    these sizes); the predictions after it agree within
+    ZOO_REFERENCE_RTOL. Returns the launches of the card's swipes."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.models.layers import TensorTrainLayer
+    from tensornetworksfork_tpu_torch.ops.bregman import SquareBregFunction
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    cases = _zoo_layers()
+    rng = np.random.default_rng(10)
+    Xg = rng.uniform(-1, 1, (96, 9)).astype(np.float32)
+    cases.append(("TT orthonormalize=True", lambda dev: TensorTrainLayer(
+        4, 4, 9, output_shape=(1,), seed=0, device=dev, use_kernels=True),
+        SquareBregFunction(), Xg, rng.standard_normal((96, 1)).astype(np.float32)))
+    total = {k: 0 for k in kg.LAUNCHES}
+    for name, make, loss, Xn, yn in cases:
+        cfg = SweepConfig(num_swipes=1, batch_size=-1 if name in ZOO_ONE_CHUNK else 48,
+                          method="ridge_cholesky",
+                          eps=5.0, eps_decay=0.25,
+                          orthonormalize=name.endswith("orthonormalize=True"))
+        outs = {}
+        for dev in ("cpu", device):
+            def put(a):
+                return ([torch.tensor(x, device=dev) for x in a] if isinstance(a, list)
+                        else torch.tensor(a, device=dev))
+            with env(TNF_PACKED_SYRK_MIN_D=1, TNF_GRAM_DTYPE="f32",
+                     TNF_AUX_PRECISION="highest"):
+                layer = make(dev)
+                kg.reset_launches()
+                params, ok = Sweeper(layer.network, loss, cfg).run(
+                    [layer.params], put(Xn), put(yn))
+                if dev != "cpu":
+                    for kname, v in kg.LAUNCHES.items():
+                        total[kname] += v
+            if not ok:
+                raise AssertionError(f"zoo reference swipe ({name}, {dev}) failed")
+            outs[dev] = layer(put(Xn), params=params[0]).cpu()
+        dtype = str(outs["cpu"].dtype).split(".")[-1]
+        rtol = ZOO_REFERENCE_RTOL[dtype]
+        err = float((outs[device] - outs["cpu"]).abs().max())
+        scale = float(outs["cpu"].abs().max())
+        log(f"[zoo] reference {name} ({dtype}): kernels on {device} vs plain on cpu, "
+            f"max|d pred| {err:.3g} (max|pred| {scale:.3g}, rtol {rtol})")
+        if not err <= rtol * scale:
+            raise AssertionError(f"zoo reference check ({name}) failed: {err}")
+    log(f"[zoo] reference swipes' launches on {device}: "
+        f"{({k: v for k, v in total.items() if v})}")
+    return total
+
+
+def run_zoo_width(device, card: str):
+    """Phase 9 (ii): the width path (ZOO_WIDTH), each family a two-swipe fit
+    with the launch counters reset just before it and read just after, and
+    the shapes it gives the kernels recorded; then tnml on breast_cancer
+    (30 carriages, seed 42's split, r=8, the same eps and chunks). Each fit
+    must report no singular solve, keep its parameters finite, beat the
+    mean (regression: val RMSE below 1.0 on the standardized target) or
+    the majority class (tnml), and launch one of K7-K11. Returns
+    {path: (launches, shapes seen)}."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.data.tabular import load_sklearn_dataset
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.models.tnml import TNMLRegressor
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    c = REGRESSION
+    runs, data = {}, {}
+
+    def fit_once(path, est, args, score, what):
+        with env(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"), \
+                recorded_shapes() as seen:
+            torch.cuda.synchronize()
+            kg.reset_launches()
+            t = time.perf_counter()
+            est.fit(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = dict(kg.LAUNCHES)
+        value, bar = score()
+        model = est._model
+        finite = all(bool(torch.isfinite(v).all())
+                     for p in getattr(model, "params_list", None) or [model.params]
+                     for v in p.values())
+        used = {k: v for k, v in launches.items() if v}
+        log(f"[zoo] width {path} ({card}): fit {wall:.3f} s, ok={est.fit_ok_}, "
+            f"{what} {value:.6f} (bar {bar}), launches {used}")
+        if not est.fit_ok_:
+            raise AssertionError(f"zoo width {path}: the sweep reported a singular solve")
+        if not finite:
+            raise AssertionError(f"zoo width {path}: non-finite parameters")
+        if not (value < bar if what == "val rmse" else value > bar):
+            raise AssertionError(f"zoo width {path}: {what} {value} misses {bar}")
+        if not any(launches[k] for k in ZOO_KERNELS):
+            raise AssertionError(f"zoo width {path} launched none of K7-K11")
+        runs[path] = (launches, seen)
+
+    for fam, (kw, d) in ZOO_WIDTH.items():
+        if d not in data:
+            X, y = make_regression(S=c["fit"] + c["val"], d=d, degree=3, seed=0)
+            data[d] = (torch.tensor(X[:c["fit"]], device=device),
+                       torch.tensor(y[:c["fit"]], device=device),
+                       X[c["fit"]:], y[c["fit"]:])
+        Xtr, ytr, Xva, yva = data[d]
+        est = TensorTrainRegressor(N=c["N"], r=c["r"], batch_size=c["batch"],
+                                   eps_start=5.0, eps_decay=0.25, num_swipes=2,
+                                   device=device, **kw)
+
+        def rmse(est=est, Xva=Xva, yva=yva):
+            pred = est.predict(Xva)
+            return float(np.sqrt(np.mean((pred - yva) ** 2))), 1.0
+        fit_once(f"{fam} (d={d})", est, (Xtr, ytr, Xva, yva), rmse, "val rmse")
+
+    bc = load_sklearn_dataset("breast_cancer", seed=42)
+    bc.pop("task")
+    est = TNMLRegressor(r=c["r"], num_swipes=2, eps_start=5.0, eps_decay=0.25,
+                        batch_size=c["batch"], task="classification",
+                        input_scale="minmax", device=device)
+    yv = bc["y_val"].reshape(-1).astype(int)
+
+    def accuracy():
+        pred = est.predict(bc["X_val"]).argmax(axis=1)
+        return float(np.mean(pred == yv)), float(max(np.mean(yv), 1 - np.mean(yv)))
+    fit_once("tnml breast_cancer (30 carriages)", est,
+             (bc["X_train"], bc["y_train"], bc["X_val"], bc["y_val"]), accuracy,
+             "val accuracy")
+    return runs
+
+
+def check_zoo_shapes(device, path, seen, done):
+    """Phase 9's kernels against their plain versions at every shape its
+    width path gave them: K8 bit for bit (with and without Kt), K7 as one
+    chunk's carry and K9 within gram_tol of the plain version and against
+    float64 with bf16- and TF32-rounded controls (weighted_to_float64), K10
+    through k10_entry (float64 too). Shapes in `done` were checked for an earlier
+    path (updated). The largest shape of each kernel the path launched is
+    timed: returns those kernels entries, their dtype naming the path."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    log(f"[zoo] {path}: shapes {sorted(str(s) for s in seen)}")
+    rng = np.random.default_rng(11)
+    results = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.tensor(rng.standard_normal(shape, np.float32),
+                            device=device).to(dtype)
+
+    def h_of(rows):
+        return torch.tensor(rng.uniform(0.5, 2.0, rows).astype(np.float32),
+                            device=device)
+
+    def label(entry):
+        return dict(entry, dtype=f"f32, {path}")
+
+    def by_size(name):
+        return sorted((s for s in seen if s[0] == name),
+                      key=lambda s: (s[1][0] * s[1][1], str(s[2])))
+
+    for i, (_, (rows, D), dt, Dp) in enumerate(by_size("retile_rows")):
+        last = i == len(by_size("retile_rows")) - 1
+        if ("retile_rows", rows, D, dt) not in done or last:
+            done.add(("retile_rows", rows, D, dt))
+            X, h = randn(rows, D, dtype=dt), h_of(rows)
+            for hh in (None, h):
+                Jt, Kt = kg.retile_rows(X, Dp, hh)
+                Jp, Kp = kg.retile_rows_plain(X, Dp, hh)
+                if not torch.equal(Jt, Jp) or (hh is not None and not torch.equal(Kt, Kp)):
+                    raise AssertionError(f"retile_rows at {rows}x{D} differs from plain")
+            if last:
+                k8 = lambda: kg.retile_rows(X, Dp)  # noqa: E731
+                results.append(label(dict(
+                    name="retile_rows", err=0.0, ms=graph_ms(k8),
+                    plain_ms=graph_ms(lambda: kg.retile_rows_plain(X, Dp)),
+                    library_ms=graph_ms(lambda: torch.nn.functional.pad(X, (0, Dp - D))),
+                    bound=bound(0.0, nbytes(X) + rows * Dp * X.element_size(), "f32"),
+                    note=f"{path}: ({rows}x{D} -> {Dp}) bit-equal with and without Kt; "
+                         "library: the pad; CUDA graphs of 20 calls")))
+    for i, (_, (rows, Dp), dt, D) in enumerate(by_size("weighted_gram_tiled")):
+        last = i == len(by_size("weighted_gram_tiled")) - 1
+        if ("weighted_gram_tiled", rows, D, dt) not in done or last:
+            done.add(("weighted_gram_tiled", rows, D, dt))
+            Xt, _ = kg.retile_rows(randn(rows, D, dtype=dt), Dp)
+            h = h_of(rows)
+            acc = torch.zeros((Dp, Dp), dtype=torch.float32, device=device)
+            acc_p = torch.zeros_like(acc)
+            kg.weighted_gram_tiled(Xt, h, acc, D)
+            kg.weighted_gram_tiled_plain(Xt, h, acc_p)
+            A, A_p = kg.mirror_gram(acc[:D, :D]), kg.mirror_gram(acc_p[:D, :D])
+            err, tol = float((A - A_p).abs().max()), gram_tol(rows) * float(A_p.abs().max())
+            if not err <= tol or acc[D:].any() or acc[:, D:].any():
+                raise AssertionError(f"weighted_gram_tiled at {rows}x{D}: {err} > {tol}")
+            f64 = weighted_to_float64(f"weighted_gram_tiled ({path}, {rows}x{D})", A,
+                                      Xt[:, :D], h)
+            if last:
+                Xw = kg._weighted_operand(Xt, h)
+                accD, XwD, XtD = acc[:D, :D], Xw[:, :D], Xt[:, :D]
+                results.append(label(dict(
+                    name="weighted_gram_tiled", err=err,
+                    ms=time_ms(lambda: kg.weighted_gram_tiled(Xt, h, acc, D)),
+                    plain_ms=time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)),
+                    library_ms=time_ms(lambda: accD.addmm_(XwD.T, XtD)),
+                    bound=bound(gram_ops(rows, D) + rows * D,
+                                rows * D * 4 + nbytes(h) + 2 * 4 * D * D, "f32"),
+                    note=f"{path}: one chunk {rows}x{D} (Dp {Dp}) into a carry, tol "
+                         f"{gram_tol(rows):.3g}*max|A|; {f64}; library: "
+                         "acc[:D, :D].addmm_ on the weighted operand made beforehand")))
+                del Xw, accD, XwD, XtD
+            del Xt, acc, acc_p, A, A_p
+    for i, (_, (rows, D), dt) in enumerate(by_size("weighted_gram")):
+        last = i == len(by_size("weighted_gram")) - 1
+        if ("weighted_gram", rows, D, dt) not in done or last:
+            done.add(("weighted_gram", rows, D, dt))
+            X, h = randn(rows, D, dtype=dt), h_of(rows)
+            A = kg.mirror_gram(kg.weighted_gram(X, h))
+            A_p = kg.mirror_gram(kg.weighted_gram_plain(X, h))
+            err, tol = float((A - A_p).abs().max()), gram_tol(rows) * float(A_p.abs().max())
+            if not err <= tol:
+                raise AssertionError(f"weighted_gram at {rows}x{D}: {err} > {tol}")
+            f64 = weighted_to_float64(f"weighted_gram ({path}, {rows}x{D})", A, X, h)
+            if last:
+                Xw = kg._weighted_operand(X, h)
+                results.append(label(dict(
+                    name="weighted_gram", err=err,
+                    ms=time_ms(lambda: kg.weighted_gram(X, h)),
+                    plain_ms=time_ms(lambda: kg.weighted_gram_plain(X, h)),
+                    library_ms=time_ms(lambda: torch.mm(Xw.T, X)),
+                    bound=bound(gram_ops(rows, D) + rows * D, nbytes(X, h) + 4 * D * D,
+                                "f32"),
+                    note=f"{path}: {rows}x{D} f32, tol {gram_tol(rows):.3g}*max|A|; "
+                         f"{f64}; library: torch.mm on the weighted operand made "
+                         "beforehand")))
+                del Xw
+            del X, A, A_p
+    flat = by_size("gram_pair")
+    for i, (_, (rows, D4), dt, _) in enumerate(flat):
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        timed = i == len(flat) - 1
+        key = ("gram_pair", rows, D4, dt)
+        if key in done and not timed:
+            continue
+        done.add(key)
+        entry = k10_entry(device, path, rows, D4, kind, timed=timed, seed=12)
+        if timed:
+            results.append(dict(entry, dtype=f"{kind}, {path}"))
+    log(f"[zoo] {path}: every kernel held to its plain version at the path's shapes")
+    log_kernels(results)
+    return results
+
+
+# The family gate: each family's mean within ZOO_FLOOR_Z x s x
+# sqrt(1/n_base + 1/n_port) of the committed table's, s the within-cell seed
+# sd pooled over the family's cells of the committed table. For the family
+# of ZOO_SEED_SD, s is pooled instead from that file's per-cell sds: the JAX
+# package's fits over 60 seeds (studies/zoo_seed_study.py sd), a noise
+# estimate independent of the port and fixed before the port's table runs.
+# tt_linear is that family: its committed seeds of diabetes lie close
+# together (sd 0.033, against 0.121 over 60 seeds), which leaves the
+# committed table's floor for it too narrow for another draw of initial
+# params.
+ZOO_FLOOR_Z = 2.0
+ZOO_SEED_SD = "studies/zoo_seed_sd.json"
+
+
+def zoo_floors(base_cells, n_port, seed_sd):
+    """{family: (floor, the committed table's floor, the floor's rule)} in
+    percentage points, for the difference of the two tables' family means,
+    the port's table holding n_port rows of each family. `seed_sd` is the
+    parsed ZOO_SEED_SD."""
+    cells = {}
+    for (ds, fam), v in base_cells.items():
+        cells.setdefault(fam, {})[ds] = v
+    floors = {}
+    for fam, per in cells.items():
+        n_base = sum(len(v) for v in per.values())
+        root = np.sqrt(1.0 / n_base + 1.0 / n_port)
+        ss = sum(float(np.sum((np.asarray(v) - np.mean(v)) ** 2)) for v in per.values())
+        df = sum(len(v) - 1 for v in per.values())
+        first = 100.0 * ZOO_FLOOR_Z * np.sqrt(ss / df) * root
+        floors[fam] = (first, first, "the committed table's sd")
+        if seed_sd["family"] == fam:
+            sd = seed_sd["cells"]
+            if sorted(sd) != sorted(per):
+                raise ValueError(f"{ZOO_SEED_SD} covers {sorted(sd)}, the table "
+                                 f"{sorted(per)}")
+            var = np.mean([sd[ds]["sd"] ** 2 for ds in per])
+            floors[fam] = (100.0 * ZOO_FLOOR_Z * np.sqrt(var) * root, first,
+                           f"the JAX package's sd over seeds {seed_sd['seeds'][0]}-"
+                           f"{seed_sd['seeds'][1]}")
+    return floors
+
+
+def run_zoo_table(device, card: str):
+    """Phase 9 (iii): experiments/zoo_eval.py's table (every family on every
+    dataset, seeds 42-44, the JAX package's config) on the card, with 0
+    failed fits; polynomial (no random init, the same splits) must hold
+    each of its cells within compare_tables' 2-point cell tolerance of
+    results/zoo_eval.csv, and each other family its mean within its floor
+    (zoo_floors) of the committed table's. The same seed gives both
+    tables the same split; the initial params differ (a torch.Generator
+    here, JAX's PRNG there). Returns the table's launches and wall time."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import zoo_eval
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+
+    out = os.path.join("build", "zoo_eval_chip.csv")
+    os.makedirs("build", exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    torch.cuda.synchronize()
+    kg.reset_launches()
+    t0 = time.perf_counter()
+    rows, n_fail = zoo_eval.run_table(zoo_eval.DATASETS, zoo_eval.SEEDS, out,
+                                      device=str(device),
+                                      log=lambda m: log(f"[zoo] {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kg.LAUNCHES)
+    n_stop = sum(bool(r["singular"]) for r in rows)
+    log(f"[zoo] table ({card}): {len(rows)} fits in {wall:.1f} s, {n_fail} failed, "
+        f"{n_stop} sweeps stopped at a singular solve (scored, as the JAX package "
+        f"scores them), launches {({k: v for k, v in launches.items() if v})}")
+    if n_fail:
+        raise AssertionError(f"zoo table: {n_fail} failed fits")
+    base, port = zoo_eval._load_metrics(ZOO_TABLE), zoo_eval._load_metrics(out)
+    with open(ZOO_SEED_SD) as f:
+        seed_sd = json.load(f)
+    bad = []
+    floors = zoo_floors(base, len(zoo_eval.DATASETS) * len(zoo_eval.SEEDS), seed_sd)
+    for fam in sorted(floors):
+        a = [x for (_, g), v in base.items() if g == fam for x in v]
+        b = [x for (_, g), v in port.items() if g == fam for x in v]
+        secs = [r["train_seconds"] for r in rows if r["family"] == fam]
+        d = 100.0 * (np.mean(b) - np.mean(a))
+        gate, first, rule = floors[fam]
+        held = f"floor {gate:.2f} pp, {rule}"
+        if gate != first:
+            held += (f"; {'within' if abs(d) <= first else 'past'} the committed "
+                     f"table's floor {first:.2f}")
+        if fam == "polynomial":
+            held = "cells within 2 pp"
+        log(f"[zoo] family {fam}: mean {100 * np.mean(b):.2f} (committed "
+            f"{100 * np.mean(a):.2f}), delta {d:+.2f} pp, {held}; fit mean "
+            f"{np.mean(secs):.2f} s, max {np.max(secs):.2f} s")
+        if fam != "polynomial" and not abs(d) <= gate:
+            bad.append(f"family {fam}: delta {d:+.2f} pp past its floor {gate:.2f}")
+    bad += [v for v in zoo_eval.compare_tables(ZOO_TABLE, out, float("inf"), ZOO_CELL_PP)
+            if "/polynomial" in v or v.startswith("missing")]
+    for key in sorted(base):
+        log(f"[zoo] cell {key[0]}/{key[1]}: {100 * np.mean(port[key]):.2f} (committed "
+            f"{100 * np.mean(base[key]):.2f})")
+    if bad:
+        raise AssertionError("zoo table: " + "; ".join(bad))
+    return dict(launches=launches, wall=wall)
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -1949,6 +2477,16 @@ def main() -> int:
     log(f"[env] phase 8 took {time.perf_counter() - t8:.1f} s, its headline "
         f"{time.perf_counter() - t8d:.1f} s")
 
+    t9 = time.perf_counter()
+    check_zoo_reference(device)
+    zoo_width = run_zoo_width(device, smi)
+    done9 = set()
+    for path, (_, seen) in zoo_width.items():
+        kernels += check_zoo_shapes(device, f"zoo width {path}", seen, done9)
+    zoo_table = run_zoo_table(device, smi)
+    log(f"[env] phase 9 took {time.perf_counter() - t9:.1f} s, its table "
+        f"{zoo_table['wall']:.1f} s")
+
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
@@ -1967,7 +2505,10 @@ def main() -> int:
                 ("own_out_gram", "f32"): own["own_out_gram"],
                 # phase 7's kernels at its paths' shapes: that path's launches
                 **{(k["name"], k["dtype"]): path_runs[k["dtype"].split(", ", 1)[1]][0][k["name"]]
-                   for k in kernels if k["dtype"].split(", ", 1)[-1] in path_runs}}
+                   for k in kernels if k["dtype"].split(", ", 1)[-1] in path_runs},
+                # phase 9's kernels at its width paths' shapes: that path's launches
+                **{(k["name"], k["dtype"]): zoo_width[k["dtype"].split(", zoo width ", 1)[1]][0][
+                    k["name"]] for k in kernels if ", zoo width " in k["dtype"]}}
     # this slice's paths: bf16 J (int8 codes) in the fastest tier, f32 J in
     # the reference tier
     low, full = ("bf16", "int8"), ("f32",)
@@ -1978,7 +2519,10 @@ def main() -> int:
              # phase 8: the float64 fit (f32 operands), and the matrix-free
              # CIFAR_minres swipe, which launches none of the kernels
              "regression float64": (fit64, full),
-             "train_image cifar_minres": (cifar, low + full)}
+             "train_image cifar_minres": (cifar, low + full),
+             # phase 9: the zoo's width paths and its table, all in f32
+             **{f"zoo width {p}": (runs, full) for p, (runs, _) in zoo_width.items()},
+             "zoo table": (zoo_table["launches"], full)}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,

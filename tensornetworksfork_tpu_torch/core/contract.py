@@ -8,9 +8,18 @@ summed once.
 
 `torch.einsum` contracts more than two operands left to right unless the
 `opt_einsum` package is installed, and the GPU machine has none. So the path
-is planned here with `numpy.einsum_path` over zero-stride dummy operands
-(shapes only, no data), cached per (expression, shapes), and executed as a
-sequence of pairwise `torch.einsum` calls.
+is planned here, cached per (expression, shapes), and executed as a
+sequence of pairwise `torch.einsum` calls: up to 6 operands by
+`numpy.einsum_path`'s "optimal" search over zero-stride dummy operands
+(shapes only, no data), more by `_greedy_path`, numpy's greedy planner
+written out here.
+
+An expression may carry any number of axes: past the 52 ASCII letters the
+labeller goes on in unicode, as the JAX package's does (a 30-feature TNML,
+one core per feature, has about 61). `numpy.einsum_path` and `torch.einsum`
+accept only the ASCII letters, so such an expression is planned by
+`_greedy_path` whatever its operand count, and each of its pairwise steps
+is written in letters of its own: a step holds only its two operands' axes.
 
 `precision` is the JAX package's dot precision, by name. "highest" runs
 each pairwise step in f32. "default" runs it as the TPU runs a
@@ -21,6 +30,7 @@ item 19).
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import string
 from typing import List, Sequence, Tuple
@@ -33,21 +43,23 @@ _LETTERS = string.ascii_lowercase + string.ascii_uppercase
 Axes = Tuple[int, ...]
 
 
+def _symbol(i: int) -> str:
+    """Einsum symbol #i: the ASCII letters first, then unicode from
+    chr(192), the JAX package's scheme (opt_einsum's get_symbol)."""
+    if i < len(_LETTERS):
+        return _LETTERS[i]
+    return chr(140 + i)
+
+
 class Labeler:
-    """Assigns einsum letters to axis ids, first-come first-served.
-    `torch.einsum` accepts only the 52 ASCII letters; more axes raise."""
+    """Assigns einsum symbols to axis ids, first-come first-served."""
 
     def __init__(self):
         self._map = {}
 
     def __getitem__(self, axis_id) -> str:
         if axis_id not in self._map:
-            i = len(self._map)
-            if i >= len(_LETTERS):
-                raise ValueError(
-                    f"contraction needs more than {len(_LETTERS)} distinct "
-                    "axes; torch.einsum supports only the 52 ASCII letters")
-            self._map[axis_id] = _LETTERS[i]
+            self._map[axis_id] = _symbol(len(self._map))
         return self._map[axis_id]
 
     def __contains__(self, axis_id) -> bool:
@@ -70,24 +82,127 @@ _DEFAULT_MAX_ELEMS = 1 << 28
 _UNCAPPED = float(1 << 62)
 
 
+def _local(terms: Sequence[str], out: str) -> str:
+    """`terms` -> `out` in ASCII letters of its own, given in order of first
+    appearance (one pairwise step: at most its two operands' axes)."""
+    sub = ",".join(terms) + "->" + out
+    if sub.isascii():
+        return sub
+    own = {}
+    for ch in sub:
+        if ch not in ",->" and ch not in own:
+            if len(own) == len(_LETTERS):
+                raise ValueError(
+                    f"one contraction step has more than {len(_LETTERS)} "
+                    "distinct axes; torch.einsum takes only the ASCII letters")
+            own[ch] = _LETTERS[len(own)]
+    return "".join(own.get(ch, ch) for ch in sub)
+
+
+def _greedy_path(terms: Sequence[str], out_s: str, size, cap: float):
+    """numpy.einsum_path's greedy path (numpy's `_greedy_path`, with
+    einsum_path's one-step cases), over symbols of any kind. At each step,
+    of the pairs that share an axis (none sharing: of all pairs), the one
+    whose result removes the most elements, then the one of fewest flops,
+    ties to the pair found first; a pair whose result exceeds `cap`
+    elements, or whose flops would take the path past the one-step
+    einsum's, is passed over, and when none is left the rest is one step.
+    Returns numpy's path format (positions in the working list, the result
+    appended)."""
+    def elems(idx):
+        n = 1
+        for ch in idx:
+            n *= size[ch]
+        return n
+
+    sets = [frozenset(t) for t in terms]
+    out = frozenset(out_s)
+    every = frozenset().union(*sets)
+    if len(sets) <= 2 or every == out:
+        return [tuple(range(len(sets)))]
+    cap = int(cap)
+    naive = elems(every) * (len(sets) - 1 + bool(every - out))
+
+    def parse(pos, sets, path_cost):
+        # (sort key, pair, the working list after contracting it) or None
+        picked = sets[pos[0]] | sets[pos[1]]
+        rest = [s for k, s in enumerate(sets) if k not in pos]
+        res = picked & out.union(*rest)
+        if elems(res) > cap:
+            return None
+        cost = elems(picked) * (1 + bool(picked - res))
+        if path_cost + cost > naive:
+            return None
+        gone = elems(sets[pos[0]]) + elems(sets[pos[1]]) - elems(res)
+        return (-gone, cost), pos, rest + [res]
+
+    pairs = itertools.combinations(range(len(sets)), 2)
+    known, path, path_cost = [], [], 0
+    for _ in range(len(sets) - 1):
+        for pos in pairs:
+            if not sets[pos[0]].isdisjoint(sets[pos[1]]):
+                found = parse(pos, sets, path_cost)
+                if found is not None:
+                    known.append(found)
+        if not known:  # outer products only
+            for pos in itertools.combinations(range(len(sets)), 2):
+                found = parse(pos, sets, path_cost)
+                if found is not None:
+                    known.append(found)
+            if not known:
+                path.append(tuple(range(len(sets))))
+                break
+        key, (bx, by), sets = min(known, key=lambda r: r[0])
+        # the pairs found before stay candidates, renumbered for the new list
+        kept = []
+        for k, (x, y), after in known:
+            if x in (bx, by) or y in (bx, by):
+                continue
+            after = list(after)
+            del after[by - (by > x) - (by > y)]
+            del after[bx - (bx > x) - (bx > y)]
+            after.insert(-1, sets[-1])
+            kept.append((k, (x - (x > bx) - (x > by), y - (y > bx) - (y > by)), after))
+        known = kept
+        last = len(sets) - 1
+        pairs = ((i, last) for i in range(last))
+        path.append((bx, by))
+        path_cost += key[1]
+    return path
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan(expr: str, shapes: Tuple[Tuple[int, ...], ...], cap: int):
     """Pairwise contraction plan: a list of (operand positions, einsum
     sub-expression) steps over a working list in numpy's convention (the
-    contracted operands are removed, the result appended)."""
+    contracted operands are removed, the result appended). Keyed on the
+    whole expression, so two expressions never share a plan; each step's
+    sub-expression is in ASCII letters (`_local`)."""
     inputs_s, out_s = expr.split("->")
     terms = inputs_s.split(",")
     if len(terms) == 1:
-        return [((0,), expr)]
-    dummies = [np.broadcast_to(np.empty((), np.float32), s) for s in shapes]
-    kind = "optimal" if len(terms) <= 6 else "greedy"
+        return [((0,), _local(terms, out_s))]
+    if len(terms) <= 6 and expr.isascii():
+        dummies = [np.broadcast_to(np.empty((), np.float32), s) for s in shapes]
+
+        def planned(limit):
+            return np.einsum_path(expr, *dummies, optimize=("optimal", limit))[0][1:]
+    else:
+        size = {}
+        for t, shp in zip(terms, shapes):
+            for ch, d in zip(t, shp):
+                if size.get(ch, 1) == 1:  # a size-1 axis broadcasts, as in numpy
+                    size[ch] = d
+
+        def planned(limit):
+            return _greedy_path(terms, out_s, size, limit)
     path = None
     if cap > 0:
-        path = np.einsum_path(expr, *dummies, optimize=(kind, float(cap)))[0][1:]
+        path = planned(float(cap))
         if any(len(step) > 2 for step in path):
             path = None  # no pairwise path fits the cap
     if path is None:
-        path = np.einsum_path(expr, *dummies, optimize=(kind, _UNCAPPED))[0][1:]
+        path = planned(_UNCAPPED)
     steps = []
     work = list(terms)
     for step in path:
@@ -101,7 +216,7 @@ def _plan(expr: str, shapes: Tuple[Tuple[int, ...], ...], cap: int):
                 if ch in rest and ch not in seen:
                     seen.append(ch)
         res = "".join(seen) if work else out_s
-        steps.append((tuple(step), ",".join(picked) + "->" + res))
+        steps.append((tuple(step), _local(picked, res)))
         work.append(res)
     return steps
 

@@ -598,12 +598,13 @@ class Network:
 
     # ------------------------------------------------------------------- A, b
     def rhs(self, ni: int, J: Operand, grad: torch.Tensor) -> torch.Tensor:
-        """b = Jᵀ g over the node axes, at the aux precision: the rhs line
+        """b = Jᴴ g over the node axes, at the aux precision: the rhs line
         of gram_and_rhs, alone (the gradient method needs no A)."""
         t = self.topology
         J_axes, J_arr = J
+        Jc = J_arr.conj() if J_arr.is_complex() else J_arr
         g_axes = (t.sample_axis,) + t.output_axes
-        return contract([(J_axes, J_arr), (g_axes, grad)], t.node_axes[ni],
+        return contract([(J_axes, Jc), (g_axes, grad)], t.node_axes[ni],
                         self.aux_precision)
 
     def _kernel_gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -613,7 +614,8 @@ class Network:
 
     def gram_and_rhs(self, ni: int, J: Operand, grad: torch.Tensor,
                      hess: torch.Tensor, defer_ownout=None):
-        """A = Jᵀ H J (Gram over node dims), b = Jᵀ g.
+        """A = Jᴴ H J (Gram over node dims), b = Jᴴ g (J is conjugated for
+        a complex network, which takes the plain routes).
 
         grad axes: (s, *output_axes); hess axes (s, *out, *out') for a full
         Hessian or (s, *out) for a diagonal one. Output axes not owned by the
@@ -673,7 +675,7 @@ class Network:
                     W = W.sum(dim=1, keepdim=True)  # C == 1
             else:
                 W = hess.reshape(S, C, C)
-            if self.use_kernels:
+            if self.use_kernels and not J_arr.is_complex():
                 gd = kgram.gram_dtype()
                 J2 = J3.reshape(S * C, D)
                 if diag:
@@ -774,7 +776,8 @@ class Network:
             H_axes = (s,) + out_axes + tuple(primed[a] for a in out_axes)
             J2_axes = tuple(primed.get(a, a) if a != s else s for a in J_axes)
         keep_A = node_axes + tuple(primed.get(a, a) for a in node_axes)
-        A = contract([(J_axes, J_arr), (J2_axes, J_arr), (H_axes, hess)], keep_A)
+        Jc = J_arr.conj() if J_arr.is_complex() else J_arr
+        A = contract([(J_axes, Jc), (J2_axes, J_arr), (H_axes, hess)], keep_A)
         return A, b
 
     @staticmethod
@@ -857,13 +860,14 @@ class Network:
 
 
 def _flat_gram(J3: torch.Tensor, W: torch.Tensor, diag: bool) -> torch.Tensor:
-    """A = sum_s J3ᵀ W J3 over (sample, class) rows, as one flat matmul."""
+    """A = sum_s J3ᴴ W J3 over (sample, class) rows, as one flat matmul."""
     S, C, D = J3.shape
     if diag:
         K = J3 * W[..., None].to(J3.dtype)
     else:
         K = torch.einsum("scd,sci->sdi", W.to(J3.dtype), J3)
-    return J3.reshape(S * C, D).T @ K.reshape(S * C, D)
+    Jc = J3.conj() if J3.is_complex() else J3
+    return Jc.reshape(S * C, D).T @ K.reshape(S * C, D)
 
 
 def _embed_diag(hess_diag: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,14 @@ the loop.
   flags stay on the device and are read with ONE host sync per half-pass
   (`_flush_ok`), as in the JAX package.
 
+- With `orthonormalize`, each main core updated in a column-monotone run
+  is QR-gauged toward the run's direction (`gauges.py`), and the far
+  environment of the neighbour that took the triangular factor is
+  recomputed (and recorded): a history entry made from the neighbour's old
+  tensor no longer matches it by identity, so it is never handed back.
+
 Not ported yet (each raises NotImplementedError): mesh (multi-device)
-runs, input-less members and orthonormalisation.
+runs and input-less members.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.cuda import gram as kgram
-from . import krylov
+from . import gauges, krylov
 from .engine import Network
 from .solve import apply_update, cpd_diag_mask, solve_block
 from .topology import INPUT, PARAM
@@ -108,8 +114,6 @@ class Sweeper:
         self.members: List[Member] = list(members)
         self.loss_fn = loss_fn
         self.cfg = cfg
-        if cfg.orthonormalize:
-            raise NotImplementedError("orthonormalize is not ported yet")
         for m in self.members:
             if not m.net.topology.input_nodes:
                 raise NotImplementedError("input-less members are not ported yet")
@@ -372,9 +376,10 @@ class Sweeper:
             return loss, g, H
 
         # the packed-Jacobian plan, decided once from axes and sizes (the
-        # JAX package probes the first chunk at trace time)
-        plan = (None if method in ITERATIVE_METHODS else net.packed_plan(
-            ni, net.column_operand_axes(ni, L_axes, R_axes)))
+        # JAX package probes the first chunk at trace time); a complex node
+        # has none (packed_jacobian declines complex operands)
+        plan = (None if method in ITERATIVE_METHODS or core.is_complex()
+                else net.packed_plan(ni, net.column_operand_axes(ni, L_axes, R_axes)))
         x_sol = None
         if method in ITERATIVE_METHODS:
             chunks = [piece_at(c) for c in range(nc)]
@@ -760,6 +765,26 @@ class Sweeper:
                 near_col[mi] = c
                 record_env(mi, c, side, near_env[mi])
 
+        def gauge(mi, k, ci, d):
+            """QR-gauge main core k toward the run's direction; the
+            neighbour that took the factor gets its far env recomputed."""
+            net = self.members[mi].net
+            ncols = len(net.topology.columns)
+            if d == "l2r" and k < len(net.topology.main_nodes) - 1:
+                params_list[mi] = gauges.orthonormalize_left(net, params_list[mi], k)
+                c, side = ci + 1, "right"
+                prev = far_envs[mi][c + 1] if c < ncols - 1 else None
+            elif d == "r2l" and k > 0:
+                params_list[mi] = gauges.orthonormalize_right(net, params_list[mi], k)
+                c, side = ci - 1, "left"
+                prev = far_envs[mi][c - 1] if c > 0 else None
+            else:
+                return
+            far_envs[mi][c] = self._timed(
+                "advance", self._advance, mi, c, side, params_list[mi], prev,
+                data["inputs"][mi])
+            record_env(mi, c, side, far_envs[mi][c])
+
         rest_cache: Dict[int, torch.Tensor] = {}
 
         def rest_for(mi):
@@ -828,6 +853,8 @@ class Sweeper:
             self._defer_ok(ok, name)
             params_list[mi] = dict(params_list[mi], **{name: new_core})
             last_other = (mi, ci)
+            if cfg.orthonormalize and ni in t.main_nodes:
+                gauge(mi, t.main_nodes.index(ni), ci, d)
 
             if use_rest and pred is not None:
                 y_members[mi] = pred

@@ -312,12 +312,62 @@ class Topology:
             if s.kind == PARAM and s.name in params
         )
 
+    def node_axis_tuple(self, ni: int) -> Tuple[int, ...]:
+        return self.node_axes[ni]
+
+    def without_nodes(self, names: Sequence[str]) -> "Topology":
+        """Copy of the network minus the given nodes (to inspect
+        operator-only subnetworks). Edges to removed nodes are dropped."""
+        drop = set(names)
+        b = TopologyBuilder(self.sample_dim)
+        for spec in self.nodes:
+            if spec.name in drop:
+                continue
+            b.add(NodeSpec(spec.name, spec.labels, spec.shape, spec.kind,
+                           spec.left, spec.right, spec.init, spec.cpd_mask))
+        # re-declare the surviving edges through the shared global axes
+        kept = {s.name for s in b.nodes}
+        seen = {}
+        for ni, axes in enumerate(self.node_axes):
+            name = self.nodes[ni].name
+            if name in drop:
+                continue
+            for ai, a in enumerate(axes):
+                if a == self.sample_axis:
+                    continue
+                lab = self.nodes[ni].labels[ai]
+                if a in seen:
+                    other_name, other_lab = seen[a]
+                    b.connect(other_name, other_lab, name, lab)
+                else:
+                    seen[a] = (name, lab)
+
+        def names_of(idx):
+            return [self.nodes[ni].name for ni in idx
+                    if self.nodes[ni].name in kept]
+
+        out_labels = tuple(
+            ol for ol in self.output_labels
+            if ol == self.sample_dim or any(ol in s.labels for s in b.nodes))
+        return b.finalize(names_of(self.input_nodes), names_of(self.main_nodes),
+                          names_of(self.train_nodes), out_labels)
+
 
 def _materialize(spec: NodeSpec, gen: Optional[torch.Generator],
                  dtype) -> torch.Tensor:
+    """A node's tensor: the callable's draw or the explicit init in `dtype`
+    (a complex init passes through uncast), else a normal draw of unit
+    Frobenius norm; for a complex dtype its real and imaginary parts are
+    drawn separately, as in the JAX package."""
     if callable(spec.init):
         return torch.as_tensor(spec.init(gen), dtype=dtype)
     if spec.init is not None:
-        return torch.as_tensor(np.asarray(spec.init)).to(dtype)
-    t = torch.randn(spec.shape, generator=gen, dtype=torch.float32).to(dtype)
+        arr = torch.as_tensor(np.asarray(spec.init))
+        return arr if arr.is_complex() else arr.to(dtype)
+    if dtype.is_complex:
+        re = torch.randn(spec.shape, generator=gen, dtype=torch.float64)
+        im = torch.randn(spec.shape, generator=gen, dtype=torch.float64)
+        t = torch.complex(re, im).to(dtype)
+    else:
+        t = torch.randn(spec.shape, generator=gen, dtype=torch.float32).to(dtype)
     return t / torch.linalg.vector_norm(t)

@@ -2,16 +2,31 @@
 standardize, split, persist and load; numpy only).
 
 A prepared dataset is an `.npz` dict with X/y x train/val/test, written by
-`prepare_dataset` as `{name}_tensor.npz`. The sklearn-bundled loaders
-(`load_sklearn_dataset`) and the UCI fetch (`load_ucirepo`) are not ported
-yet.
+`prepare_dataset` as `{name}_tensor.npz`.
+
+sklearn's bundled datasets (iris, wine, breast_cancer, diabetes) are read
+from copies committed beside this module, `{name}.npz` (digits from
+`digits.npz`, see `images.py`), so that a machine without sklearn loads the
+same arrays; `load_sklearn_dataset` splits and standardises them with the
+JAX package's numpy code. Rewrite the copies with
+
+    python -m tensornetworksfork_tpu_torch.data.tabular --write-sklearn
+
+which needs sklearn. The UCI fetch (`load_ucirepo`) is not ported.
 """
 from __future__ import annotations
 
+import argparse
 import os
 from typing import Dict
 
 import numpy as np
+
+DATA_DIR = os.path.dirname(os.path.abspath(__file__))
+# name -> task, for the bundled datasets
+SKLEARN_DATASETS = {"iris": "classification", "wine": "classification",
+                    "breast_cancer": "classification",
+                    "diabetes": "regression", "digits": "classification"}
 
 
 def standardize(X: np.ndarray, mean=None, std=None):
@@ -61,3 +76,56 @@ def load_tabular_data(path_or_name: str, data_dir: str = "data"
         path = os.path.join(data_dir, f"{path_or_name}_tensor.npz")
     with np.load(path) as d:
         return {k: d[k] for k in d.files}
+
+
+def sklearn_file(name: str) -> str:
+    return os.path.join(DATA_DIR, f"{name}.npz")
+
+
+def write_sklearn(names=("iris", "wine", "breast_cancer", "diabetes")) -> None:
+    """Store the `data` and `target` arrays of sklearn's bundled loaders,
+    as they come, in `{name}.npz` beside this module."""
+    from sklearn import datasets as skd
+    for name in names:
+        ds = getattr(skd, f"load_{name}")()
+        np.savez_compressed(sklearn_file(name), data=ds.data, target=ds.target)
+
+
+def sklearn_arrays(name: str):
+    """(data, target) of a bundled dataset, read from its committed copy."""
+    if name == "digits":
+        from .images import load_digits_arrays
+        images, target = load_digits_arrays()
+        return images.reshape(len(images), -1), target
+    with np.load(sklearn_file(name)) as d:
+        return d["data"], d["target"]
+
+
+def load_sklearn_dataset(name: str, seed: int = 42) -> Dict[str, np.ndarray]:
+    """A bundled dataset, standardized (on the train split) and split
+    60/20/20; a regression target is standardized first. `task` names the
+    task."""
+    if name not in SKLEARN_DATASETS:
+        raise ValueError(f"unknown bundled dataset {name!r}")
+    task = SKLEARN_DATASETS[name]
+    data, target = sklearn_arrays(name)
+    X = np.asarray(data, np.float32)
+    y = np.asarray(target, np.float32)
+    if task == "regression":
+        y = (y - y.mean()) / y.std()
+    splits = split_train_val_test(X, y.reshape(-1, 1), seed=seed)
+    Xtr, mean, std = standardize(splits["X_train"])
+    splits["X_train"] = Xtr
+    splits["X_val"] = standardize(splits["X_val"], mean, std)[0]
+    splits["X_test"] = standardize(splits["X_test"], mean, std)[0]
+    splits["task"] = task
+    return splits
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--write-sklearn", action="store_true",
+                    help="store sklearn's iris, wine, breast_cancer and diabetes "
+                         f"as {DATA_DIR}/<name>.npz (needs sklearn)")
+    if ap.parse_args().write_sklearn:
+        write_sklearn()

@@ -1,12 +1,16 @@
 """Tabular training CLI (port of tensornetworksfork_tpu/experiments/train_tabular.py).
 
-Fits a `TensorTrainRegressor` (model_type `tt` or `tt_type1`) on synthetic
-data or a prepared `.npz` and reports val/test rmse and r2 (or accuracy),
-appending one row to `results_file`. The other model families raise
-NotImplementedError naming their ROADMAP item, as do the sklearn-bundled
-datasets (the GPU machine has no sklearn).
+Fits a model family on synthetic data, one of sklearn's bundled datasets
+(iris, wine, breast_cancer, diabetes, digits: read from the copies in
+`data/`, so no sklearn is needed) or a prepared `.npz`, and reports val/test
+rmse and r2 (or accuracy), appending one row to `results_file`. Families:
+`TensorTrainRegressor` (model_type tt | tt_type1 | cpd | cpd_type1, with
+--cum_sum / --linear_dim), `tnml` (TNMLRegressor, min-max scaled sin-cos
+features) and `polynomial` (degree N, Ridge with alpha = eps). tt_batch,
+mlp, xgboost and svm raise NotImplementedError naming their ROADMAP item.
 
 Run:  python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset synthetic
+      python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset iris --model_type tnml
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset path/to/name_tensor.npz
 
 It runs on the card; `--device cpu` runs it on the CPU. Without a visible
@@ -21,17 +25,18 @@ import numpy as np
 import torch
 
 from ..data.synthetic import make_regression
-from ..data.tabular import load_tabular_data, split_train_val_test
+from ..data.tabular import (SKLEARN_DATASETS, load_sklearn_dataset,
+                            load_tabular_data, split_train_val_test)
+from ..models.baselines import PolynomialRegressionWrapper
 from ..models.estimators import TensorTrainRegressor
+from ..models.tnml import TNMLRegressor
 from ..ops.bregman import XEBregman
 from ..utils.config import RunConfig
 from ..utils.device import resolve_device
 from ..utils.metrics import accuracy, append_results_csv, r2_score, rmse
 
 # model families of the JAX package's CLI that are not ported yet
-_NOT_PORTED = {"cpd": 14, "cpd_type1": 14, "tnml": 15, "tt_batch": 15,
-               "mlp": 15, "xgboost": 15, "svm": 15, "polynomial": 15}
-SKLEARN_DATASETS = ("iris", "wine", "breast_cancer", "diabetes", "digits")
+_NOT_PORTED = {"tt_batch": 15, "mlp": 15, "xgboost": 15, "svm": 15}
 
 
 def build_model(cfg: RunConfig, input_dim: int):
@@ -39,7 +44,21 @@ def build_model(cfg: RunConfig, input_dim: int):
     if mt in _NOT_PORTED:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported (ROADMAP item {_NOT_PORTED[mt]})")
-    if mt not in ("tt", "tt_type1"):
+    device = resolve_device(cfg.device)
+    if mt == "tnml":
+        # the loaders standardize features; the sin-cos map wants [0, 1]
+        return TNMLRegressor(
+            input_scale="minmax",
+            r=cfg.r, output_dim=cfg.output_dim, seed=cfg.seed, lr=cfg.lr,
+            eps_start=cfg.eps, eps_decay=cfg.eps_decay, abs_err=cfg.abs_err,
+            rel_err=cfg.rel_err, batch_size=cfg.batch_size, method=cfg.method,
+            num_swipes=cfg.num_swipes, task=cfg.task,
+            early_stopping=cfg.early_stopping, verbose=cfg.verbose,
+            device=device)
+    if mt == "polynomial":
+        return PolynomialRegressionWrapper(degree=cfg.N, regularization="l2",
+                                           alpha=cfg.eps, device=device)
+    if mt not in ("tt", "tt_type1", "cpd", "cpd_type1"):
         raise ValueError(f"unknown model_type {mt!r}")
     return TensorTrainRegressor(
         N=cfg.N, r=cfg.r, output_dim=cfg.output_dim,
@@ -53,12 +72,13 @@ def build_model(cfg: RunConfig, input_dim: int):
         train_operator=cfg.train_operator, cum_sum=cfg.cum_sum,
         early_stopping=cfg.early_stopping, verbose=cfg.verbose,
         timeout=cfg.timeout, precision=cfg.precision, refine=cfg.refine,
-        solve_dtype=cfg.solve_dtype, device=resolve_device(cfg.device))
+        solve_dtype=cfg.solve_dtype, device=device)
 
 
 def load_data(cfg: RunConfig, data=None):
     """The split dict for cfg.dataset: synthetic (a RandomPolynomialRange
-    target over 6 features, 4096 rows, from cfg.seed) or a prepared .npz."""
+    target over 6 features, 4096 rows, from cfg.seed), a bundled dataset
+    (which also sets cfg.task) or a prepared .npz."""
     if data is not None:
         if "task" in data:
             cfg.task = data.pop("task")
@@ -67,9 +87,9 @@ def load_data(cfg: RunConfig, data=None):
         X, y = make_regression(S=4096, d=6, degree=3, seed=cfg.seed)
         return split_train_val_test(X, y, seed=cfg.seed)
     if cfg.dataset in SKLEARN_DATASETS:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} needs sklearn's bundled loaders, which "
-            "are not ported (ROADMAP item 18); prepare an .npz instead")
+        data = load_sklearn_dataset(cfg.dataset, seed=cfg.seed)
+        cfg.task = data.pop("task")
+        return data
     return load_tabular_data(cfg.dataset, cfg.data_path)
 
 
@@ -93,18 +113,25 @@ def run(cfg: RunConfig, overrides=None, data=None) -> dict:
 
     model = build_model(cfg, X_tr.shape[1])
     t0 = time.time()
-    singular = False
+    raised = False
     try:
-        model.fit(X_tr, y_tr, X_val=X_val, y_val=y_val)
+        if isinstance(model, PolynomialRegressionWrapper):
+            model.fit(X_tr, y_tr)
+        else:
+            model.fit(X_tr, y_tr, X_val=X_val, y_val=y_val)
     except torch.linalg.LinAlgError as e:
         print(f"training failed: {e}", file=sys.stderr)
-        singular = True
-    singular = singular or not model.fit_ok_
+        raised = True
     train_s = time.time() - t0
 
-    results = dict(cfg.to_dict(), singular=singular,
+    # `singular` also records a sweep that stopped at a singular solve (the
+    # JAX package's estimator drops that flag); such a model, the params it
+    # stopped with or early stopping's best state, is still scored, as the
+    # JAX package scores it
+    results = dict(cfg.to_dict(),
+                   singular=raised or not getattr(model, "fit_ok_", True),
                    train_seconds=round(train_s, 2))
-    if not singular:
+    if not raised:
         for split, Xs, ys in (("val", X_val, y_val), ("test", X_te, y_te)):
             y_pred = model.predict(Xs)
             if cfg.task == "regression":

@@ -1,8 +1,10 @@
 """sklearn-style estimators over the sweep engine (port of
 tensornetworksfork_tpu/models/estimators.py).
 
-`TensorTrainRegressor` for model_type `tt` and `tt_type1` (a type-I sum of
-degree-1..N tensor trains): bias-column augmentation, validation split,
+`TensorTrainRegressor` for model_type `tt`, `cpd` and their type-I sums
+`tt_type1` / `cpd_type1` (degree-1..N members), with the `cum_sum` and
+`linear_dim` modifiers of the tt variants: bias-column augmentation,
+validation split,
 `EarlyStopping` with abs/rel improvement thresholds and best-state
 restore, the C-1-logit classification convention (a zero logit appended at
 evaluation), and numerics tiers. It runs on `device`, the card unless the
@@ -13,10 +15,9 @@ there once per fit.
 lanczos and `gradient`) and `solve_dtype` (None / "float32" or "float64")
 reach the sweep's `SweepConfig` as in the JAX package.
 
-Not ported yet, each raising NotImplementedError: model_type `cpd` /
-`cpd_type1`, `cum_sum` and `linear_dim` (ROADMAP item 14) and `export`
-(item 18). The JAX package's concurrent pre-compilation before the sweep
-has no counterpart: nothing compiles.
+Not ported yet: `export` (ROADMAP item 18) raises NotImplementedError. The
+JAX package's concurrent pre-compilation before the sweep has no
+counterpart: nothing compiles.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ from ..ops.bregman import SquareBregFunction, XEBregman
 from ..utils.device import resolve_device
 from ..utils.metrics import r2_score as r2_score_np, rmse
 from ..utils.precision import numerics_tier, validate_tier
-from .layers import SumLayer, TensorTrainLayer, TNLayer
+from .layers import (CPDLayer, CumSumLayer, SumLayer, TensorTrainLayer,
+                     TensorTrainLinearLayer, TNLayer)
 
 try:  # sklearn is optional (the GPU machine has none)
     from sklearn.base import BaseEstimator, RegressorMixin
@@ -158,9 +160,11 @@ class EarlyStopping:
 
 
 class TensorTrainRegressor(BaseEstimator, RegressorMixin):
-    """The canonical estimator. model_type 'tt' is one tensor train over
-    the bias-augmented features; 'tt_type1' a sum of degree-1..N trains
-    whose members beyond degree 1 drop the bias column."""
+    """The canonical estimator. model_type 'tt' | 'tt_type1' | 'cpd' |
+    'cpd_type1': one network over the bias-augmented features, or ('type1')
+    a sum of degree-1..N networks whose members beyond degree 1 drop the
+    bias column. cum_sum and linear_dim modify the tt variants; a
+    linear_dim in (0, 1) is that fraction of the input width."""
 
     def __init__(self, N=3, r=8, output_dim=1, linear_dim=None,
                  constrict_bond=False, perturb=False, seed=42,
@@ -203,27 +207,31 @@ class TensorTrainRegressor(BaseEstimator, RegressorMixin):
         self.device = resolve_device(device)
         self._model = None
         self.input_dim = None
-        if model_type not in ("tt", "tt_type1"):
-            raise NotImplementedError(
-                f"model_type {model_type!r}: only 'tt' and 'tt_type1' are "
-                "ported (ROADMAP item 14)")
-        if cum_sum or self.linear_dim is not None:
-            raise NotImplementedError(
-                "cum_sum and linear_dim layers are not ported (ROADMAP item 14)")
         if self.perturb and self.output_dim > 1:
             raise ValueError("perturb not supported for output dim > 1")
 
     # ----------------------------------------------------------- model build
     def _make_single(self, n, f, seed) -> TNLayer:
-        return TensorTrainLayer(n, self.r, f, output_shape=self.output_dim,
-                                constrict_bond=self.constrict_bond,
-                                perturb=self.perturb, dtype=self.dtype,
-                                seed=seed, device=self.device)
+        kw = dict(output_shape=self.output_dim, dtype=self.dtype, seed=seed,
+                  device=self.device)
+        if self.model_type.startswith("cpd"):
+            return CPDLayer(n, self.r, f, perturb=self.perturb, **kw)
+        if self.cum_sum:
+            return CumSumLayer(n, self.r, f, constrict_bond=self.constrict_bond,
+                               perturb=self.perturb, **kw)
+        if self.linear_dim is not None and self.linear_dim < f:
+            return TensorTrainLinearLayer(
+                n, self.r, f, self.linear_dim, constrict_bond=self.constrict_bond,
+                perturb=self.perturb, **kw)
+        return TensorTrainLayer(n, self.r, f, constrict_bond=self.constrict_bond,
+                                perturb=self.perturb, **kw)
 
     def _initialize_model(self):
         if self.input_dim is None:
             raise ValueError("input_dim must be set")
-        if "type1" in self.model_type:
+        if isinstance(self.linear_dim, float) and 0 < self.linear_dim < 1:
+            self.linear_dim = max(int(self.linear_dim * self.input_dim), 1)
+        if "type1" in self.model_type or "typeI" in self.model_type:
             # degree-1..N members; members > 1 drop the bias column
             layers = [
                 self._make_single(

@@ -1,10 +1,12 @@
 """Model zoo: tensor-network layer builders (port of
-tensornetworksfork_tpu/models/layers.py: the shared helpers, the tensor
-train, the conv-TT classifier and type-I sums so far).
+tensornetworksfork_tpu/models/layers.py; all but CompressedTensorTrainLayer
+and concatenate_trains, ROADMAP item 16).
 
 Each builder returns a `TNLayer` holding a `Network` (structure) and a params
 dict (state). The topology is built by the same calls as in the JAX package,
-so node names, axis ids and shapes agree one to one.
+so node names, axis ids and shapes agree one to one. Every builder takes
+`device` (the card unless the caller asks for the CPU) and `use_kernels`
+(see `Network`).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core.engine import Network
-from ..core.topology import INPUT, PARAM, TopologyBuilder
+from ..core.topology import CONST, INPUT, PARAM, TopologyBuilder
 
 
 def tt_rank_profile(N: int, r: int, f, constrict_bond: bool = True
@@ -242,6 +244,214 @@ class TensorConvolutionTrainLayer(TNLayer):
                          topo.init_params(seed, dtype, device))
 
 
+class TensorTrainLinearLayer(TNLayer):
+    """Tensor train over learned linear feature maps: core A_i reads
+    L_i(lin, p) X_i(s, p), a map of the f features down to linear_dim.
+    train_linear=False freezes the maps (they stay out of the train
+    order)."""
+
+    def __init__(self, num_carriages: int, bond_dim: int, input_features: int,
+                 linear_dim: int, output_shape=(), constrict_bond: bool = True,
+                 train_linear: bool = True, perturb: bool = False,
+                 dtype=torch.float32, seed: int = 0, device="cuda",
+                 use_kernels: Optional[bool] = None):
+        N, r, f, ld = num_carriages, bond_dim, input_features, linear_dim
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        self.num_carriages, self.bond_dim = N, r
+        self.input_features, self.linear_dim = f, ld
+        b = TopologyBuilder()
+        rng = np.random.default_rng(seed)
+        if perturb:
+            inits = perturb_profile(N, 1 if N == 1 else r, ld, constrict_bond, rng)
+            profile = [(a.shape[0], a.shape[-1]) for a in inits]
+        else:
+            profile = tt_rank_profile(N, 1 if N == 1 else r, ld, constrict_bond)
+            inits = [None] * N
+
+        out_labels = ["s"]
+        train_order = []
+        for i in range(1, N + 1):
+            left, right = profile[i - 1]
+            if i - 1 < len(output_shape):
+                up, up_label = output_shape[i - 1], f"c{i}"
+                out_labels.append(up_label)
+            else:
+                up, up_label = 1, "c"
+            b.node(f"A{i}", (f"r{i}", up_label, f"lin{i}", f"r{i+1}"),
+                   (left, up, ld, right), kind=PARAM,
+                   left=(f"r{i}",), right=(f"r{i+1}",), init=inits[i - 1])
+            b.node(f"L{i}", (f"lin{i}", f"p{i}"), (ld, f), kind=PARAM)
+            b.node(f"X{i}", ("s", f"p{i}"), (None, f), kind=INPUT)
+            b.connect(f"A{i}", f"lin{i}", f"L{i}")
+            b.connect(f"L{i}", f"p{i}", f"X{i}")
+            if i > 1:
+                b.connect(f"A{i-1}", f"r{i}", f"A{i}")
+            train_order += [f"A{i}", f"L{i}"] if train_linear else [f"A{i}"]
+        for i in range(1, N + 1):
+            b.squeeze(f"A{i}", exclude=out_labels)
+        topo = b.finalize([f"X{i}" for i in range(1, N + 1)],
+                          [f"A{i}" for i in range(1, N + 1)],
+                          train_nodes=train_order,
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+def cum_sum_operator(n: int, num_carriages: int, f: int) -> np.ndarray:
+    """Core n of the cumulative-sum MPO: op[i,k,l,m] = H[i,k] δ(k=l)
+    δ(m = k, or 0 on the last core), H upper-triangular ones; built directly
+    in O(f²) entries."""
+    left_dim = 1 if n == 0 else f
+    right_dim = 1 if n == num_carriages - 1 else f
+    H = np.triu(np.ones((left_dim, f)))
+    op = np.zeros((left_dim, f, f, right_dim))
+    last = n == num_carriages - 1
+    for k in range(f):
+        op[:, k, k, 0 if last else k] = H[:, k]
+    return op
+
+
+class CumSumLayer(TNLayer):
+    """Tensor train acting on cumulative feature sums: a second chain of
+    CONST operator nodes O_i (`cum_sum_operator`) sits between the inputs
+    and the cores."""
+
+    def __init__(self, num_carriages: int, bond_dim: int, input_features: int,
+                 output_shape=(), constrict_bond: bool = True,
+                 perturb: bool = False, dtype=torch.float32, seed: int = 0,
+                 device="cuda", use_kernels: Optional[bool] = None):
+        N, r, f = num_carriages, bond_dim, input_features
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        self.num_carriages, self.input_features = N, f
+        b = TopologyBuilder()
+        rng = np.random.default_rng(seed)
+        if perturb:
+            inits = perturb_profile(N, 1 if N == 1 else r, f, constrict_bond, rng)
+            profile = [(a.shape[0], a.shape[-1]) for a in inits]
+        else:
+            profile = tt_rank_profile(N, 1 if N == 1 else r, f, constrict_bond)
+            inits = [None] * N
+
+        out_labels = ["s"]
+        for i in range(1, N + 1):
+            left, right = profile[i - 1]
+            if i - 1 < len(output_shape):
+                up, up_label = output_shape[i - 1], f"c{i}"
+                out_labels.append(up_label)
+            else:
+                up, up_label = 1, "c"
+            b.node(f"A{i}", (f"r{i}", up_label, f"p{i}", f"r{i+1}"),
+                   (left, up, f, right), kind=PARAM,
+                   left=(f"r{i}",), right=(f"r{i+1}",), init=inits[i - 1])
+            if i > 1:
+                b.connect(f"A{i-1}", f"r{i}", f"A{i}")
+        if N > 1:
+            for i in range(1, N + 1):
+                op = cum_sum_operator(i - 1, N, f)
+                b.node(f"O{i}", (f"b{i}", f"p{i}", f"d{i}", f"b{i+1}"),
+                       op.shape, kind=CONST,
+                       left=(f"b{i}",), right=(f"b{i+1}",), init=op)
+                b.node(f"X{i}", ("s", f"d{i}"), (None, f), kind=INPUT)
+                b.connect(f"A{i}", f"p{i}", f"O{i}")
+                b.connect(f"O{i}", f"d{i}", f"X{i}")
+                if i > 1:
+                    b.connect(f"O{i-1}", f"b{i}", f"O{i}")
+            for i in range(1, N + 1):
+                b.squeeze(f"O{i}")
+        else:
+            b.node("X1", ("s", "p1"), (None, f), kind=INPUT)
+            b.connect("A1", "p1", "X1")
+        for i in range(1, N + 1):
+            b.squeeze(f"A{i}", exclude=out_labels)
+        topo = b.finalize([f"X{i}" for i in range(1, N + 1)],
+                          [f"A{i}" for i in range(1, N + 1)],
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+class CPDLayer(TNLayer):
+    """CP decomposition: factors A_i(b, p) tied over one rank hyperedge b;
+    the first factor carries the output leg."""
+
+    def __init__(self, num_factors: int, rank: int, input_features: int,
+                 output_shape=(), perturb: bool = False, dtype=torch.float32,
+                 seed: int = 0, device="cuda", use_kernels: Optional[bool] = None):
+        Nf, R, f = num_factors, rank, input_features
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        self.num_factors, self.rank, self.input_features = Nf, R, f
+        out_dim = output_shape[0] if output_shape else 1
+        b = TopologyBuilder()
+        for i in range(1, Nf + 1):
+            if i == 1:
+                if Nf == 1:
+                    b.node("A1", ("p", "o"), (f, out_dim), kind=PARAM)
+                else:
+                    b.node("A1", ("b", "p", "o"), (R, f, out_dim), kind=PARAM)
+            else:
+                init = None
+                if perturb:
+                    rng = np.random.default_rng(seed + i)
+                    core = np.zeros((R, f))
+                    core[:, -1] = 1.0
+                    if i == Nf:
+                        core[:, -1] += 0.02 * rng.standard_normal(R)
+                    init = core
+                b.node(f"A{i}", ("b", "p"), (R, f), kind=PARAM, init=init)
+            b.node(f"X{i}", ("s", f"p{i}"), (None, f), kind=INPUT)
+            b.connect(f"A{i}", "p", f"X{i}", f"p{i}")
+        if Nf > 1:
+            b.tie([(f"A{i}", "b") for i in range(1, Nf + 1)])
+        topo = b.finalize([f"X{i}" for i in range(1, Nf + 1)],
+                          [f"A{i}" for i in range(1, Nf + 1)],
+                          output_labels=("s", "o"))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+class CPDTrainLayer(TNLayer):
+    """CPD written as a tensor train of diagonal cores: the middle cores
+    start diagonal in their bonds and `cpd_mask` keeps every update so."""
+
+    def __init__(self, num_carriages: int, bond_dim: int, input_features: int,
+                 output_shape=(), dtype=torch.float32, seed: int = 0,
+                 device="cuda", use_kernels: Optional[bool] = None):
+        N, r, f = num_carriages, bond_dim, input_features
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        b = TopologyBuilder()
+        rng = np.random.default_rng(seed)
+        out_labels = ["s"]
+        for i in range(1, N + 1):
+            if i - 1 < len(output_shape):
+                up, up_label = output_shape[i - 1], f"c{i}"
+                out_labels.append(up_label)
+            else:
+                up, up_label = 1, "c"
+            left = 1 if i == 1 else r
+            right = 1 if i == N else r
+            init = None
+            if left > 1 and right > 1:
+                core = np.zeros((left, up, f, right))
+                for u in range(up):
+                    for k in range(f):
+                        core[:, u, k, :] = np.diag(rng.standard_normal(right))
+                init = core
+            b.node(f"A{i}", (f"r{i}", up_label, f"p{i}", f"r{i+1}"),
+                   (left, up, f, right), kind=PARAM,
+                   left=(f"r{i}",), right=(f"r{i+1}",), init=init, cpd_mask=True)
+            b.node(f"X{i}", ("s", f"p{i}"), (None, f), kind=INPUT)
+            b.connect(f"A{i}", f"p{i}", f"X{i}")
+            if i > 1:
+                b.connect(f"A{i-1}", f"r{i}", f"A{i}")
+        for i in range(1, N + 1):
+            b.squeeze(f"A{i}", exclude=out_labels)
+        topo = b.finalize([f"X{i}" for i in range(1, N + 1)],
+                          [f"A{i}" for i in range(1, N + 1)],
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
 class SumLayer:
     """Type-I sum: an ensemble of networks whose outputs add; each member
     sees the global x through its input function (default: a slice down to
@@ -304,3 +514,275 @@ def _slice_adapter(net: Network):
         return inputs
 
     return fn
+
+
+class OperatorTTLayer(TNLayer):
+    """Operator sandwich: input -> MPO operator row O_i -> TT spine A_i.
+    `operator` is one (bl, u, d, br) core (first and last cores cut to
+    their boundary bonds unless `left` / `right` are given), or a list of
+    cores. ring=True closes both chains into rings: each keeps one open
+    bond through the whole environment chain. train_operator makes the
+    operator cores trainable."""
+
+    def __init__(self, operator, input_features: int, bond_dim: int,
+                 num_carriages: int, output_shape=1, ring: bool = False,
+                 left=None, right=None, constrict_bond: bool = True,
+                 train_operator: bool = False, dtype=torch.float32,
+                 seed: int = 0, device="cuda", use_kernels: Optional[bool] = None):
+        N, f, r = num_carriages, input_features, bond_dim
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        b = TopologyBuilder()
+        ops = []
+        for i in range(N):
+            if isinstance(operator, (list, tuple)):
+                O = np.asarray(operator[i])
+            elif ring:
+                O = np.asarray(operator)
+            elif i == 0 and left is not None:
+                O = np.asarray(left)
+            elif i == N - 1 and right is not None:
+                O = np.asarray(right)
+            elif i == 0:
+                O = np.asarray(operator)[:1]
+            elif i == N - 1:
+                O = np.asarray(operator)[..., -1:]
+            else:
+                O = np.asarray(operator)
+            ops.append(O)
+
+        profile = tt_rank_profile(N, 1 if N == 1 else r, f, constrict_bond)
+        out_labels = ["s"]
+        for i in range(1, N + 1):
+            O = ops[i - 1]
+            bl = "br" if ring and i == 1 else f"b{i}"
+            br = "br" if ring and i == N else f"b{i+1}"
+            b.node(f"O{i}", (bl, f"u{i}", f"d{i}", br), O.shape,
+                   kind=PARAM if train_operator else CONST,
+                   left=(bl,), right=(br,), init=O)
+            b.node(f"X{i}", ("s", f"d{i}"), (None, f), kind=INPUT)
+            b.connect(f"O{i}", f"d{i}", f"X{i}")
+            if i > 1:
+                b.connect(f"O{i-1}", f"b{i}", f"O{i}")
+            lab_l = "rr" if ring and i == 1 else f"r{i}"
+            lab_r = "rr" if ring and i == N else f"r{i+1}"
+            if i - 1 < len(output_shape):
+                up, up_label = output_shape[i - 1], f"c{i}"
+                out_labels.append(up_label)
+            else:
+                up, up_label = 1, "c"
+            lft, rgt = profile[i - 1]
+            if ring:
+                lft = rgt = r
+            b.node(f"A{i}", (lab_l, up_label, f"u{i}", lab_r),
+                   (lft, up, O.shape[1], rgt),
+                   kind=PARAM, left=(lab_l,), right=(lab_r,))
+            b.connect(f"A{i}", f"u{i}", f"O{i}")
+            if i > 1:
+                b.connect(f"A{i-1}", lab_l, f"A{i}")
+        if ring and N > 1:
+            b.connect(f"A{N}", "rr", "A1")
+            b.connect(f"O{N}", "br", "O1")
+        for i in range(1, N + 1):
+            b.squeeze(f"A{i}", exclude=out_labels)
+            b.squeeze(f"O{i}")
+        topo = b.finalize([f"X{i}" for i in range(1, N + 1)],
+                          [f"A{i}" for i in range(1, N + 1)],
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+class ComplexTensorTrainLayer(TensorTrainLayer):
+    """Complex tensor train: complex64 by default; complex128 runs natively
+    on the card as on the CPU. Complex networks take the plain routes of
+    the Gram stage (the kernels are real)."""
+
+    def __init__(self, num_carriages, bond_dim, input_features, output_shape=(),
+                 constrict_bond=True, dtype=torch.complex64, seed=0,
+                 device="cuda", use_kernels: Optional[bool] = None):
+        if not dtype.is_complex:
+            raise ValueError(f"dtype must be complex, got {dtype}")
+        super().__init__(num_carriages, bond_dim, input_features,
+                         output_shape=output_shape, constrict_bond=constrict_bond,
+                         perturb=False, dtype=dtype, seed=seed, device=device,
+                         use_kernels=use_kernels)
+
+
+class TensorTrainSplitInputLayer(TNLayer):
+    """Each of num_wagons input tensors (s, *input_shape) feeds
+    len(input_shape) consecutive cores, one axis each; bonds inside a wagon
+    are bond_dim, between wagons axle_bond. The inputs are a list, one
+    tensor a wagon."""
+
+    def __init__(self, num_wagons: int, bond_dim: int, input_shape=(),
+                 output_shape=(), axle_bond: int = 1, dtype=torch.float32,
+                 seed: int = 0, device="cuda", use_kernels: Optional[bool] = None):
+        d = len(input_shape)
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        b = TopologyBuilder()
+        out_labels = ["s"]
+        names = []
+        for i in range(num_wagons):
+            b.node(f"X{i}", ("s",) + tuple(f"I{i*d+j}" for j in range(d)),
+                   (None,) + tuple(input_shape), kind=INPUT)
+            for j in range(d):
+                idx = i * d + j
+                if idx < len(output_shape):
+                    up, up_label = output_shape[idx], f"c{idx}"
+                    out_labels.append(up_label)
+                else:
+                    up, up_label = 1, "c"
+                first = (i == 0 and j == 0)
+                last = (i == num_wagons - 1 and j == d - 1)
+                lft = 1 if first else (axle_bond if j == 0 else bond_dim)
+                rgt = 1 if last else (axle_bond if j == d - 1 else bond_dim)
+                name = f"A{idx}"
+                b.node(name, (f"r{idx}", up_label, f"I{idx}", f"r{idx+1}"),
+                       (lft, up, input_shape[j], rgt), kind=PARAM,
+                       left=(f"r{idx}",), right=(f"r{idx+1}",))
+                b.connect(name, f"I{idx}", f"X{i}")
+                if names:
+                    b.connect(names[-1], f"r{idx}", name)
+                names.append(name)
+        for name in names:
+            b.squeeze(name, exclude=out_labels)
+        topo = b.finalize([f"X{i}" for i in range(num_wagons)], names,
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+class TensorConvolutionGridTrainLayer(TNLayer):
+    """A grid of num_layers x num_carriages cores over conv-patched inputs:
+    horizontal bonds bond_dim on the top layer and lin_bond below, vertical
+    bonds lin_dim; only the top layer carries outputs, the bottom one reads
+    the patches. A column holds several trainable nodes; the train order is
+    column-major, bottom to top, conv block first."""
+
+    def __init__(self, num_carriages: int, num_layers: int, bond_dim: int,
+                 lin_dim: int, lin_bond: int, num_patches: int,
+                 patch_pixels: int, output_shape=(), convolution_bond: int = -1,
+                 dtype=torch.float32, seed: int = 0, device="cuda",
+                 use_kernels: Optional[bool] = None):
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        NC, NL = num_carriages, num_layers
+        b = TopologyBuilder()
+        out_labels = ["s"]
+        for i in range(1, NC + 1):
+            b.node(f"X{i}", ("s", "patches", "patch_pixels"),
+                   (None, num_patches, patch_pixels), kind=INPUT)
+            if convolution_bond > 0:
+                cb_l = 1 if i == 1 else convolution_bond
+                cb_r = 1 if i == NC else convolution_bond
+                b.node(f"C{i}", (f"CB{i}", "patch_pixels", f"CB{i+1}"),
+                       (cb_l, patch_pixels, cb_r), kind=PARAM,
+                       left=(f"CB{i}",), right=(f"CB{i+1}",))
+            else:
+                b.node(f"C{i}", ("patch_pixels",), (patch_pixels,), kind=PARAM)
+            b.connect(f"C{i}", "patch_pixels", f"X{i}")
+            if convolution_bond > 0 and i > 1:
+                b.connect(f"C{i-1}", f"CB{i}", f"C{i}")
+
+        all_nodes = []
+        for l in range(NL):
+            top = (l == NL - 1)
+            hb = bond_dim if top else lin_bond
+            for i in range(1, NC + 1):
+                if top and i - 1 < len(output_shape):
+                    cdim, clab = output_shape[i - 1], f"c{i}"
+                    out_labels.append(clab)
+                else:
+                    cdim, clab = 1, "c"
+                lft = 1 if i == 1 else max(hb, 1)
+                rgt = 1 if i == NC else max(hb, 1)
+                labels = [f"v{l}_{i}", f"r{l}_{i}", clab, f"r{l}_{i+1}",
+                          f"v{l+1}_{i}"]
+                vb_down = 1 if l == 0 else lin_dim
+                vb_up = lin_dim if l < NL - 1 else 1
+                if l == 0:
+                    labels.insert(3, "patches")
+                    shape = (vb_down, lft, cdim, num_patches, rgt, vb_up)
+                else:
+                    shape = (vb_down, lft, cdim, rgt, vb_up)
+                name = f"A{l}_{i}"
+                b.node(name, tuple(labels), shape, kind=PARAM,
+                       left=(f"r{l}_{i}",), right=(f"r{l}_{i+1}",))
+                all_nodes.append(name)
+                if l == 0:
+                    b.connect(name, "patches", f"X{i}")
+                else:
+                    b.connect(f"A{l-1}_{i}", f"v{l}_{i}", name)
+                if i > 1 and (hb > 0 or top):
+                    b.connect(f"A{l}_{i-1}", f"r{l}_{i}", name)
+        for name in all_nodes:
+            b.squeeze(name, exclude=out_labels)
+        for i in range(1, NC + 1):
+            b.squeeze(f"C{i}")
+        main = [f"A{NL-1}_{i}" for i in range(1, NC + 1)]
+        train = []
+        for i in range(1, NC + 1):
+            train.append(f"C{i}")
+            for l in range(NL):
+                train.append(f"A{l}_{i}")
+        topo = b.finalize([f"X{i}" for i in range(1, NC + 1)], main,
+                          train_nodes=train, output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+class TensorConvOperatorLayer(TNLayer):
+    """Conv block x fixed operator feature map x TT over patches: per patch
+    out = sum_q X[s,p,q] C[a,q,b] O[q,u], the input's pixel axis, the conv
+    block's and the operator's input leg being one three-way hyperedge.
+    Requires patch_pixels == operator.shape[0]."""
+
+    def __init__(self, operator, input_features: int, bond_dim: int,
+                 num_carriages: int, num_patches: int, patch_pixels: int,
+                 output_shape=(), convolution_bond: int = -1,
+                 dtype=torch.float32, seed: int = 0, device="cuda",
+                 use_kernels: Optional[bool] = None):
+        N = num_carriages
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        op0 = np.asarray(operator[0] if isinstance(operator, (list, tuple))
+                         else operator)
+        if patch_pixels != op0.shape[0]:
+            raise ValueError("patch_pixels must equal the operator input dim")
+        b = TopologyBuilder()
+        out_labels = ["s"]
+        for i in range(N):
+            if convolution_bond > 0:
+                cl = 1 if i == 0 else convolution_bond
+                cr = 1 if i == N - 1 else convolution_bond
+                b.node(f"C{i}", (f"CB{i+1}", f"q{i}", f"CB{i+2}"),
+                       (cl, patch_pixels, cr), kind=PARAM,
+                       left=(f"CB{i+1}",), right=(f"CB{i+2}",))
+                if i > 0:
+                    b.connect(f"C{i-1}", f"CB{i+1}", f"C{i}")
+            else:
+                b.node(f"C{i}", (f"q{i}",), (patch_pixels,), kind=PARAM)
+            b.node(f"X{i}", ("s", "patches", f"q{i}"),
+                   (None, num_patches, patch_pixels), kind=INPUT)
+            O = np.asarray(operator[i] if isinstance(operator, (list, tuple))
+                           else operator)
+            b.node(f"O{i}", (f"q{i}", f"u{i}"), O.shape, kind=CONST, init=O)
+            out_dim = output_shape[i] if i < len(output_shape) else 1
+            b.node(f"A{i}", (f"r{i+1}", f"c{i+1}", "patches", f"u{i}", f"r{i+2}"),
+                   (1 if i == 0 else bond_dim, out_dim, num_patches,
+                    O.shape[1], 1 if i == N - 1 else bond_dim), kind=PARAM,
+                   left=(f"r{i+1}",), right=(f"r{i+2}",))
+            out_labels.append(f"c{i+1}")
+            # hyperedge: input pixels x conv pixels x operator input leg
+            b.tie([(f"X{i}", f"q{i}"), (f"C{i}", f"q{i}"), (f"O{i}", f"q{i}")])
+            b.connect(f"O{i}", f"u{i}", f"A{i}")
+            b.connect(f"X{i}", "patches", f"A{i}")
+            if i > 0:
+                b.connect(f"A{i-1}", f"r{i+1}", f"A{i}")
+        for i in range(N):
+            b.squeeze(f"A{i}", exclude=out_labels)
+            b.squeeze(f"C{i}")
+        # size-1 output labels are kept
+        topo = b.finalize([f"X{i}" for i in range(N)],
+                          [f"A{i}" for i in range(N)],
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))

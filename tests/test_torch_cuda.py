@@ -444,3 +444,65 @@ def test_f64_solve_block_on_cuda(method):
                           "cholesky" if "cholesky" in method else "exact", 0.0,
                           solve_dtype="float64")
     assert not bool(ok) and bool(torch.isnan(bad).all())
+
+
+@pytest.mark.cuda
+def test_zoo_layers_and_losses_match_cpu_on_cuda():
+    """chip_smoke's phase 9 (i): one swipe of every zoo layer builder and
+    loss (and one with orthonormalize=True), kernels on the card against
+    their plain versions on the CPU, from the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.check_zoo_reference(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kernel", [(dict(model_type="cpd"), "weighted_gram"),
+                                       (dict(linear_dim=4), "weighted_gram"),
+                                       (dict(cum_sum=True), "weighted_gram_tiled")])
+def test_zoo_families_launch_their_kernels_on_cuda(kw, kernel, monkeypatch):
+    """A small fit of cpd, linear_dim and cum_sum on the card launches the
+    Gram kernel of its route (cum_sum's middle core on the tiled route with
+    TNF_PACKED_SYRK_MIN_D=1) and beats predicting the mean."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    X, y = make_regression(S=2560, d=8, degree=3, seed=0)
+    est = TensorTrainRegressor(N=3, r=4, batch_size=512, eps_start=5.0,
+                               eps_decay=0.25, num_swipes=2, device="cuda", **kw)
+    kg.reset_launches()
+    est.fit(X[:2048], y[:2048], X_val=X[2048:], y_val=y[2048:])
+    assert est.fit_ok_ and kg.LAUNCHES[kernel] > 0
+    assert float(np.sqrt(np.mean((est.predict(X[2048:]) - y[2048:]) ** 2))) < 1.0
+
+
+@pytest.mark.cuda
+def test_polynomial_and_tnml_on_cuda():
+    """The polynomial baseline's float32 Ridge on the card against the same
+    fit on the CPU (within 1e-3 x max|pred|: two float32 Cholesky solves of
+    a cond ~1e5 kernel system), and a TNML fit on the card beats the
+    majority class."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from tensornetworksfork_tpu_torch.data.tabular import load_sklearn_dataset
+    from tensornetworksfork_tpu_torch.models.baselines import PolynomialRegressionWrapper
+    from tensornetworksfork_tpu_torch.models.tnml import TNMLRegressor
+    d = load_sklearn_dataset("diabetes", seed=42)
+    preds = [PolynomialRegressionWrapper(3, "l2", 0.5, device=dev)
+             .fit(d["X_train"], d["y_train"]).predict(d["X_test"])
+             for dev in ("cpu", "cuda")]
+    assert np.abs(preds[1] - preds[0]).max() <= 1e-3 * np.abs(preds[0]).max()
+    bc = load_sklearn_dataset("breast_cancer", seed=42)
+    est = TNMLRegressor(r=4, num_swipes=2, eps_start=0.5, task="classification",
+                        input_scale="minmax", device="cuda")
+    est.fit(bc["X_train"], bc["y_train"], X_val=bc["X_val"], y_val=bc["y_val"])
+    yv = bc["y_val"].reshape(-1)
+    acc = float(np.mean(est.predict(bc["X_val"]).argmax(1) == yv))
+    assert est.fit_ok_ and acc > max(yv.mean(), 1 - yv.mean())

@@ -94,10 +94,51 @@ def test_contract_matches(case):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("seed", range(12))
+def test_greedy_path_matches_numpy(seed):
+    """The port's greedy planner, which plans every contraction of more
+    than 6 operands, gives numpy.einsum_path's greedy path, capped and not,
+    on random expressions of 7-14 operands (hyperedges, size-1 axes, kept
+    axes, disconnected parts) and on the 54-axis chain written in ASCII's
+    52 letters: the ASCII plans are numpy's as they were."""
+    rng = np.random.default_rng(seed)
+    n_ops = int(rng.integers(7, 15))
+    letters = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    n_ax = int(rng.integers(6, 30))
+    dims = {ch: int(rng.integers(1, 7)) for ch in letters[:n_ax]}
+    terms = ["".join(rng.choice(list(letters[:n_ax]), int(rng.integers(1, 5)),
+                                replace=False)) for _ in range(n_ops)]
+    used = sorted(set("".join(terms)))
+    out = "".join(ch for ch in used if rng.uniform() < 0.15)
+    expr = ",".join(terms) + "->" + out
+    dummies = [np.broadcast_to(np.empty((), np.float32), [dims[ch] for ch in t])
+               for t in terms]
+    for cap in (float(rng.integers(4, 200)), tcontract._UNCAPPED):
+        ref = np.einsum_path(expr, *dummies, optimize=("greedy", cap))[0][1:]
+        got = tcontract._greedy_path(terms, out, dims, cap)
+        assert [tuple(st) for st in got] == [tuple(st) for st in ref], (expr, cap)
+    chain = [letters[i] + letters[i + 1] for i in range(51)]
+    ref = np.einsum_path(",".join(chain) + "->az", *[np.ones((2, 2))] * 51,
+                         optimize=("greedy", tcontract._UNCAPPED))[0][1:]
+    assert tcontract._greedy_path(chain, "az", {ch: 2 for ch in letters},
+                                  tcontract._UNCAPPED) == [tuple(st) for st in ref]
+
+
 def test_contract_rejects_more_than_52_axes():
-    ops = [((i, i + 1), torch.ones(1, 1)) for i in range(53)]
+    """A contraction may carry any number of axes, as the JAX package's may:
+    each pairwise step gets letters of its own, so a 54-axis chain of 53
+    matrices matches the JAX package (rtol 1e-5: f32 sums in another
+    order). One step over more than 52 distinct axes is still refused:
+    torch.einsum takes only the 52 ASCII letters."""
+    rng = np.random.default_rng(0)
+    mats = [rng.uniform(0.5, 1.0, (2, 2)).astype(np.float32) for _ in range(53)]
+    out = tcontract.contract(
+        [((i, i + 1), torch.tensor(m)) for i, m in enumerate(mats)], (0, 53))
+    ref = np.asarray(jcontract.contract(
+        [((i, i + 1), jnp.asarray(m)) for i, m in enumerate(mats)], (0, 53)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5)
     with pytest.raises(ValueError):
-        tcontract.contract(ops, ())
+        tcontract.contract([(tuple(range(53)), torch.ones((1,) * 53))], ())
 
 
 def test_xebregman_matches():

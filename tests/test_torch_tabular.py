@@ -287,8 +287,22 @@ def test_prepared_npz_round_trip(tmp_path):
 @pytest.mark.parametrize("model_type", ["cpd", "cpd_type1", "tnml", "tt_batch",
                                         "mlp", "xgboost", "svm", "polynomial"])
 def test_unported_families_raise(model_type):
+    """The families still to port raise naming their ROADMAP item; cpd,
+    cpd_type1, tnml and polynomial, which raised until the zoo was ported,
+    now build their estimator on the device asked for."""
     from tensornetworksfork_tpu_torch.experiments.train_tabular import build_model
+    from tensornetworksfork_tpu_torch.models.baselines import PolynomialRegressionWrapper
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.models.tnml import TNMLRegressor
     from tensornetworksfork_tpu_torch.utils.config import RunConfig
+    built = {"cpd": TensorTrainRegressor, "cpd_type1": TensorTrainRegressor,
+             "tnml": TNMLRegressor, "polynomial": PolynomialRegressionWrapper}
+    if model_type in built:
+        m = build_model(RunConfig(model_type=model_type, device="cpu"), 4)
+        assert type(m) is built[model_type] and m.device.type == "cpu"
+        if model_type.startswith("cpd"):
+            assert m.model_type == model_type
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         build_model(RunConfig(model_type=model_type), 4)
 
@@ -312,15 +326,21 @@ def test_run_config_fields_reach_the_cli():
 @pytest.mark.parametrize("kw", [dict(cum_sum=True), dict(linear_dim=2),
                                 dict(solve_dtype="float64")])
 def test_unported_estimator_options_raise(kw):
-    """cum_sum and linear_dim raise naming their ROADMAP item;
-    solve_dtype="float64", which raised until the float64 tier was ported,
-    now reaches the estimator (tests/test_torch_solve.py fits with it)."""
+    """Options that raised until they were ported now reach the model:
+    cum_sum builds a CumSumLayer and linear_dim a TensorTrainLinearLayer
+    (tests/test_torch_zoo.py fits both against the JAX package), and
+    solve_dtype="float64" reaches the estimator (tests/test_torch_solve.py
+    fits with it)."""
+    from tensornetworksfork_tpu_torch.models import layers
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    est = TensorTrainRegressor(**kw, device="cpu")
     if "solve_dtype" in kw:
-        assert TensorTrainRegressor(**kw, device="cpu").solve_dtype == "float64"
+        assert est.solve_dtype == "float64"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        TensorTrainRegressor(**kw, device="cpu")
+    est.input_dim = 4
+    est._initialize_model()
+    want = layers.CumSumLayer if "cum_sum" in kw else layers.TensorTrainLinearLayer
+    assert type(est._model) is want
 
 
 def test_fast_tiers_refused(monkeypatch):

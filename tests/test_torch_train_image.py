@@ -29,6 +29,17 @@ from tensornetworksfork_tpu_torch.models.layers import (  # noqa: E402
 from tensornetworksfork_tpu_torch.ops.bregman import XEBregman as TXE  # noqa: E402
 from tensornetworksfork_tpu_torch.utils.convert import params_from_numpy  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _no_preset_leftovers(monkeypatch):
+    """The image drivers read their configuration from the environment, and
+    a PRESET's setdefault (tests/test_experiments.py runs one in the same
+    process when a worker takes both files) leaves its variables set: each
+    test here starts without them."""
+    for k in ("PRESET",) + tuple(tti.PRESETS["cifar_minres"]):
+        monkeypatch.delenv(k, raising=False)
+
+
 # the JAX package's own image-driver test size (tests/test_experiments.py)
 SMALL = dict(N="2", R="4", CB="2", NUM_SWIPES="2", EARLY_STOPPING="4",
              SYNTHETIC_SAMPLES="1024", BATCH_SIZE="512", VERBOSE="0")
