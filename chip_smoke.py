@@ -125,6 +125,29 @@ printing its own lines:
    committed table's sd, and for tt_linear the JAX package's over 60 seeds
    (studies/zoo_seed_sd.json, zoo_floors).
 
+10. growth and the remaining estimators — (i) `run_grow_cart` at the MNIST
+   headline's widths (r=18, CB=8, kernel 4/4) on train_image's synthetic
+   stand-in with heavy pixel noise (8,192 samples, 10 classes, XEBregman on
+   9 logits; on the noiseless stand-in the XE growth diverges in both
+   packages), 1 -> 4
+   carriages, 3 swipes a step at eps 1.0 x 0.5, full batch, in the fastest
+   tier (K1, K2, K3, K10) and in f32 (K1, K6, K10): each step's carriages,
+   parameters, train RMSE and accuracy, ok and seconds; (ii)
+   `run_dmrg_growth` on make_regression's 16 features plus the bias column,
+   16,384 rows, bond 8, rank 8, 2 growth steps (the grown block D =
+   18,496); (iii) `TensorTrainBatchRegressor` at phase 5's data and width
+   over 1,024-row minibatches, 2 swipes, in batch_unique, batch_same and
+   batch_block, each beating the mean on the validation rows; (iv) one
+   swipe of every `default_train` variant at S = 8,192, the type-I sum of a
+   compressed-data TT and a TT at batch -1 and 32, 12 `TTNaturalGradient`
+   steps at phase 5's width, `SymmetricCPD` for 60 iterations, each on the
+   card against the port on the CPU from the same seed at its CPU test's
+   tolerance, and `MLPWrapper` on breast_cancer and `CNNWrapper` (1 epoch
+   on the stand-in's images) held to the CPU's final train loss within 2 %.
+   Every kernel is held to its plain version at every shape these paths
+   gave it (`check_growth_shapes`), the largest of each timed into the
+   kernels line under the path's name.
+
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -2408,6 +2431,354 @@ def run_zoo_table(device, card: str):
     return dict(launches=launches, wall=wall)
 
 
+# phase 10: growth, data compression, feature maps, input-less members and
+# the remaining estimators (the module note, item 10). (i) run_grow_cart at
+# the MNIST headline's widths (r=18, CB=8, kernel 4/4: 50 patches x 17
+# pixels, the bias patch last) on 8,192 samples (phase 7's cut), one-hot 10
+# classes, XEBregman on 9 logits, 1 -> 4 carriages (3 growth steps), the
+# default 3 swipes a step at eps 1.0 x 0.5, full batch: from 3 carriages
+# the middle cores have D = 18*50*18 = 16,200 and take the packed tiled
+# route (K1 + K2 + K3 in fastest, K1 + K6 in f32), the last core K10. The
+# images are train_image's synthetic stand-in's with N(0, GROW_NOISE^2)
+# pixel noise added and rescaled to unit variance (grow_stand_in): on the
+# stand-in itself the XE fit separates the classes by 2 carriages, the
+# Gauss-Newton systems lose their curvature, and the 3- and 4-carriage steps
+# report singular solves with params growing past 1e10 (then NaN
+# predictions), in both packages (studies/grow_xe_study.py on the CPU;
+# experiments/probes/grow_probe.py on the card, kernels and plain routes
+# alike). Every kernel is held to its plain version at every shape the
+# growth gave it (check_growth_shapes), the largest timed.
+GROW = dict(S=8192, r=18, CB=8, start=1, steps=3, swipes=3, eps=1.0, eps_decay=0.5)
+GROW_NOISE = 20.0
+GROW_KERNELS = {"fastest": ("retile_hmix", "quantize_tiled", "gram_pair_q", "gram_pair"),
+                "f32": ("retile_hmix", "gram_pair_tiled", "gram_pair")}
+# (ii) run_dmrg_growth on make_regression's 16 features plus the bias column
+# (f = 17) at both positions, 16,384 rows, bond 8, rank 8, 2 growth steps:
+# the grown block has D = 8*17*17*8 = 18,496. eps 0.1 (its CPU test's) for
+# run_dmrg_growth's 1e-4: the grown block reads two copies of one column, so its
+# Gram is rank-deficient, and at D = 18,496 f32 rounding of the largest
+# eigenvalues (up to D x the diagonal mean the solve rescales by) exceeds a
+# 2e-4 ridge: the f32 Cholesky fails there (both growth steps flagged on an
+# H100)
+DMRG = dict(S=16384, d=16, bond=8, rank=8, steps=2, eps=0.1)
+# (iii) TensorTrainBatchRegressor at phase 5's data and width (d = 128, N=3,
+# r=8; 65,536 rows to fit, 16,384 to validate) over 1,024-row minibatches,
+# 2 swipes, eps 5.0 down a geomspace to 5.0 x 0.25^3 (phase 5's decay)
+BATCH_METHODS = ("batch_unique", "batch_same", "batch_block")
+# (iv) the rest at their scripts' sizes, card against the port on the CPU
+# from the same seed, at the CPU tests' tolerances (tests/test_torch_*.py):
+# predictions within PHASE10_PRED_REL x max|pred| (one swipe of each
+# default_train variant at S = 8,192, eps 1e-2 as its CPU test: past its
+# third swipe the uncertainty head's fit diverges and comes back in both
+# packages, rounding amplified to 0.85 of max|pred| by swipe 8
+# (studies/conditioning_study.py); the type-I
+# sum of a compressed-data TT and a TT at batch -1 and 32; SymmetricCPD
+# after 60 iterations), TTNaturalGradient's 12 step losses within 1e-4
+# relative; the MLP on breast_cancer and the CNN (1 epoch on the stand-in's
+# images) each within NN_LOSS_REL of the CPU's final train loss. The MLP is
+# compared after MLP_EPOCHS: at its default 50 epochs (lr 0.1) its final
+# loss is 5.7e-6 and a 1e-7 relative change of the initial weights moves it
+# by 6 % on the CPU, so rounding alone parts two devices there (at 5
+# epochs, 1e-6 moves it by 0.05 %; studies/conditioning_study.py mlp); the
+# 50-epoch fit runs on the card and its loss and validation accuracy are
+# printed
+PHASE10_PRED_REL = 1e-4
+NN_LOSS_REL = 0.02
+MLP_EPOCHS = 5
+
+
+def check_growth_shapes(device, path, seen, done):
+    """Every kernel at every shape a phase 10 path gave it: the full-H
+    kernels (K1, K2, K3, K6) and K10 through check_path_shapes, the
+    diagonal-H ones (K7, K8, K9) through check_zoo_shapes."""
+    full = {s for s in seen if s[0] in ("retile_hmix", "quantize_tiled",
+                                        "gram_pair_tiled", "gram_pair")}
+    results = check_path_shapes(device, path, full, done) if full else []
+    diag = seen - full
+    if diag:
+        results += check_zoo_shapes(device, path, diag, done)
+    return results
+
+
+def grow_stand_in(S: int, noise: float = GROW_NOISE):
+    """(patches (S, 50, 17), one-hot (S, 10)) of train_image's MNIST
+    stand-in (synthetic_images, seed 0) with N(0, noise^2) pixel noise from
+    default_rng(1) added and the images rescaled to unit variance."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.images import synthetic_images
+    from tensornetworksfork_tpu_torch.ops.patches import image_to_conv_input
+    imgs, labels = synthetic_images(S=S, seed=0)
+    rng = np.random.default_rng(1)
+    imgs = ((imgs + noise * rng.standard_normal(imgs.shape).astype(np.float32))
+            / np.sqrt(1 + 1.5 ** 2 + noise ** 2)).astype(np.float32)
+    return (image_to_conv_input(torch.from_numpy(imgs), 4, 4),
+            torch.eye(10)[torch.from_numpy(labels)])
+
+
+def _timed_run(device, fn):
+    """fn() with the launch counters reset just before it and the shapes it
+    gives the kernels recorded: (result, launches, seen, wall seconds)."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    with recorded_shapes() as seen:
+        torch.cuda.synchronize()
+        kg.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kg.LAUNCHES)
+    return out, launches, seen, wall
+
+
+def run_grow_cart_path(device, tier, card: str):
+    """Phase 10 (i): run_grow_cart at the MNIST headline's widths in `tier`
+    (SLICE_TIERS) on grow_stand_in. The steps before the packed route (1
+    and 2 carriages) must report ok, every step keep its parameters
+    finite, the 3-carriage step beat chance on its training rows, and the
+    kernels of GROW_KERNELS launch. The 3- and 4-carriage steps' ok flags
+    are printed, not required: past 3 carriages the fit memorises its rows
+    (train accuracy 0.94) and the int8 tier's 4-carriage step reports a
+    singular solve (its node keeps its value), the f32 tier's none
+    (experiments/probes/grow_probe.py). Returns (launches, shapes seen)."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments.growing import run_grow_cart
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    g = GROW
+    xp, y = grow_stand_in(g["S"])
+    x, y = xp.to(device), y.to(device)
+    with env(**SLICE_TIERS[tier]):
+        (layer, hist), launches, seen, wall = _timed_run(device, lambda: run_grow_cart(
+            x, y, start_carriages=g["start"], grow_steps=g["steps"], bond_dim=g["r"],
+            convolution_bond=g["CB"], num_swipes=g["swipes"], eps=g["eps"],
+            eps_decay=g["eps_decay"], loss_fn=XEBregman(w=1.0), output_dim=9,
+            device=device))
+    for h in hist:
+        log(f"[grow] grow_cart {tier} ({card}): {h['carriages']} carriages, "
+            f"{h['params']} params, train rmse {h['train_rmse']:.6f}, train accuracy "
+            f"{h['train_accuracy']:.4f}, ok={h['ok']}, {h['seconds']:.3f} s")
+    used = {k: v for k, v in launches.items() if v}
+    log(f"[grow] grow_cart {tier}: 1 -> {layer.num_carriages} carriages in {wall:.3f} s "
+        f"(S={g['S']}, r={g['r']}, CB={g['CB']}), launches {used}, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(h["ok"] for h in hist[:2]):
+        raise AssertionError(f"grow_cart {tier}: a step before 3 carriages reported a "
+                             "singular solve")
+    if not all(bool(torch.isfinite(v).all()) for v in layer.params.values()):
+        raise AssertionError(f"grow_cart {tier}: non-finite parameters")
+    if not hist[2]["train_accuracy"] > 0.2:
+        raise AssertionError(f"grow_cart {tier}: 3-carriage train accuracy "
+                             f"{hist[2]['train_accuracy']}")
+    missing = [k for k in GROW_KERNELS[tier] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"grow_cart {tier} never launched {missing}")
+    return launches, seen
+
+
+def run_dmrg_path(device, card: str):
+    """Phase 10 (ii): run_dmrg_growth (DMRG) on the card; every step ok.
+    Returns (launches, shapes seen)."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.experiments.growing import run_dmrg_growth
+    c = DMRG
+    X, y = make_regression(S=c["S"], d=c["d"], degree=3, seed=0)
+    feats = np.concatenate([X, np.ones((c["S"], 1), np.float32)], axis=1)
+    X2 = np.stack([feats, feats], axis=1)
+    with env(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"):
+        (layer, hist), launches, seen, wall = _timed_run(device, lambda: run_dmrg_growth(
+            X2, y, bond_dim=c["bond"], grow_steps=c["steps"], rank=c["rank"],
+            eps=c["eps"], device=device))
+    for h in hist:
+        split = f", split_err {h['split_err']:.6g}" if "split_err" in h else ""
+        log(f"[grow] dmrg ({card}): {h['positions']} positions, rmse {h['rmse']:.6f}"
+            f"{split}, ok={h['ok']}")
+    log(f"[grow] dmrg: {wall:.3f} s (S={c['S']}, f={c['d'] + 1}, bond {c['bond']}, "
+        f"rank {c['rank']}), launches {({k: v for k, v in launches.items() if v})}")
+    if not all(h["ok"] for h in hist) or not hist[-1]["rmse"] < 1.0:
+        raise AssertionError(f"dmrg growth failed: {hist}")
+    if not all(bool(torch.isfinite(v).all()) for v in layer.params.values()):
+        raise AssertionError("dmrg growth: non-finite parameters")
+    return launches, seen
+
+
+def run_batch_paths(device, card: str):
+    """Phase 10 (iii): TensorTrainBatchRegressor in each swipe method at
+    phase 5's width; each must beat the mean on the validation rows.
+    Returns {method: (launches, shapes seen)}."""
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.module import TensorTrainBatchRegressor
+    c = REGRESSION
+    X, y = make_regression(S=c["fit"] + c["val"], d=c["d"], degree=3, seed=0)
+    runs = {}
+    for method in BATCH_METHODS:
+        est = TensorTrainBatchRegressor(
+            N=c["N"], r=c["r"], batch_size=1024, num_swipes=2, swipe_method=method,
+            perturb=False, constrict_bond=False, eps_start=5.0, eps_end=5.0 * 0.25 ** 3,
+            seed=42, device=device)
+        with env(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"):
+            _, launches, seen, wall = _timed_run(device, lambda: est.fit(
+                X[:c["fit"]], y[:c["fit"]], X[c["fit"]:], y[c["fit"]:]))
+        val = float(np.sqrt(np.mean((est.predict(X[c["fit"]:]) - y[c["fit"]:]) ** 2)))
+        log(f"[grow] tt_batch {method} ({card}): fit {wall:.3f} s, val rmse {val:.6f}, "
+            f"launches {({k: v for k, v in launches.items() if v})}")
+        if not val < 1.0:
+            raise AssertionError(f"tt_batch {method}: val rmse {val}")
+        runs[method] = (launches, seen)
+    return runs
+
+
+def _close_to_cpu(what, card, cpu, rel):
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    err = float(np.abs(card - cpu).max())
+    scale = float(np.abs(cpu).max())
+    log(f"[grow] {what}: card vs cpu max|d| {err:.3g} (max|.| {scale:.3g}, rel {rel})")
+    if not (card.shape == cpu.shape and err <= rel * scale):
+        raise AssertionError(f"{what}: card and CPU differ by {err}")
+
+
+def check_phase10_rest(device, card: str):
+    """Phase 10 (iv): each script on the card and on the CPU from the same
+    seed, held together at its CPU test's tolerance. Returns {path:
+    (launches, shapes seen)} of the card's runs."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.sweep import Member, SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.data.images import synthetic_images
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.data.tabular import load_sklearn_dataset
+    from tensornetworksfork_tpu_torch.experiments import default_train
+    from tensornetworksfork_tpu_torch.models import layers as L
+    from tensornetworksfork_tpu_torch.models.baselines import CNNWrapper, MLPWrapper
+    from tensornetworksfork_tpu_torch.models.symmetric_cpd import SymmetricCPD
+    from tensornetworksfork_tpu_torch.models.tt_nn import TTNaturalGradient
+    from tensornetworksfork_tpu_torch.ops import bregman as B
+    from tensornetworksfork_tpu_torch.ops.compression import DataCompression, train_compress
+
+    runs = {}
+
+    def both(path, fn):
+        """fn(dev) on the card (counted, timed) and on the CPU."""
+        with env(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"):
+            out, launches, seen, wall = _timed_run(device, lambda: fn(device))
+            t0 = time.perf_counter()
+            ref = fn("cpu")
+            cpu_s = time.perf_counter() - t0
+        log(f"[grow] {path}: card {wall:.3f} s, cpu {cpu_s:.3f} s, launches "
+            f"{({k: v for k, v in launches.items() if v})}")
+        prev = runs.get(path)
+        if prev:  # several runs of one path: their launches and shapes add up
+            launches = {k: v + prev[0][k] for k, v in launches.items()}
+            seen = seen | prev[1]
+        runs[path] = (launches, seen)
+        return out, ref
+
+    # default_train: every variant, one swipe, its predictions read where
+    # default_train scores them
+    preds = {}
+    rmse0 = default_train.rmse
+
+    def scoring(key):
+        def score(y, pred):
+            preds[key] = np.asarray(pred)
+            return rmse0(y, pred)
+        return score
+    try:
+        for v in default_train.VARIANTS:
+            def fit(dev, v=v):
+                default_train.rmse = scoring((v, str(dev)))
+                return default_train.run(v, S=8192, num_swipes=1, eps=1e-2, device=dev)
+            res, ref = both("default_train", fit)
+            if not (res["ok"] and ref["ok"]):
+                raise AssertionError(f"default_train {v}: a singular solve")
+            log(f"[grow] default_train {v} ({card}): train rmse {res['train_rmse']:.6f} "
+                f"(cpu {ref['train_rmse']:.6f})")
+            _close_to_cpu(f"default_train {v}", preds[v, str(device)], preds[v, "cpu"],
+                          PHASE10_PRED_REL)
+    finally:
+        default_train.rmse = rmse0
+
+    # the type-I sum of a compressed-data TT (no input node) and a TT
+    rng = np.random.default_rng(9)
+    S, f = 2048, 5
+    Xs = np.concatenate([rng.uniform(-1, 1, (S, f - 1)).astype(np.float32),
+                         np.ones((S, 1), np.float32)], axis=1)
+    ys = ((Xs[:, 0] * Xs[:, 1]) + 0.5 * Xs[:, 2]).reshape(S, 1).astype(np.float32)
+    for batch in (-1, 32):
+        def sum_fit(dev, batch=batch):
+            blocks, _ = train_compress(
+                list(DataCompression(Xs, device=dev).non_compressed(degree=2)), rank=16)
+            lc = L.CompressedTensorTrainLayer(blocks, bond_dim=4, output_shape=(1,),
+                                              seed=0, device=dev)
+            lt = L.TensorTrainLayer(1, 1, f, output_shape=(1,), seed=1, device=dev)
+            x = torch.tensor(Xs, device=dev)
+            pl, ok = Sweeper([Member(lc.network, lambda x: {}), Member(lt.network)],
+                             B.SquareBregFunction(),
+                             SweepConfig(num_swipes=1, eps=1e-5, batch_size=batch)).run(
+                [lc.params, lt.params], x, torch.tensor(ys, device=dev))
+            if not ok:
+                raise AssertionError(f"compressed sum (batch {batch}): a singular solve")
+            return (lc.network.forward(pl[0], {}) + lt.network.forward(pl[1], x)).cpu()
+        out, ref = both("compressed type-I sum", sum_fit)
+        _close_to_cpu(f"compressed type-I sum, batch {batch}", out, ref, PHASE10_PRED_REL)
+
+    # TTNaturalGradient, 12 steps over 1,024-row batches at phase 5's width,
+    # from eps 1.0: its middle block (D = 8,256) is underdetermined by a
+    # batch, and from eps 0.1 card and CPU losses came within a tenth of the
+    # 1e-4 bound
+    c = REGRESSION
+    Xr, yr = make_regression(S=12 * 1024, d=c["d"], degree=3, seed=0)
+
+    def ttng(dev):
+        tn = TTNaturalGradient(c["d"], (1,), N=c["N"], r=c["r"], eps=1.0, device=dev)
+        params, losses = tn.params, []
+        for s in range(12):
+            b = slice(s * 1024, (s + 1) * 1024)
+            params, loss = tn.train_step(params, torch.tensor(Xr[b], device=dev),
+                                         torch.tensor(yr[b], device=dev),
+                                         B.SquareBregFunction())
+            losses.append(float(loss))
+        return np.asarray(losses)
+    out, ref = both("tt_natural_gradient", ttng)
+    log(f"[grow] TTNaturalGradient losses ({card}): {np.array2string(out, precision=6)}")
+    rel = float(np.max(np.abs(out - ref) / np.abs(ref)))
+    log(f"[grow] TTNaturalGradient: card vs cpu largest relative loss gap {rel:.3g} (1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"TTNaturalGradient: card and CPU losses part by {rel}")
+
+    # SymmetricCPD, 60 Gauss-Newton iterations
+    rng = np.random.default_rng(0)
+    Xc = rng.standard_normal((8192, 16)).astype(np.float32)
+    W = rng.standard_normal((2, 16)) / 4
+    yc = ((Xc @ W[0]) ** 3 + (Xc @ W[1]) ** 3).astype(np.float32)
+    out, ref = both("symmetric_cpd", lambda dev: SymmetricCPD(16, 4, 3, seed=1, device=dev)
+                    .fit(Xc, yc, iters=60).predict(Xc))
+    _close_to_cpu("SymmetricCPD", out, ref, PHASE10_PRED_REL)
+
+    # the MLP on breast_cancer and the CNN on the stand-in's images
+    bc = load_sklearn_dataset("breast_cancer", seed=42)
+    ybc = bc["y_train"].reshape(-1).astype(int)
+    out, ref = both("mlp", lambda dev: MLPWrapper(
+        bc["X_train"].shape[1], 2, dict(epochs=MLP_EPOCHS), task="classification",
+        device=dev).fit(bc["X_train"], ybc))
+    full = MLPWrapper(bc["X_train"].shape[1], 2, task="classification",
+                      device=device).fit(bc["X_train"], ybc)
+    yv = bc["y_val"].reshape(-1)
+    log(f"[grow] MLPWrapper breast_cancer ({card}): {MLP_EPOCHS} epochs final train loss "
+        f"{out.final_loss_:.6f} (cpu {ref.final_loss_:.6f}), val accuracy "
+        f"{np.mean(out.predict(bc['X_val']) == yv):.4f}; the default 50 epochs: loss "
+        f"{full.final_loss_:.3g}, val accuracy {np.mean(full.predict(bc['X_val']) == yv):.4f}")
+    imgs, labels = synthetic_images(S=8192, seed=0)
+    out2, ref2 = both("cnn", lambda dev: CNNWrapper(10, dict(epochs=1), device=dev).fit(
+        imgs[:, 0], labels))
+    acc2 = float(np.mean(out2.predict(imgs[:, 0]) == labels))
+    log(f"[grow] CNNWrapper, 1 epoch on the stand-in ({card}): final train loss "
+        f"{out2.final_loss_:.6f} (cpu {ref2.final_loss_:.6f}), train accuracy {acc2:.4f}")
+    for what, a, b in (("MLP", out, ref), ("CNN", out2, ref2)):
+        if not abs(a.final_loss_ - b.final_loss_) <= NN_LOSS_REL * b.final_loss_:
+            raise AssertionError(f"{what}: final loss {a.final_loss_} vs cpu {b.final_loss_}")
+    return runs
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -2487,6 +2858,19 @@ def main() -> int:
     log(f"[env] phase 9 took {time.perf_counter() - t9:.1f} s, its table "
         f"{zoo_table['wall']:.1f} s")
 
+    t10 = time.perf_counter()
+    grow = {f"grow_cart {tier}": run_grow_cart_path(device, tier, smi)
+            for tier in ("fastest", "f32")}
+    grow["dmrg growth"] = run_dmrg_path(device, smi)
+    grow.update({f"tt_batch {m}": run for m, run in run_batch_paths(device, smi).items()})
+    grow.update(check_phase10_rest(device, smi))
+    t10c = time.perf_counter()
+    done10 = set()
+    for path, (_, seen) in grow.items():
+        kernels += check_growth_shapes(device, path, seen, done10)
+    log(f"[env] phase 10 took {time.perf_counter() - t10:.1f} s, its shape checks "
+        f"{time.perf_counter() - t10c:.1f} s")
+
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
@@ -2508,7 +2892,10 @@ def main() -> int:
                    for k in kernels if k["dtype"].split(", ", 1)[-1] in path_runs},
                 # phase 9's kernels at its width paths' shapes: that path's launches
                 **{(k["name"], k["dtype"]): zoo_width[k["dtype"].split(", zoo width ", 1)[1]][0][
-                    k["name"]] for k in kernels if ", zoo width " in k["dtype"]}}
+                    k["name"]] for k in kernels if ", zoo width " in k["dtype"]},
+                # phase 10's kernels at its paths' shapes: that path's launches
+                **{(k["name"], k["dtype"]): grow[k["dtype"].split(", ", 1)[1]][0][k["name"]]
+                   for k in kernels if k["dtype"].split(", ", 1)[-1] in grow}}
     # this slice's paths: bf16 J (int8 codes) in the fastest tier, f32 J in
     # the reference tier
     low, full = ("bf16", "int8"), ("f32",)
@@ -2522,7 +2909,11 @@ def main() -> int:
              "train_image cifar_minres": (cifar, low + full),
              # phase 9: the zoo's width paths and its table, all in f32
              **{f"zoo width {p}": (runs, full) for p, (runs, _) in zoo_width.items()},
-             "zoo table": (zoo_table["launches"], full)}
+             "zoo table": (zoo_table["launches"], full),
+             # phase 10: grow_cart in the fastest tier (bf16 J, int8 codes)
+             # and in f32; the other growth and estimator paths in f32
+             **{p: (runs, low if p == "grow_cart fastest" else full)
+                for p, (runs, _) in grow.items()}}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,

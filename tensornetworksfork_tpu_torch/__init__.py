@@ -24,6 +24,6 @@ _torch.set_float32_matmul_precision("highest")
 
 from .core.topology import Topology, TopologyBuilder, NodeSpec, PARAM, INPUT, CONST  # noqa: E402
 from .core.engine import Network  # noqa: E402
-from .core.sweep import SweepConfig, Sweeper, Member  # noqa: E402
+from .core.sweep import SweepConfig, Sweeper, Member, accumulating_sweep  # noqa: E402
 from .core import solve  # noqa: E402
 from .ops import bregman  # noqa: E402

@@ -27,8 +27,13 @@ the loop.
   recomputed (and recorded): a history entry made from the neighbour's old
   tensor no longer matches it by identity, so it is never handed back.
 
-Not ported yet (each raises NotImplementedError): mesh (multi-device)
-runs and input-less members.
+- A member with no input node (its data baked in as CONST nodes, e.g.
+  `CompressedTensorTrainLayer`) takes a standalone full-batch update: its
+  Jacobian contracts every other node at once, with no chunks and no
+  environments; inside a type-I sum the other members' cached outputs are
+  its rest term, and its own forward, padded and chunked, feeds theirs.
+
+Not ported yet (raises NotImplementedError): mesh (multi-device) runs.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 from ..ops.cuda import gram as kgram
 from . import gauges, krylov
+from .contract import contract
 from .engine import Network
 from .solve import apply_update, cpd_diag_mask, solve_block
 from .topology import INPUT, PARAM
@@ -114,9 +120,6 @@ class Sweeper:
         self.members: List[Member] = list(members)
         self.loss_fn = loss_fn
         self.cfg = cfg
-        for m in self.members:
-            if not m.net.topology.input_nodes:
-                raise NotImplementedError("input-less members are not ported yet")
         # per-phase wall-clock attribution (TNF_SWEEP_TIMERS=1): each phase
         # is synchronised on the device, so totals are for attribution only
         self.timers: Dict[str, List[float]] = {}
@@ -569,9 +572,58 @@ class Sweeper:
         x_sol = torch.where(ok, x_sol, torch.zeros_like(x_sol))
         return new_core, loss_acc, ok, x_sol
 
+    def _update_standalone(self, mid: int, ni: int, method: str,
+                           use_rest: bool, params, y, w, y_rest, eps):
+        """Full-batch update of a node of a member with no input node (its
+        data are CONST nodes whose last bond is the sample axis): J
+        contracts every other node directly, with no chunks and no
+        environments. The chunked y, w and rest may carry padding rows past
+        the member's baked-in sample count; they are dropped (they weigh 0
+        anyway). Returns (new_core, loss_sum, ok)."""
+        cfg = self.cfg
+        net = self.members[mid].net
+        t = net.topology
+        spec = t.nodes[ni]
+        core = params[spec.name]
+        mask = None
+        if spec.cpd_mask:
+            mask = cpd_diag_mask(core.shape, spec.labels, spec.left, spec.right,
+                                 core.dtype, core.device)
+        ops = [net.operand(nj, params, {}) for nj in range(len(t.nodes)) if nj != ni]
+        keep = net.jacobian_keep(ni, [ax for ax, _ in ops])
+        J = (keep, contract(ops, keep))
+        pred = net.predict_from_jacobian(ni, J, core)
+        n = pred.shape[0]
+        y_f = y.reshape((-1,) + tuple(y.shape[2:]))[:n]
+        w_f = w.reshape(-1)[:n]
+        if use_rest:
+            pred = pred + y_rest.reshape((-1,) + tuple(y_rest.shape[2:]))[:n]
+        loss, g, H = self.loss_fn(pred, y_f)
+        loss = loss * w_f.to(loss.dtype)
+        g = g * w_f.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
+        H = H * w_f.to(H.dtype).reshape((-1,) + (1,) * (H.ndim - 1))
+        A, b = net.gram_and_rhs(ni, J, g, H)
+        D = core.numel()
+        step, ok = solve_block(A.reshape(D, D), b.reshape(D), core, method, eps,
+                               cfg.refine, cfg.solve_dtype)
+        new_core = apply_update(core, step.reshape(core.shape), cfg.lr,
+                                cfg.adaptive_step, cfg.max_norm, mask)
+        # singular guard (deferred-ok contract: see _flush_ok)
+        return torch.where(ok, new_core, core), loss.sum(), ok
+
     def _member_forward_chunked(self, mi: int, params_list, data):
-        """Chunked (nc, B, *out) forward of member `mi`."""
+        """Chunked (nc, B, *out) forward of member `mi`; a member with no
+        input node is padded to the chunked sample count P first."""
         net = self.members[mi].net
+        if not net.topology.input_nodes:
+            def standalone():
+                out = net.forward(params_list[mi], {})
+                pad = data["P"] - out.shape[0]
+                if pad:
+                    out = torch.cat([out, out.new_zeros((pad,) + tuple(out.shape[1:]))])
+                return out.reshape((data["P"] // data["B"], data["B"])
+                                   + tuple(out.shape[1:]))
+            return self._timed("member_forward", standalone)
         inputs = data["inputs"][mi]
         nc = next(iter(inputs.values())).shape[0]
         return self._timed("member_forward", lambda: torch.stack([
@@ -818,43 +870,53 @@ class Sweeper:
                 self._pending_ok.clear()
                 return False, False, last_other
 
-            ensure_run(i, mi)
-            d = cur_dir[mi]
-            # near env must cover everything strictly before ci
-            if d == "l2r" and ci - 1 >= 0:
-                advance_near(mi, ci - 1)
-            elif d == "r2l" and ci + 1 <= len(t.columns) - 1:
-                advance_near(mi, ci + 1)
-
-            ncols = len(t.columns)
-            if d == "l2r":
-                L = near_env[mi]
-                R = far_envs[mi][ci + 1] if ci < ncols - 1 else None
-            else:
-                L = far_envs[mi][ci - 1] if ci > 0 else None
-                R = near_env[mi]
-
             eps = self._eps_for(NS, i, n_nodes, reverse=reversed_pass)
             method = cfg.method
             if eps == 0 and method == "ridge_exact":
                 method = "exact"
-
-            return_pred = use_rest and i == member_last_i[mi]
             name = t.nodes[ni].name
-            # matrix-free warm start: the node's previous solution; zeros
-            # (in _update_matrix_free) on its first visit
-            x0 = self._node_sols.get((mi, ni))
-            new_core, loss_sum, ok, pred, x_sol = self._timed(
-                f"update:{name}", self._update, mi, ni, method, use_rest,
-                return_pred, params_list[mi], L, R, data["inputs"][mi],
-                data["y"], data["w"], rest_for(mi), eps, x0)
-            if x_sol is not None:
-                self._node_sols[(mi, ni)] = x_sol
+
+            standalone = not t.input_nodes
+            if standalone:
+                new_core, loss_sum, ok = self._timed(
+                    f"update:{name}", self._update_standalone, mi, ni, method,
+                    use_rest, params_list[mi], data["y"], data["w"],
+                    rest_for(mi), eps)
+                pred = None
+            else:
+                ensure_run(i, mi)
+                d = cur_dir[mi]
+                # near env must cover everything strictly before ci
+                if d == "l2r" and ci - 1 >= 0:
+                    advance_near(mi, ci - 1)
+                elif d == "r2l" and ci + 1 <= len(t.columns) - 1:
+                    advance_near(mi, ci + 1)
+
+                ncols = len(t.columns)
+                if d == "l2r":
+                    L = near_env[mi]
+                    R = far_envs[mi][ci + 1] if ci < ncols - 1 else None
+                else:
+                    L = far_envs[mi][ci - 1] if ci > 0 else None
+                    R = near_env[mi]
+
+                return_pred = use_rest and i == member_last_i[mi]
+                # matrix-free warm start: the node's previous solution; zeros
+                # (in _update_matrix_free) on its first visit
+                x0 = self._node_sols.get((mi, ni))
+                new_core, loss_sum, ok, pred, x_sol = self._timed(
+                    f"update:{name}", self._update, mi, ni, method, use_rest,
+                    return_pred, params_list[mi], L, R, data["inputs"][mi],
+                    data["y"], data["w"], rest_for(mi), eps, x0)
+                if x_sol is not None:
+                    self._node_sols[(mi, ni)] = x_sol
             self._defer_ok(ok, name)
             params_list[mi] = dict(params_list[mi], **{name: new_core})
             last_other = (mi, ci)
-            if cfg.orthonormalize and ni in t.main_nodes:
+            if not standalone and cfg.orthonormalize and ni in t.main_nodes:
                 gauge(mi, t.main_nodes.index(ni), ci, d)
+            if standalone and use_rest and i == member_last_i[mi]:
+                pred = self._member_forward_chunked(mi, params_list, data)
 
             if use_rest and pred is not None:
                 y_members[mi] = pred
@@ -876,3 +938,12 @@ class Sweeper:
                 block_callback(NS, name)
 
         return self._flush_ok(), False, last_other
+
+
+def accumulating_sweep(net: Network, params, x, y, loss_fn,
+                       cfg: Optional[SweepConfig] = None, **run_kw):
+    """One network's sweep: `Sweeper(net, loss_fn, cfg).run([params], x, y,
+    **run_kw)`. Returns (params, success)."""
+    sw = Sweeper(net, loss_fn, cfg or SweepConfig())
+    out, ok = sw.run([params], x, y, **run_kw)
+    return out[0], ok

@@ -200,19 +200,28 @@ def load_digits_images(kernel_size: int = 2, kernel_stride: int = 2,
     return xp[tr_t], onehot[tr_t], xp[te_t], onehot[te_t]
 
 
-def synthetic_image_classification(S: int = 8192, side: int = 28,
-                                   num_classes: int = 10, kernel_size: int = 4,
-                                   kernel_stride: int = 4, seed: int = 0,
-                                   channels: int = 1):
-    """Shape-faithful synthetic stand-in with a learnable signal: each class
-    mean is a random image, each sample its class's mean plus noise, so a
-    model can beat chance. channels=3 gives the CIFAR/ImageNet shape."""
+def synthetic_images(S: int = 8192, side: int = 28, num_classes: int = 10,
+                     seed: int = 0, channels: int = 1):
+    """The stand-in's images (S, channels, side, side) f32 and integer
+    labels: each class mean is a random image, each sample its class's mean
+    plus noise, so a model can beat chance."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, num_classes, S)
     protos = rng.standard_normal(
         (num_classes, channels, side, side)).astype(np.float32)
     x = protos[labels] + 1.5 * rng.standard_normal(
         (S, channels, side, side)).astype(np.float32)
+    return x, labels
+
+
+def synthetic_image_classification(S: int = 8192, side: int = 28,
+                                   num_classes: int = 10, kernel_size: int = 4,
+                                   kernel_stride: int = 4, seed: int = 0,
+                                   channels: int = 1):
+    """Shape-faithful synthetic stand-in with a learnable signal
+    (`synthetic_images`), unfolded into patches with the bias patch, and
+    one-hot labels. channels=3 gives the CIFAR/ImageNet shape."""
+    x, labels = synthetic_images(S, side, num_classes, seed, channels)
     xp = image_to_conv_input(torch.from_numpy(x), kernel_size, kernel_stride)
     onehot = np.eye(num_classes, dtype=np.float32)[labels]
     return xp, torch.from_numpy(onehot)

@@ -6,11 +6,14 @@ Fits a model family on synthetic data, one of sklearn's bundled datasets
 rmse and r2 (or accuracy), appending one row to `results_file`. Families:
 `TensorTrainRegressor` (model_type tt | tt_type1 | cpd | cpd_type1, with
 --cum_sum / --linear_dim), `tnml` (TNMLRegressor, min-max scaled sin-cos
-features) and `polynomial` (degree N, Ridge with alpha = eps). tt_batch,
-mlp, xgboost and svm raise NotImplementedError naming their ROADMAP item.
+features), `tt_batch` (TensorTrainBatchRegressor, --swipe_method), `mlp`
+(MLPWrapper) and `polynomial` (degree N, Ridge with alpha = eps). xgboost
+and svm raise NotImplementedError naming the library the card's machine
+lacks.
 
 Run:  python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset synthetic
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset iris --model_type tnml
+      python -m tensornetworksfork_tpu_torch.experiments.train_tabular --model_type tt_batch --swipe_method batch_block
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset path/to/name_tensor.npz
 
 It runs on the card; `--device cpu` runs it on the CPU. Without a visible
@@ -27,23 +30,26 @@ import torch
 from ..data.synthetic import make_regression
 from ..data.tabular import (SKLEARN_DATASETS, load_sklearn_dataset,
                             load_tabular_data, split_train_val_test)
-from ..models.baselines import PolynomialRegressionWrapper
+from ..models.baselines import MLPWrapper, PolynomialRegressionWrapper
 from ..models.estimators import TensorTrainRegressor
+from ..models.module import TensorTrainBatchRegressor
 from ..models.tnml import TNMLRegressor
 from ..ops.bregman import XEBregman
 from ..utils.config import RunConfig
 from ..utils.device import resolve_device
 from ..utils.metrics import accuracy, append_results_csv, r2_score, rmse
 
-# model families of the JAX package's CLI that are not ported yet
-_NOT_PORTED = {"tt_batch": 15, "mlp": 15, "xgboost": 15, "svm": 15}
+# model families of the JAX package's CLI that are not ported: the library
+# each wraps is missing on the card's machine
+_NOT_PORTED = {"xgboost": "xgboost", "svm": "sklearn"}
 
 
 def build_model(cfg: RunConfig, input_dim: int):
     mt = cfg.model_type
     if mt in _NOT_PORTED:
         raise NotImplementedError(
-            f"model_type {mt!r} is not ported (ROADMAP item {_NOT_PORTED[mt]})")
+            f"model_type {mt!r} is not ported: it wraps {_NOT_PORTED[mt]}, "
+            "which the card's machine does not have")
     device = resolve_device(cfg.device)
     if mt == "tnml":
         # the loaders standardize features; the sin-cos map wants [0, 1]
@@ -55,6 +61,19 @@ def build_model(cfg: RunConfig, input_dim: int):
             num_swipes=cfg.num_swipes, task=cfg.task,
             early_stopping=cfg.early_stopping, verbose=cfg.verbose,
             device=device)
+    if mt == "tt_batch":
+        return TensorTrainBatchRegressor(
+            N=cfg.N, r=cfg.r, output_dim=cfg.output_dim,
+            linear_dim=cfg.linear_dim, constrict_bond=cfg.constrict_bond,
+            seed=cfg.seed, lr=cfg.lr, eps_start=cfg.eps,
+            batch_size=cfg.batch_size, method=cfg.method,
+            num_swipes=cfg.num_swipes, verbose=cfg.verbose,
+            swipe_method=cfg.swipe_method, stream=cfg.stream, device=device)
+    if mt == "mlp":
+        # one logit per class: the JAX package passes the tensor networks'
+        # C-1 (output_dim), which leaves the MLP no logit for the last class
+        n_out = cfg.output_dim + 1 if cfg.task == "classification" else cfg.output_dim
+        return MLPWrapper(input_dim, n_out, task=cfg.task, device=device)
     if mt == "polynomial":
         return PolynomialRegressionWrapper(degree=cfg.N, regularization="l2",
                                            alpha=cfg.eps, device=device)
@@ -115,7 +134,7 @@ def run(cfg: RunConfig, overrides=None, data=None) -> dict:
     t0 = time.time()
     raised = False
     try:
-        if isinstance(model, PolynomialRegressionWrapper):
+        if isinstance(model, (PolynomialRegressionWrapper, MLPWrapper)):
             model.fit(X_tr, y_tr)
         else:
             model.fit(X_tr, y_tr, X_val=X_val, y_val=y_val)

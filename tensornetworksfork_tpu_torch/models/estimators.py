@@ -386,3 +386,15 @@ class TensorTrainRegressor(BaseEstimator, RegressorMixin):
     def export(self, path=None, **kw):
         raise NotImplementedError(
             "serving export is not ported (ROADMAP item 18)")
+
+
+def calibrate_logit_scale(layer, X, n: int = 64) -> float:
+    """w = 1/std of an initial forward over the first n samples: the XE
+    logit calibration (x a tensor, a per-node list or a dict of them)."""
+    if isinstance(X, dict):
+        X = {k: v[:n] for k, v in X.items()}
+    elif isinstance(X, (list, tuple)):
+        X = [v[:n] for v in X]
+    else:
+        X = X[:n]
+    return float(1.0 / layer(X).detach().cpu().numpy().std())

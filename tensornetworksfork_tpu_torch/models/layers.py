@@ -1,6 +1,5 @@
 """Model zoo: tensor-network layer builders (port of
-tensornetworksfork_tpu/models/layers.py; all but CompressedTensorTrainLayer
-and concatenate_trains, ROADMAP item 16).
+tensornetworksfork_tpu/models/layers.py).
 
 Each builder returns a `TNLayer` holding a `Network` (structure) and a params
 dict (state). The topology is built by the same calls as in the JAX package,
@@ -786,3 +785,117 @@ class TensorConvOperatorLayer(TNLayer):
                           output_labels=tuple(out_labels))
         super().__init__(Network(topo, device=device, use_kernels=use_kernels),
                          topo.init_params(seed, dtype, device))
+
+
+class CompressedTensorTrainLayer(TNLayer):
+    """Tensor train over TT-compressed design-matrix blocks (ops/
+    compression.py): the data blocks (k_i, p_i, d, k_{i+1}) are CONST nodes
+    X_i, each core A_i reads X_i's physical axis, and the last block's right
+    bond IS the sample axis. The network has no input node: its data are
+    baked in (the sweep takes its input-less branch; pass `{}` as x)."""
+
+    def __init__(self, data_blocks, bond_dim: int, output_shape=(),
+                 constrict_bond: bool = True, perturb: bool = False,
+                 dtype=torch.float32, seed: int = 0, device="cuda",
+                 use_kernels: Optional[bool] = None):
+        N = len(data_blocks)
+        output_shape = output_shape if isinstance(output_shape, tuple) else (output_shape,)
+        blocks = [blk.detach().cpu().numpy() if torch.is_tensor(blk) else np.asarray(blk)
+                  for blk in data_blocks]
+        phys = [int(blk.shape[1]) for blk in blocks]
+        self.num_carriages = N
+        b = TopologyBuilder()
+        rng = np.random.default_rng(seed)
+        if perturb:
+            inits = []
+            prev = 1
+            for i in range(N):
+                cap = min(bond_dim, prev * phys[i]) if constrict_bond else bond_dim
+                rr = 1 if i == N - 1 else cap
+                inits.append(perturb_block(prev, phys[i], rr, rng,
+                                           0.02 if i in (0, N - 1) else 0.0))
+                prev = rr
+            profile = [(a.shape[0], a.shape[-1]) for a in inits]
+        else:
+            profile = tt_rank_profile(N, 1 if N == 1 else bond_dim, phys,
+                                      constrict_bond)
+            inits = [None] * N
+
+        out_labels = ["s"]
+        for i in range(1, N + 1):
+            blk = blocks[i - 1]
+            last = i == N
+            labels = (f"k{i}", f"p{i}", "d", f"k{i+1}" if not last else "s")
+            b.node(f"X{i}", labels, blk.shape, kind=CONST, init=blk,
+                   left=(f"k{i}",), right=(f"k{i+1}",) if not last else ())
+            if i > 1:
+                b.connect(f"X{i-1}", f"k{i}", f"X{i}")
+            lft, rgt = profile[i - 1]
+            if i - 1 < len(output_shape):
+                up, up_label = output_shape[i - 1], f"c{i}"
+                out_labels.append(up_label)
+            else:
+                up, up_label = 1, "c"
+            b.node(f"A{i}", (f"r{i}", up_label, f"p{i}", f"r{i+1}"),
+                   (lft, up, phys[i - 1], rgt), kind=PARAM,
+                   left=(f"r{i}",), right=(f"r{i+1}",), init=inits[i - 1])
+            b.connect(f"A{i}", f"p{i}", f"X{i}")
+            if i > 1:
+                b.connect(f"A{i-1}", f"r{i}", f"A{i}")
+        for i in range(1, N + 1):
+            b.squeeze(f"A{i}", exclude=out_labels)
+            b.squeeze(f"X{i}", exclude=("s",))
+        topo = b.finalize([], [f"A{i}" for i in range(1, N + 1)],
+                          output_labels=tuple(out_labels))
+        super().__init__(Network(topo, device=device, use_kernels=use_kernels),
+                         topo.init_params(seed, dtype, device))
+
+
+def concatenate_trains(tensor_layers) -> TensorTrainLayer:
+    """Direct sum of several TensorTrainLayers of the same length and
+    features (block-diagonal bonds, ops/compression.py `train_concat`),
+    scaled by 1/len so the result computes their mean. Built on the first
+    layer's device."""
+    from ..ops.compression import train_concat
+
+    def blocks_of(layer):
+        N = layer.num_carriages
+        blocks = []
+        for i in range(1, N + 1):
+            arr = layer.params[f"A{i}"].detach().cpu().numpy()
+            # normalise to (rl, c, p, rr)
+            if i == 1:
+                arr = arr[None] if arr.ndim < 4 else arr
+            if arr.ndim == 2:  # (r, p) last core squeezed
+                arr = arr[:, None, :, None]
+            elif arr.ndim == 3:
+                if i == 1:        # (c, p, r)
+                    arr = arr[None]
+                elif i == N:      # (r, p) + c? -> (r, c?, p)
+                    arr = arr[:, None, :, None] if arr.shape[-1] != 1 else arr[..., None]
+                else:             # (r, p, r')
+                    arr = arr[:, None]
+            blocks.append(torch.as_tensor(arr.reshape(arr.shape[0], -1, 1,
+                                                      arr.shape[-1])))
+        return blocks
+
+    train = blocks_of(tensor_layers[0])
+    for layer in tensor_layers[1:]:
+        train = train_concat(train, blocks_of(layer))
+    train[0] = train[0] / len(tensor_layers)
+
+    first = tensor_layers[0]
+    f = first.input_features
+    out_shape = first.output_shape
+    out_dim = out_shape[0] if out_shape else 1
+    net = first.network
+    new = TensorTrainLayer(len(train), max(b.shape[0] for b in train), f,
+                           output_shape=out_shape, constrict_bond=False,
+                           seed=0, device=net.device, use_kernels=net.use_kernels)
+    params = {}
+    for i, blk in enumerate(train, 1):  # (rl, c*p, 1, rr)
+        arr = blk.reshape(blk.shape[0], out_dim if i == 1 else 1, f, blk.shape[-1])
+        tgt = new.params[f"A{i}"]
+        params[f"A{i}"] = arr.reshape(tgt.shape).to(dtype=tgt.dtype, device=tgt.device)
+    new.params = params
+    return new

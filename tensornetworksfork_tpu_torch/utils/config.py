@@ -3,8 +3,7 @@
 One dataclass for the tabular CLI, loadable from argparse flags
 (`from_args`) or an override dict (`merge`), with the JAX package's key
 names for the fields the port's CLIs read. The fields of code not ported
-yet (the image CLI's CB/kernel_*, tt_batch's swipe_method/stream) come with
-that code (ROADMAP item 18). max_iter and tol are not fields: nothing
+yet (the image CLI's CB/kernel_*) come with that code (ROADMAP item 18). max_iter and tol are not fields: nothing
 reads them from a RunConfig in either package (train_image reads MAX_ITER
 from its environment, and the estimator leaves both at SweepConfig's
 defaults). The
@@ -25,7 +24,7 @@ class RunConfig:
     data_path: str = "data"
     task: str = "regression"          # regression | classification
     # model
-    model_type: str = "tt"            # tt | tt_type1 | cpd | cpd_type1 | tnml
+    model_type: str = "tt"            # tt | tt_type1 | cpd | cpd_type1 | tnml | tt_batch | mlp | polynomial
     N: int = 3
     r: int = 8
     output_dim: int = 1
@@ -38,6 +37,8 @@ class RunConfig:
     num_swipes: int = 5
     batch_size: int = 512
     method: str = "ridge_cholesky"
+    swipe_method: str = "batch_same"  # tt_batch: batch_unique | batch_same | batch_block
+    stream: Optional[str] = None      # tt_batch: "native" is ROADMAP item 18
     # numerics tier: reference | fast | fastest | None = respect TNF_* env
     precision: Optional[str] = None
     # solve numerics: refine = one f32 iterative-refinement pass;

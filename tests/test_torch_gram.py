@@ -361,7 +361,7 @@ def test_split_gram_pair_matches_pallas(dtype, splits):
 
 def test_port_never_imports_jax():
     """The GPU machine has no JAX: no module of the port, and not
-    chip_smoke.py, may import it or the JAX package."""
+    chip_smoke.py, may import it, flax, optax or the JAX package."""
     offenders = []
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -372,7 +372,8 @@ def test_port_never_imports_jax():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "tensornetworksfork_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                          "tensornetworksfork_tpu"):
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
 

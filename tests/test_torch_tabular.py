@@ -287,23 +287,28 @@ def test_prepared_npz_round_trip(tmp_path):
 @pytest.mark.parametrize("model_type", ["cpd", "cpd_type1", "tnml", "tt_batch",
                                         "mlp", "xgboost", "svm", "polynomial"])
 def test_unported_families_raise(model_type):
-    """The families still to port raise naming their ROADMAP item; cpd,
-    cpd_type1, tnml and polynomial, which raised until the zoo was ported,
-    now build their estimator on the device asked for."""
+    """The families not ported (xgboost, svm) raise naming the library the
+    card's machine lacks; cpd, cpd_type1, tnml, polynomial, tt_batch and
+    mlp, which raised until they were ported, now build their estimator on
+    the device asked for."""
     from tensornetworksfork_tpu_torch.experiments.train_tabular import build_model
-    from tensornetworksfork_tpu_torch.models.baselines import PolynomialRegressionWrapper
+    from tensornetworksfork_tpu_torch.models.baselines import (MLPWrapper,
+                                                               PolynomialRegressionWrapper)
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.models.module import TensorTrainBatchRegressor
     from tensornetworksfork_tpu_torch.models.tnml import TNMLRegressor
     from tensornetworksfork_tpu_torch.utils.config import RunConfig
     built = {"cpd": TensorTrainRegressor, "cpd_type1": TensorTrainRegressor,
-             "tnml": TNMLRegressor, "polynomial": PolynomialRegressionWrapper}
+             "tnml": TNMLRegressor, "polynomial": PolynomialRegressionWrapper,
+             "tt_batch": TensorTrainBatchRegressor, "mlp": MLPWrapper}
     if model_type in built:
         m = build_model(RunConfig(model_type=model_type, device="cpu"), 4)
         assert type(m) is built[model_type] and m.device.type == "cpu"
         if model_type.startswith("cpd"):
             assert m.model_type == model_type
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(NotImplementedError,
+                       match="xgboost" if model_type == "xgboost" else "sklearn"):
         build_model(RunConfig(model_type=model_type), 4)
 
 

@@ -102,7 +102,10 @@ def test_polynomial_matches_sklearn_wrapper(name, seed):
 
 def test_polynomial_pinv_matches_and_lasso_raises():
     """regularization=None fits the pseudo-inverse (no intercept), as the
-    JAX package's numpy pinv; "l1" (Lasso) raises naming its ROADMAP item."""
+    JAX package's numpy pinv; "l1" (Lasso), which raised until it was
+    ported, fits as the JAX package's sklearn Lasso does
+    (tests/test_torch_baselines_nn.py holds it to sklearn on iris and
+    diabetes); another regularization raises."""
     from tensornetworksfork_tpu.models.baselines import PolynomialRegressionWrapper as JP
     from tensornetworksfork_tpu_torch.models.baselines import PolynomialRegressionWrapper as TP
     d, _ = _zoo_data("synthetic", 42)
@@ -110,8 +113,14 @@ def test_polynomial_pinv_matches_and_lasso_raises():
     pt = TP(degree=2, device="cpu").fit(d["X_train"], d["y_train"]).predict(d["X_test"])
     assert pt.shape == pj.shape
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4 * np.abs(pj).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        TP(regularization="l1", device="cpu")
+    lj = JP(degree=2, regularization="l1", alpha=0.01).fit(
+        d["X_train"], d["y_train"]).predict(d["X_test"])
+    lt = TP(degree=2, regularization="l1", alpha=0.01, device="cpu").fit(
+        d["X_train"], d["y_train"]).predict(d["X_test"])
+    assert lt.shape == lj.shape
+    np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-4 * np.abs(lj).max())
+    with pytest.raises(ValueError, match="regularization"):
+        TP(regularization="l3", device="cpu")
 
 
 @pytest.mark.parametrize("dataset", ZOO + ("synthetic",))
