@@ -1,6 +1,7 @@
 """grow_cart's XE growth in the JAX package and in the port, on the CPU.
 
-    python studies/grow_xe_study.py [S] [r] [CB]     (default 1024 6 4)
+    python studies/grow_xe_study.py [S] [r] [CB]       (default 1024 6 4)
+    python studies/grow_xe_study.py sens [S] [r] [CB]
 
 The JAX package's `run_grow_cart` sizes its model from y's columns, which
 XEBregman's C-1 logits cannot match, so this script drives the same loop
@@ -12,6 +13,12 @@ train_image's synthetic stand-in, as is and with chip_smoke's pixel noise
 (`grow_stand_in`), and prints each step's ok flags, each package's
 max|param|, train accuracy and the largest prediction difference over
 max|pred|.
+
+`sens` asks whether the packages part by rounding: on the noisy data,
+after the JAX package's 1-carriage step and growth, it runs 1, 2 and 3
+swipes of the 2-carriage step in both packages from the same params, and
+in the port from those params each moved by a relative 1e-7 x N(0, 1), and
+prints both prediction gaps over max|pred|.
 """
 import os
 import sys
@@ -75,8 +82,42 @@ def run(name, x, y, r, cb):
             tl = grown
 
 
+def sensitivity(x, y, r, cb):
+    xn, yn = x.numpy(), y.numpy()
+    jl = JLayer(1, r, x.shape[1], x.shape[2], output_shape=(9,), convolution_bond=cb)
+    cfg = dict(method="ridge_cholesky", eps=1.0, eps_decay=0.5)
+    jl.params, _ = jsweep(jl.network, jl.params, jnp.asarray(xn), jnp.asarray(yn), JXE(1.0),
+                          JConfig(num_swipes=3, **cfg))
+    jl = jg.grow_cart(jl)
+    tl = TensorConvolutionTrainLayer(2, r, x.shape[1], x.shape[2], output_shape=(9,),
+                                     convolution_bond=cb, device="cpu")
+    start = {k: np.asarray(v) for k, v in jl.params.items()}
+    rng = np.random.default_rng(3)
+    moved = {k: (v * (1 + 1e-7 * rng.standard_normal(v.shape))).astype(np.float32)
+             for k, v in start.items()}
+
+    def port(params, n):
+        p, _ = accumulating_sweep(tl.network, params_from_numpy(params, device="cpu"), x, y,
+                                  XEBregman(1.0), SweepConfig(num_swipes=n, **cfg))
+        return tl(x, p).numpy()
+
+    for n in (1, 2, 3):
+        pj, _ = jsweep(jl.network, {k: jnp.asarray(v) for k, v in start.items()},
+                       jnp.asarray(xn), jnp.asarray(yn), JXE(1.0), JConfig(num_swipes=n, **cfg))
+        a, b, c = np.asarray(jl(jnp.asarray(xn), pj)), port(start, n), port(moved, n)
+        m = np.abs(a).max()
+        print(f"2 carriages, {n} swipes: max|d pred|/max|pred| jax vs port "
+              f"{np.abs(a - b).max() / m:.3g}, port vs port from params moved by 1e-7 "
+              f"{np.abs(b - c).max() / m:.3g}", flush=True)
+
+
 def main(argv):
+    sens = argv[:1] == ["sens"]
+    argv = argv[1:] if sens else argv
     S, r, cb = (int(a) for a in (argv + ["1024", "6", "4"][len(argv):]))
+    if sens:
+        sensitivity(*cs.grow_stand_in(S), r, cb)
+        return
     run("stand-in", *synthetic_image_classification(S=S, seed=0), r, cb)
     run(f"noise {cs.GROW_NOISE:g}", *cs.grow_stand_in(S), r, cb)
 

@@ -78,8 +78,10 @@ class Network:
     caller asks for the CPU (utils/device.py). `use_kernels` selects the
     kernel routes of the Gram stage; it defaults to True exactly when the
     network lives on CUDA (the JAX package's use_pallas defaults to True only
-    on a TPU). With use_kernels on CPU tensors the same routes run through
-    the kernels' plain versions."""
+    on a TPU) and TNF_KERNELS is not "0", which turns every network built
+    meanwhile to the plain torch routes, as a reference for the kernels'.
+    With use_kernels on CPU tensors the same routes run through the
+    kernels' plain versions."""
 
     def __init__(self, topology: Topology,
                  consts: Optional[Dict[str, torch.Tensor]] = None,
@@ -88,7 +90,8 @@ class Network:
         self.aux_precision  # raises for a TNF_AUX_PRECISION not ported
         self.device = resolve_device(device)
         if use_kernels is None:
-            use_kernels = self.device.type == "cuda"
+            use_kernels = (self.device.type == "cuda"
+                           and os.environ.get("TNF_KERNELS", "1") != "0")
         self.use_kernels = use_kernels
         self.topology = topology
         self.consts = dict(consts or {})

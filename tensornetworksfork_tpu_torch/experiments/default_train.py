@@ -36,6 +36,8 @@ def run(variant: str = "raw", S: int = 2048, d: int = 4, degree: int = 3,
         N: int = 3, r: int = 8, num_swipes: int = 8, eps: float = 1e-4,
         eps_decay: float = 0.8, seed: int = 0, verbose: int = 0,
         device="cuda") -> dict:
+    """Returns {variant, ok, train_rmse, pred}: pred the predictions that
+    train_rmse scores (the mean head's under uncertainty)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     X = rng.uniform(-1, 1, size=(S, d)).astype(np.float32)
@@ -85,7 +87,7 @@ def run(variant: str = "raw", S: int = 2048, d: int = 4, degree: int = 3,
         layer.params = params
         pred = layer({}).cpu().numpy()
         return {"variant": variant, "ok": ok,
-                "train_rmse": rmse(y, pred.reshape(y.shape))}
+                "train_rmse": rmse(y, pred.reshape(y.shape)), "pred": pred}
     else:
         raise ValueError(f"unknown variant {variant!r}")
 
@@ -106,11 +108,12 @@ def run(variant: str = "raw", S: int = 2048, d: int = 4, degree: int = 3,
     layer.params = params
     pred = layer(x_in).cpu().numpy()
     if variant == "uncertainty":
-        return {"variant": variant, "ok": ok, "train_rmse": rmse(y, pred[:, 0])}
+        return {"variant": variant, "ok": ok, "train_rmse": rmse(y, pred[:, 0]),
+                "pred": pred[:, 0]}
     if np.iscomplexobj(pred):
         pred = pred.real
     return {"variant": variant, "ok": ok,
-            "train_rmse": rmse(y, pred.reshape(y.shape))}
+            "train_rmse": rmse(y, pred.reshape(y.shape)), "pred": pred.reshape(y.shape)}
 
 
 def main(argv=None):
@@ -118,7 +121,8 @@ def main(argv=None):
     p.add_argument("variant", nargs="?", default="raw", choices=VARIANTS)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    print(run(args.variant, verbose=1, device=args.device))
+    res = run(args.variant, verbose=1, device=args.device)
+    print({k: v for k, v in res.items() if k != "pred"})
 
 
 if __name__ == "__main__":

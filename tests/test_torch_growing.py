@@ -225,32 +225,29 @@ VARIANTS = {
 def test_default_train_variant_matches_jax(variant, monkeypatch):
     """default_train.run, one swipe of each variant from the JAX package's
     initial params (read where the JAX module calls accumulating_sweep):
-    the port's predictions (read where it scores them) within 1e-4 x
-    max|pred| of the JAX package's, and so its train RMSE."""
+    the port's predictions (its result's `pred`) within 1e-4 x max|pred| of
+    the JAX package's (read where the JAX module scores them), and so its
+    train RMSE."""
     kw = dict(VARIANTS[variant], num_swipes=1, eps=1e-2)
     seen = {}
 
-    def spy(mod, key):
-        def sweep(net, params, *a, **k):
-            seen[key + "_init"] = _np(params)
-            return (jsweep if key == "jax" else accumulating_sweep)(net, params, *a, **k)
+    def sweep(net, params, *a, **k):
+        seen["init"] = _np(params)
+        return jsweep(net, params, *a, **k)
 
-        def score(y, pred):
-            seen[key + "_pred"] = np.asarray(pred)
-            return float(np.sqrt(np.mean((np.asarray(y) - np.asarray(pred)) ** 2)))
-        monkeypatch.setattr(mod, "accumulating_sweep", sweep)
-        monkeypatch.setattr(mod, "rmse", score)
-
-    spy(jdt, "jax")
+    def score(y, pred):
+        seen["pred"] = np.asarray(pred)
+        return float(np.sqrt(np.mean((np.asarray(y) - np.asarray(pred)) ** 2)))
+    monkeypatch.setattr(jdt, "accumulating_sweep", sweep)
+    monkeypatch.setattr(jdt, "rmse", score)
     rj = jdt.run(variant, **kw)
-    spy(tdt, "port")
     dtype = torch.complex64 if variant.startswith("fourier") else torch.float32
-    init = params_from_numpy(seen["jax_init"], device="cpu", dtype=dtype)
+    init = params_from_numpy(seen["init"], device="cpu", dtype=dtype)
 
     def sweep_from_jax(net, params, *a, **k):
         return accumulating_sweep(net, init, *a, **k)
     monkeypatch.setattr(tdt, "accumulating_sweep", sweep_from_jax)
     rt = tdt.run(variant, device="cpu", **kw)
     assert rj["ok"] and rt["ok"]
-    _pred_close(seen["port_pred"], seen["jax_pred"], variant)
-    assert abs(rt["train_rmse"] - rj["train_rmse"]) <= PRED_REL * np.abs(seen["jax_pred"]).max()
+    _pred_close(rt["pred"], seen["pred"], variant)
+    assert abs(rt["train_rmse"] - rj["train_rmse"]) <= PRED_REL * np.abs(seen["pred"]).max()
