@@ -152,6 +152,28 @@ printing its own lines:
    (`check_growth_shapes`), the largest of each timed into the kernels
    line under the path's name.
 
+11. serving, the native stream, checkpoints, FLOPs and digits_flat — (i)
+   phase 7's trained type-I sum exported with a symbolic batch
+   (`utils/serving.py`: `torch.export`), saved under build/ and loaded with
+   `load_forward`, served at batches 1, 2,048 and the stand-in's whole test
+   split, each within 1e-5 x max|pred| of the model's eager forward on the
+   card with the argmax equal (throughputs in images/s, artifact and eager);
+   phase 5's estimator (`export_estimator`) and a TNML fit on
+   breast_cancer held to predict the same way; (ii)
+   `TensorTrainBatchRegressor(stream="native")` in each swipe method at
+   phase 10 (iii)'s data and width, every 8th batch the native stream
+   gathers equal to X[idx], held to the same fit on the plain routes
+   (TNF_KERNELS=0, the same stream; batch_same over 16,384 rows) and at
+   d = 32 to the CPU, its fit time beside the default stream's, every
+   shape it gave K7, K8 and K9 held to the plain versions; (iii) the
+   headline's node states through `utils/checkpoint.py` into a freshly
+   built model on the card, forward bit-equal; (iv) `epoch_flops` of phase
+   4's flagship swipe and each tier's MFU (int8 against the int8 peak, the
+   others against bf16's; a record); (v) a small swipe under `xla_trace`
+   leaves a non-empty Chrome trace under build/; (vi) `reproduce_result
+   digits_flat`, seeds 42-51: the mean within 2 x 1.17 x sqrt(2/10) of
+   RESULTS.md's 94.36 %, every seed's parameters finite.
+
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -790,7 +812,8 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     del acc, A
     # K4 gram_pair_tiled_q, K3's carry-less entry (on no path of the port):
     # bit-equal to its plain version, and its time at this chunk beside its
-    # bound (the wrapper's zeroed output included), logged for the table of
+    # bound (the wrapper's zeroed output included), its plain version's and
+    # torch._int_mm's over the same blocks (as K3's), logged for the table of
     # kernels but not in the kernels line, which lists the paths' kernels
     B4 = kg.gram_pair_tiled_q(Q1, s1, Q2, s2)
     B4_p = kg.gram_pair_q_plain(Q1, s1, Q2, s2, torch.zeros_like(B4), band=False,
@@ -798,14 +821,18 @@ def check_kernels(device, S=BATCH, D=None, rows4=None, D4=None):
     torch.cuda.synchronize()
     if not torch.equal(B4, B4_p):
         raise AssertionError("gram_pair_tiled_q: differs from its plain version")
-    del B4, B4_p
     ms4 = time_ms(lambda: kg.gram_pair_tiled_q(Q1, s1, Q2, s2))
+    plain4 = time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, B4_p.zero_(), band=False,
+                                                  has_acc=False))
+    del B4, B4_p
+    _, mm4_note = int_mm_ms(Q1, Q2, Q1.shape[0] // s1.shape[0])
     nslab = Dp // kg.TILE
     tiles4 = len(kg._pair_table_np(Dp // kg.QTILE, kg.TILE // kg.QTILE, False))
     b4 = bound(2.0 * Q1.shape[0] * nslab * (nslab + 1) / 2 * kg.TILE ** 2,
                nbytes(Q1, s1, Q2, s2) + tiles4 * kg.QTILE ** 2 * 4, "int8")
     log(f"[kernels] gram_pair_tiled_q (K4, on no path; {Q1.shape[0]}x{Dp}): {ms4:.3f} ms, "
-        f"bound {b4[0]:.3f} ms ({b4[1]}), bit-equal (torch.equal) to its plain version")
+        f"bound {b4[0]:.3f} ms ({b4[1]}), plain version {plain4:.3f} ms, library: "
+        f"{mm4_note}; bit-equal (torch.equal) to its plain version")
     del Q1, s1, Q2, s2
 
     # K6, the float Gram with carry at the A2 shape: bf16 on K1's operands
@@ -1262,7 +1289,8 @@ def run_regression(device):
     """Phase 5: the tabular TT regression through `TensorTrainRegressor` on
     the card — a two-swipe fit in the f32 tier, then one swipe with the
     opt-in own-out kernel against one through the default route, then one
-    swipe in the int8 tier. Returns the launch counts of each run."""
+    swipe in the int8 tier. Returns the launch counts of each run and the
+    estimator (phase 11 exports it)."""
     import torch
     from tensornetworksfork_tpu_torch.data.synthetic import make_regression
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
@@ -1336,7 +1364,7 @@ def run_regression(device):
     missing = [k for k in ("retile_rows", "quantize_tiled", "gram_pair_q") if q[k] < 1]
     if missing:
         raise AssertionError(f"int8 regression swipe never launched {missing}")
-    return launches, own, q
+    return launches, own, q, est
 
 
 @contextlib.contextmanager
@@ -1528,7 +1556,8 @@ def run_image_trainer(device):
     """Phase 7a: train_image at the headline MNIST configuration (type-I,
     members of 1-4 carriages, r=18, CB=8, kernel 4/4, batch 2048, eps 5.0 x
     0.25) on the synthetic stand-in, PRECISION=fastest, one whole swipe
-    (IMAGE_ENV). Returns its launches and the kernel shapes it recorded."""
+    (IMAGE_ENV). Returns its launches, the kernel shapes it recorded, the
+    trained model and the run's configuration (phase 11 serves them)."""
     import torch
     from tensornetworksfork_tpu_torch.experiments import reproduce_result, train_image
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
@@ -1564,7 +1593,7 @@ def run_image_trainer(device):
     if launches["retile_hmix"] != IMAGE_K1_SWIPE:
         raise AssertionError(f"train_image launched K1 {launches['retile_hmix']} times, "
                              f"not the whole swipe's {IMAGE_K1_SWIPE}")
-    return launches, seen
+    return launches, seen, models[0], config
 
 
 def run_digits_gate(device, tier):
@@ -2519,6 +2548,9 @@ BATCH_SAME_REF_ROWS = 16384
 # 50-epoch fit runs on the card and its loss and validation accuracy are
 # printed
 PHASE10_PRED_REL = 1e-4
+# each swipe method's fit time on the default stream (run_batch_paths), read
+# by phase 11 beside the native stream's
+BATCH_FIT_S = {}
 NN_LOSS_REL = 0.02
 MLP_EPOCHS = 5
 
@@ -2774,6 +2806,7 @@ def run_batch_paths(device, card: str):
                 ref_c = ref if c is REGRESSION else fit(c, method, device)[0]
                 if c is not REGRESSION:  # the same plain fit, y rounded one ulp up
                     ulp = gap(fit(REGRESSION, method, device, 1 + 2.0 ** -23)[0], ref)
+        BATCH_FIT_S[method] = wall
         log(f"[grow] tt_batch {method} ({card}): fit {wall:.3f} s, val rmse {val:.6f} "
             f"(plain routes {ref_val:.6f}), launches "
             f"{({k: v for k, v in launches.items() if v})}")
@@ -2914,6 +2947,305 @@ def check_phase10_rest(device, card: str):
     return runs
 
 
+# phase 11: what users of a trained model touch. (i) serving: phase 7's
+# trained type-I sum exported with a symbolic batch (utils/serving.py, a
+# torch.export program), saved under build/ and loaded with load_forward,
+# served at batches 1, SERVE_BATCH and the stand-in's whole test split, each
+# within SERVE_REL x max|pred| of the model's eager forward with the argmax
+# equal; phase 5's regression estimator and a TNML fit exported the same way
+# and held to predict. (ii) TensorTrainBatchRegressor(stream="native") at
+# phase 10 (iii)'s data and width in each swipe method, the batches the
+# native stream gathers checked bit for bit against X[idx], held as phase 10
+# (iii) holds the default stream (to the plain routes on the card with the
+# same stream, batch_same over BATCH_SAME_REF_ROWS rows, and at BATCH_CPU's
+# width to the CPU). (iii) a checkpoint of the headline's node states
+# restores a freshly built model to the same forward, bit for bit. (iv)
+# epoch_flops of phase 4's flagship swipe and the MFU of its four tiers
+# (int8 against the int8 peak, the rest against bf16's; a record, not a
+# claim). (v) a small swipe under xla_trace leaves a Chrome trace under
+# build/. (vi) reproduce_result digits_flat over seeds 42-51: the mean
+# within DIGITS_FLAT_FLOOR of RESULTS.md's 94.36 +/- 1.17 %, the noise floor
+# 2 x 1.17 x sqrt(2/10) of two 10-seed means, and every seed's parameters
+# finite
+SERVE_REL = 1e-5
+SERVE_BATCH = 2048
+SERVE_DIR = "build/chip_smoke_serving"
+TRACE_DIR = "build/chip_smoke_trace"
+DIGITS_FLAT_TARGET = 94.36
+DIGITS_FLAT_FLOOR = 2 * 1.17 * np.sqrt(2 / 10)
+NATIVE_CHECK_EVERY = 8  # check every 8th batch the native stream gathers
+
+
+def _serves(what, f, eager, x, classes: bool):
+    """f(x) (the loaded artifact) against eager(x): within SERVE_REL x
+    max|eager|, argmax equal where the output holds classes."""
+    import torch
+    with torch.no_grad():
+        got, want = f(x), eager(x)
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1))) if classes else True
+    log(f"[serve] {what}: batch {x.shape[0]}, max|d| {err:.3g} (max|pred| {scale:.3g}, "
+        f"rel {err / scale:.3g}, bound {SERVE_REL})" + (f", argmax equal {same}" if classes
+                                                         else ""))
+    if got.shape != want.shape or not err <= SERVE_REL * scale or not same:
+        raise AssertionError(f"{what}: the artifact differs from the eager forward")
+
+
+def run_serving(device, card: str, model, config, reg):
+    """Phase 11 (i): the headline model, phase 5's estimator and a TNML fit
+    through export, save and load_forward on the card. Returns the test
+    split (patches on the card) for (iii)."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.tabular import load_sklearn_dataset
+    from tensornetworksfork_tpu_torch.experiments import train_image
+    from tensornetworksfork_tpu_torch.models.tnml import TNMLRegressor
+    from tensornetworksfork_tpu_torch.utils.serving import (
+        export_estimator, export_forward, load_forward, save_forward)
+
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    xtr, _, xte, _, synthetic = train_image.load_data(config)
+    t0 = time.perf_counter()
+    blob = export_forward(model, tuple(xtr.shape[1:]), device=device,
+                          example_batch=SERVE_BATCH)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(SERVE_DIR, "headline.pt2")
+    save_forward(path, blob)
+    t0 = time.perf_counter()
+    f = load_forward(path)
+    load_s = time.perf_counter() - t0
+    log(f"[serve] headline type-I sum ({model.num_parameters()} params, members of "
+        f"1-{len(model.layers)} carriages, r={config['r']}, CB={config['CB']}): export "
+        f"{export_s:.2f} s, {len(blob) / 2**20:.2f} MiB at {path}, load {load_s:.2f} s, "
+        f"serves on {f.device}")
+    xte = xte.to(device)
+    batches = {"1": xte[:1], f"{SERVE_BATCH:,}": xtr[:SERVE_BATCH].to(device),
+               f"the test split ({xte.shape[0]:,}, synthetic={synthetic})": xte}
+    for name, x in batches.items():
+        _serves(f"headline artifact, batch {name}", f, model, x, classes=True)
+    for name in list(batches)[1:]:
+        x = batches[name]
+        with torch.no_grad():
+            ms_art = time_ms(lambda: f(x), reps=3)
+            ms_eager = time_ms(lambda: model(x), reps=3)
+        log(f"[serve] {card}: batch {name}: artifact {ms_art:.3f} ms "
+            f"({x.shape[0] / ms_art * 1e3:,.0f} images/s), eager forward "
+            f"{ms_eager:.3f} ms ({x.shape[0] / ms_eager * 1e3:,.0f} images/s)")
+
+    c = REGRESSION
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    X, _ = make_regression(S=c["fit"] + c["val"], d=c["d"], degree=3, seed=0)
+    Xva = X[c["fit"]:]
+    t0 = time.perf_counter()
+    g = load_forward(export_estimator(reg))
+    log(f"[serve] regression estimator (N={c['N']}, r={c['r']}, d={c['d']}): export and "
+        f"load {time.perf_counter() - t0:.2f} s")
+    for rows in (1, 3, len(Xva)):
+        _serves(f"regression artifact vs predict, {rows} rows", g,
+                lambda x: reg.predict(x.cpu().numpy()), torch.from_numpy(Xva[:rows]),
+                classes=False)
+    bc = load_sklearn_dataset("breast_cancer", seed=42)
+    tn = TNMLRegressor(r=4, num_swipes=2, eps_start=0.5, task="classification",
+                       input_scale="minmax", device=device)
+    tn.fit(bc["X_train"], bc["y_train"], X_val=bc["X_val"], y_val=bc["y_val"])
+    h = load_forward(tn.export())
+    for rows in (1, 3, len(bc["X_test"])):
+        _serves(f"tnml artifact vs predict (breast_cancer, {tn.N} carriages), {rows} rows",
+                h, lambda x: tn.predict(x.cpu().numpy()),
+                torch.from_numpy(bc["X_test"][:rows]), classes=True)
+    return xte
+
+
+def run_native_stream(device, card: str):
+    """Phase 11 (ii): TensorTrainBatchRegressor(stream="native") in each swipe
+    method at phase 10 (iii)'s width: the stream native, every
+    NATIVE_CHECK_EVERY-th batch it gathers equal to X[idx], held to the same
+    fit on the plain routes on the card (batch_same over BATCH_SAME_REF_ROWS
+    rows) and at BATCH_CPU's width to the CPU. Returns {path: (launches,
+    shapes seen)}."""
+    from tensornetworksfork_tpu_torch import native
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.module import TensorTrainBatchRegressor
+    from tensornetworksfork_tpu_torch.utils import data_stream
+
+    # the library builds at its first use: build it before the timed fits
+    t0 = time.perf_counter()
+    native.require_lib()
+    log(f"[native] {native.lib_path()}: built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    opened, checked = [], [0]
+    Stream = data_stream.MinibatchStream
+
+    class Checked(Stream):
+        def epoch(self):
+            for i, (xb, idx) in enumerate(super().epoch()):
+                if i % NATIVE_CHECK_EVERY == 0:
+                    if not np.array_equal(xb, self._owner[idx]):
+                        raise AssertionError("a native batch differs from X[idx]")
+                    checked[0] += 1
+                yield xb, idx
+
+    def stream(*a, **k):
+        opened.append(Checked(*a, **k))
+        if not opened[-1].is_native:
+            raise AssertionError("the minibatch stream is not the native one")
+        return opened[-1]
+
+    def fit(c, method, dev):
+        X, y = make_regression(S=c["fit"] + c["val"], d=c["d"], degree=3, seed=0)
+        est = TensorTrainBatchRegressor(
+            N=c["N"], r=c["r"], batch_size=1024, num_swipes=2, swipe_method=method,
+            perturb=False, constrict_bond=False, eps_start=5.0, eps_end=5.0 * 0.25 ** 3,
+            seed=42, stream="native", device=dev)
+        est.fit(X[:c["fit"]], y[:c["fit"]], X[c["fit"]:], y[c["fit"]:])
+        pred = est.predict(X[c["fit"]:])
+        return pred, float(np.sqrt(np.mean((pred - y[c["fit"]:]) ** 2)))
+
+    runs = {}
+    data_stream.MinibatchStream = stream
+    try:
+        for method in BATCH_METHODS:
+            with env(TNF_GRAM_DTYPE="f32", TNF_AUX_PRECISION="highest"):
+                (pred, val), launches, seen, wall = _timed_run(
+                    device, lambda: fit(REGRESSION, method, device))
+                c = dict(REGRESSION, fit=BATCH_SAME_REF_ROWS) if method == "batch_same" else REGRESSION
+                if c is not REGRESSION:
+                    pred = fit(c, method, device)[0]
+                with env(TNF_KERNELS="0"):
+                    ref, ref_val = fit(c, method, device)
+            log(f"[native] tt_batch {method} ({card}): native stream fit {wall:.3f} s "
+                f"(default stream {BATCH_FIT_S.get(method, float('nan')):.3f} s), val rmse "
+                f"{val:.6f}, launches {({k: v for k, v in launches.items() if v})}")
+            _held_to(f"native tt_batch {method} ({c['fit']:,} rows), kernels vs plain routes "
+                     f"on the card (val rmse {ref_val:.6f})", pred, ref, PHASE10_PRED_REL)
+            runs[f"tt_batch native {method}"] = (launches, seen)
+            (out, _), (cpu, _) = card_and_cpu(
+                device, runs, f"tt_batch native {method} d={BATCH_CPU['d']}",
+                lambda dev: fit(BATCH_CPU, method, dev))
+            _held_to(f"native tt_batch {method} d={BATCH_CPU['d']}, card vs cpu", out, cpu,
+                     PHASE10_PRED_REL)
+    finally:
+        data_stream.MinibatchStream = Stream
+    log(f"[native] {len(opened)} native streams opened, {checked[0]} gathered batches "
+        "equal to X[idx]")
+    return runs
+
+
+def check_checkpoint(device, model, config, x):
+    """Phase 11 (iii): the headline's node states saved as npz, loaded onto
+    the card into a model built afresh (other seeds), forward bit-equal."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.images import DATASETS
+    from tensornetworksfork_tpu_torch.experiments import train_image
+    from tensornetworksfork_tpu_torch.utils.checkpoint import load_node_states, save_node_states
+    path = os.path.join(SERVE_DIR, "headline_states.npz")
+    save_node_states(path, model.node_states())
+    classes = DATASETS[config["dataset"].lower()]["num_classes"]
+    fresh = train_image.build_model(dict(config, seed=config["seed"] + 100, device=device),
+                                    x.shape[1], x.shape[2], classes)
+    fresh.load_node_states(load_node_states(path, device=device))
+    with torch.no_grad():
+        same = torch.equal(fresh(x), model(x))
+    log(f"[checkpoint] {path}: {os.path.getsize(path) / 2**20:.2f} MiB, "
+        f"{len(model.layers)} members restored on {device}, forward over "
+        f"{x.shape[0]:,} images bit-equal {same}")
+    if not same:
+        raise AssertionError("the restored model's forward differs")
+
+
+def record_flops(device, card: str, walls):
+    """Phase 11 (iv): epoch_flops of phase 4's flagship swipe and each
+    tier's MFU from its wall time (a record, not a claim)."""
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    from tensornetworksfork_tpu_torch.utils.flops import device_peak_flops, epoch_flops, mfu
+    X, y = flagship_data(SLICE_SAMPLES, 0, device)
+    sweeper = Sweeper(flagship_layer(device, 0).network, XEBregman(w=1.0),
+                      SweepConfig(**SLICE_CONFIG))
+    fl = epoch_flops(sweeper, X, y)
+    log(f"[flops] flagship swipe (S={SLICE_SAMPLES:,}, chunks of {BATCH}): "
+        + ", ".join(f"{k} {v:.4g}" for k, v in fl.items()))
+    peaks = {k: device_peak_flops(k) for k in ("bf16", "int8")}
+    for tier, wall in walls.items():
+        kind = "int8" if tier == "int8" else "bf16"
+        u = mfu(fl["total"], wall, peaks[kind])
+        log(f"[flops] {card}: {tier} swipe {wall:.3f} s: {fl['total'] / wall / 1e12:.3f} "
+            f"TFLOP/s, MFU {u if u is None else f'{u:.4%}'} of the {kind} peak "
+            f"{peaks[kind]}")
+    return fl
+
+
+def check_trace(device):
+    """Phase 11 (v): one small conv-TT swipe on the card under xla_trace
+    leaves a non-empty Chrome trace under build/; the card's kernels in it
+    are counted."""
+    import glob
+    import torch
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    from tensornetworksfork_tpu_torch.utils.timing import xla_trace
+    layer = TensorConvolutionTrainLayer(2, 4, 8, 5, output_shape=(3,), convolution_bond=2,
+                                        seed=0, device=device)
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.standard_normal((512, 8, 5), np.float32), device=device)
+    y = torch.eye(4, device=device)[torch.from_numpy(rng.integers(0, 4, 512)).to(device)]
+    before = set(glob.glob(os.path.join(TRACE_DIR, "trace-*.json")))
+    with xla_trace(TRACE_DIR):
+        Sweeper(layer.network, XEBregman(w=1.0), SweepConfig(num_swipes=1)).run(
+            [layer.params], X, y)
+    (path,) = set(glob.glob(os.path.join(TRACE_DIR, "trace-*.json"))) - before
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[trace] {path}: {os.path.getsize(path) / 2**10:.1f} KiB, {len(events)} events, "
+        f"{kernels} of them kernels on the card")
+    if not events:
+        raise AssertionError("xla_trace wrote an empty trace")
+
+
+def run_digits_flat_gate(device, card: str):
+    """Phase 11 (vi): reproduce_result digits_flat, seeds 42-51, on the card:
+    each seed's accuracy, the mean within DIGITS_FLAT_FLOOR of
+    DIGITS_FLAT_TARGET, every model's parameters finite. Returns its
+    launches."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import reproduce_result, train_tabular
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    models, build = [], train_tabular.build_model
+
+    def recording(*args):
+        models.append(build(*args))
+        return models[-1]
+
+    train_tabular.build_model = recording
+    try:
+        with env(DEVICE=str(device)):
+            torch.cuda.synchronize()
+            kg.reset_launches()
+            t0 = time.perf_counter()
+            accs = reproduce_result.main("digits_flat")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kg.LAUNCHES)
+    finally:
+        train_tabular.build_model = build
+    mean = float(np.mean(accs))
+    bad = [i for i, m in enumerate(models)
+           if not all(bool(torch.isfinite(v).all()) for v in m._model.params.values())]
+    log(f"[digits_flat] {card}: accuracies {[round(a, 2) for a in accs]}, mean {mean:.2f} "
+        f"+/- {np.std(accs):.2f} %, |mean - {DIGITS_FLAT_TARGET}| = "
+        f"{abs(mean - DIGITS_FLAT_TARGET):.2f} (floor {DIGITS_FLAT_FLOOR:.2f}), wall "
+        f"{wall:.1f} s, launches {({k: v for k, v in launches.items() if v})}")
+    if bad or not all(np.isfinite(accs)):
+        raise AssertionError(f"digits_flat: seeds at {bad} ended with non-finite parameters")
+    if not abs(mean - DIGITS_FLAT_TARGET) <= DIGITS_FLAT_FLOOR:
+        raise AssertionError(f"digits_flat: mean {mean:.2f} % is outside the noise floor "
+                             f"{DIGITS_FLAT_FLOOR:.2f} of {DIGITS_FLAT_TARGET} %")
+    return launches
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -2947,8 +3279,8 @@ def main() -> int:
     kernels = check_kernels(device) + check_weighted_kernels(device)
     int8 = run_slice(device, "int8")
     flagship = int8["launches"]
-    flagship32 = run_slice(device, "f32")["launches"]
-    flagship16 = run_slice(device, "bf16")["launches"]
+    slice32, slice16 = run_slice(device, "f32"), run_slice(device, "bf16")
+    flagship32, flagship16 = slice32["launches"], slice16["launches"]
     fastest = run_slice(device, "fastest")
     drift = abs(fastest["loss1"] - int8["loss1"]) / int8["loss1"]
     log(f"[slice] {smi}: fastest (bench.py's tier) {fastest['wall']:.3f} s, loss "
@@ -2956,10 +3288,10 @@ def main() -> int:
         f"{int8['loss1']:.6f}; |d loss| / loss {drift:.3g} (bound {AUX_LOSS_RTOL})")
     if not drift <= AUX_LOSS_RTOL:
         raise AssertionError(f"the bf16 aux tier moved the swipe's loss by {drift:.3g}")
-    fit, own, fit8 = run_regression(device)
+    fit, own, fit8, reg = run_regression(device)
     check_reference(device)
     t7 = time.perf_counter()
-    image, image_seen = run_image_trainer(device)
+    image, image_seen, headline, headline_config = run_image_trainer(device)
     digits, digits_seen = {}, {}
     for tier in ("reference", "fastest"):
         digits[tier], digits_seen[tier] = run_digits_gate(device, tier)
@@ -3006,6 +3338,19 @@ def main() -> int:
     log(f"[env] phase 10 took {time.perf_counter() - t10:.1f} s, its shape checks "
         f"{time.perf_counter() - t10c:.1f} s")
 
+    t11 = time.perf_counter()
+    test_split = run_serving(device, smi, headline, headline_config, reg)
+    native = run_native_stream(device, smi)
+    for path, (_, seen) in native.items():
+        kernels += check_growth_shapes(device, path, seen, done10)
+    grow.update(native)
+    check_checkpoint(device, headline, headline_config, test_split)
+    record_flops(device, smi, {"int8": int8["wall"], "bf16": slice16["wall"],
+                               "f32": slice32["wall"], "fastest": fastest["wall"]})
+    check_trace(device)
+    digits_flat = run_digits_flat_gate(device, smi)
+    log(f"[env] phase 11 took {time.perf_counter() - t11:.1f} s")
+
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
@@ -3048,7 +3393,9 @@ def main() -> int:
              # phase 10: grow_cart in the fastest tier (bf16 J, int8 codes)
              # and in f32; the other growth and estimator paths in f32
              **{p: (runs, low if p == "grow_cart fastest" else full)
-                for p, (runs, _) in grow.items()}}
+                for p, (runs, _) in grow.items()},
+             # phase 11: the native stream's fits (in grow) and digits_flat, f32
+             "digits_flat": (digits_flat, full)}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,

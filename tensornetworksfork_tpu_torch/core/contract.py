@@ -82,6 +82,13 @@ _DEFAULT_MAX_ELEMS = 1 << 28
 _UNCAPPED = float(1 << 62)
 
 
+def max_elems() -> int:
+    """The intermediate cap of the plans, read from TNF_CONTRACT_MAX_ELEMS
+    on every call."""
+    cap_s = os.environ.get("TNF_CONTRACT_MAX_ELEMS", "")
+    return int(cap_s) if cap_s else _DEFAULT_MAX_ELEMS
+
+
 def _local(terms: Sequence[str], out: str) -> str:
     """`terms` -> `out` in ASCII letters of its own, given in order of first
     appearance (one pairwise step: at most its two operands' axes)."""
@@ -306,6 +313,18 @@ def _einsum_pair_default(sub: str, x: torch.Tensor, y: torch.Tensor
     return z.permute(*[cur.index(ch) for ch in out])
 
 
+def _size(d) -> int:
+    """A dimension as an int. A symbolic one (the batch of a
+    `torch.export` trace) gives its example value, so that the plan is made
+    once from concrete sizes and never hashes or guards on the batch."""
+    if isinstance(d, torch.SymInt):
+        hint = d.node.hint
+        if hint is None:
+            raise ValueError(f"symbolic size {d} has no example value to plan from")
+        return int(hint)
+    return int(d)
+
+
 def contract(operands: Sequence[Tuple[Axes, torch.Tensor]],
              keep: Axes, precision: str = "highest") -> torch.Tensor:
     """Contracts labelled operands into a tensor whose axes are `keep`, in
@@ -315,9 +334,8 @@ def contract(operands: Sequence[Tuple[Axes, torch.Tensor]],
     and stay f32."""
     expr = einsum_expr([axes for axes, _ in operands], keep)
     arrays: List[torch.Tensor] = [arr for _, arr in operands]
-    cap_s = os.environ.get("TNF_CONTRACT_MAX_ELEMS", "")
-    cap = int(cap_s) if cap_s else _DEFAULT_MAX_ELEMS
-    steps = _plan(expr, tuple(tuple(a.shape) for a in arrays), cap)
+    steps = _plan(expr, tuple(tuple(_size(d) for d in a.shape) for a in arrays),
+                  max_elems())
     work = list(arrays)
     for step, sub in steps:
         picked = [work[i] for i in step]

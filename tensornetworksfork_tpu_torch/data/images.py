@@ -64,9 +64,14 @@ _IDX_NAMES = {
 
 
 def _read_idx(path: str) -> np.ndarray:
-    """An idx ubyte file (gzipped or not) as a uint8 array. The JAX package
-    tries a native parser first; here the plain reader is the only one
-    (the native one is ROADMAP item 18)."""
+    """An idx ubyte file (gzipped or not) as a uint8 array: the native
+    parser (`native.read_idx`) first for an uncompressed file, as in the JAX
+    package, else the Python reader."""
+    if not path.endswith(".gz"):
+        from .. import native
+        out = native.read_idx(path)
+        if out is not None:
+            return out
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         magic = struct.unpack(">I", f.read(4))[0]

@@ -15,9 +15,9 @@ there once per fit.
 lanczos and `gradient`) and `solve_dtype` (None / "float32" or "float64")
 reach the sweep's `SweepConfig` as in the JAX package.
 
-Not ported yet: `export` (ROADMAP item 18) raises NotImplementedError. The
-JAX package's concurrent pre-compilation before the sweep has no
-counterpart: nothing compiles.
+`export` writes a serving artifact (`utils/serving.py`, `torch.export`)
+that reproduces `predict`. The JAX package's concurrent pre-compilation
+before the sweep has no counterpart: nothing compiles.
 """
 from __future__ import annotations
 
@@ -384,8 +384,14 @@ class TensorTrainRegressor(BaseEstimator, RegressorMixin):
         return 1.0 - error_rate(y_true, y_pred)
 
     def export(self, path=None, **kw):
-        raise NotImplementedError(
-            "serving export is not ported (ROADMAP item 18)")
+        """Serving export (utils/serving.py): a batch-polymorphic
+        `torch.export` artifact reproducing predict(). Returns the bytes;
+        also writes them to `path` when given."""
+        from ..utils.serving import export_estimator, save_forward
+        blob = export_estimator(self, **kw)
+        if path is not None:
+            save_forward(path, blob)
+        return blob
 
 
 def calibrate_logit_scale(layer, X, n: int = 64) -> float:

@@ -13,8 +13,8 @@ tensornetworksfork_tpu/models/module.py).
   eps that stops on the node count ("degree") and restores the best state.
 
 They run on `device` (the card unless the caller asks for the CPU).
-`stream="native"` (the C++ minibatch prefetcher) raises NotImplementedError
-until ROADMAP item 18 ports it.
+`TensorTrainBatchRegressor(stream="native")` takes its minibatches from the
+native prefetcher (`utils/data_stream.py`) in the JAX package's sequence.
 """
 from __future__ import annotations
 
@@ -218,14 +218,20 @@ class TensorTrainBatchRegressor(TensorTrainRegressor):
     minibatch), batch_block (one node over every minibatch, mirrored
     cycle). Each swipe draws a permutation of the training rows from
     RandomState(seed); batch_block shares one permutation across the
-    swipe's blocks."""
+    swipe's blocks.
+
+    stream="native" takes the minibatches from `utils/data_stream.py`'s
+    MinibatchStream instead: the native library's worker thread gathers
+    each batch's rows of X on the host in its own seeded permutation (the
+    JAX package's sequence for the same seed; batch_block draws a fresh
+    permutation per block), and each batch then goes to the device. Without
+    the native library it raises, carrying g++'s error; it never falls back
+    to the numpy permutation, which is another sequence."""
 
     def __init__(self, *args, batch_size=1024, swipe_method="batch_unique",
                  stream=None, **kwargs):
-        if stream == "native":
-            raise NotImplementedError(
-                "stream='native' (the C++ minibatch prefetcher) is not ported "
-                "(ROADMAP item 18)")
+        if stream not in (None, "native"):
+            raise ValueError(f"stream must be None or 'native', not {stream!r}")
         super().__init__(*args, batch_size=batch_size, **kwargs)
         self.swipe_method = swipe_method
         self.stream = stream
@@ -245,8 +251,23 @@ class TensorTrainBatchRegressor(TensorTrainRegressor):
         seq = [(mi, ni) for mi, m in enumerate(sweeper.members)
                for ni in m.train_nodes]
 
+        ms = None
+        if self.stream == "native":
+            from ..native import require_lib
+            from ..utils.data_stream import MinibatchStream
+            require_lib()  # raises with g++'s error: no numpy permutation
+            y_host = y.cpu().numpy()
+            ms = MinibatchStream(X.cpu().numpy(), self.batch_size, seed=self.seed)
+
         def epoch_batches(indices=None):
-            """One permutation of the training rows as (xb, yb) pairs."""
+            """One permutation of the training rows as (xb, yb) pairs: from
+            the native stream (gathered on the host, then moved to X's
+            device), else by indexing X on its device."""
+            if ms is not None:
+                for xb, idx in ms.epoch():
+                    yield (torch.from_numpy(xb).to(X.device),
+                           torch.from_numpy(y_host[idx]).to(X.device))
+                return
             if indices is None:
                 indices = batch_rng.permutation(n_train)
             for bs in range(0, n_train, self.batch_size):
@@ -258,22 +279,26 @@ class TensorTrainBatchRegressor(TensorTrainRegressor):
             params, _ = sweeper.run(params, xb, yb, node_order=node_order)
             self._store(sweeper)
 
-        for swipe in range(self.num_swipes):
-            if self.swipe_method == "batch_unique":
-                block_iter = mirrored_cycle(seq, one_cycle=False)
-                for xb, yb in epoch_batches():
-                    step(xb, yb, [next(block_iter)])
-            elif self.swipe_method == "batch_same":
-                for xb, yb in epoch_batches():
-                    step(xb, yb)
-            elif self.swipe_method == "batch_block":
-                swipe_idx = batch_rng.permutation(n_train)
-                for block in mirrored_cycle(seq, one_cycle=True):
-                    for xb, yb in epoch_batches(swipe_idx):
-                        step(xb, yb, [block])
-            else:
-                raise ValueError(f"unknown swipe_method {self.swipe_method!r}")
-            self._val_log(swipe + 1, X_val, y_val)
+        try:
+            for swipe in range(self.num_swipes):
+                if self.swipe_method == "batch_unique":
+                    block_iter = mirrored_cycle(seq, one_cycle=False)
+                    for xb, yb in epoch_batches():
+                        step(xb, yb, [next(block_iter)])
+                elif self.swipe_method == "batch_same":
+                    for xb, yb in epoch_batches():
+                        step(xb, yb)
+                elif self.swipe_method == "batch_block":
+                    swipe_idx = None if ms is not None else batch_rng.permutation(n_train)
+                    for block in mirrored_cycle(seq, one_cycle=True):
+                        for xb, yb in epoch_batches(swipe_idx):
+                            step(xb, yb, [block])
+                else:
+                    raise ValueError(f"unknown swipe_method {self.swipe_method!r}")
+                self._val_log(swipe + 1, X_val, y_val)
+        finally:
+            if ms is not None:
+                ms.close()
         return self
 
 

@@ -6,7 +6,8 @@ powers [1, x, ..., x^degree]; the train starts left-orthonormalized and
 sweeps with orthonormalize=True (`core/gauges.py`). `input_scale="minmax"`
 fits a per-feature [0, 1] rescale on the training rows (the sin-cos map
 wants inputs in [0, 1]). It runs on `device`, the card unless the caller
-passes device="cpu"; `export` is not ported (ROADMAP item 18).
+passes device="cpu"; `export` writes a serving artifact with the rescale
+and the basis map traced in (`utils/serving.py`).
 """
 from __future__ import annotations
 
@@ -72,7 +73,12 @@ class TNMLRegressor(BaseEstimator, RegressorMixin):
         self._model = None
 
     def _embed(self, X):
-        X = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+        return self._embed_tensor(
+            torch.as_tensor(np.asarray(X, np.float32), device=self.device))
+
+    def _embed_tensor(self, X):
+        """The minmax rescale and the basis map of a tensor of rows: torch
+        ops only, so that `export` traces them into the artifact."""
         if self._scale_min is not None:
             X = torch.clamp((X - self._scale_min) / self._scale_rng, 0.0, 1.0)
         if self.basis == "sin-cos":
@@ -189,5 +195,17 @@ class TNMLRegressor(BaseEstimator, RegressorMixin):
         return 1.0 - error_rate(y_true, y_pred)
 
     def export(self, path=None, **kw):
-        raise NotImplementedError(
-            "serving export is not ported (ROADMAP item 18)")
+        """Serving export: raw feature rows in, predict() semantics out; the
+        minmax rescale and the basis embedding are traced into the artifact,
+        so serving needs no feature-map code. Returns the bytes; also writes
+        them to `path` when given."""
+        from ..utils.serving import ServingModule, export_module, save_forward
+        if self._model is None:
+            raise ValueError("estimator must be fitted before export")
+        device = kw.pop("device", self.device)
+        mod = ServingModule(self._model, classification=(self.task == "classification"),
+                            device=device, embed=self._embed_tensor)
+        blob = export_module(mod, (self.N,), dtype=self.dtype, device=device, **kw)
+        if path is not None:
+            save_forward(path, blob)
+        return blob

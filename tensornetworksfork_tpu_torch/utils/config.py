@@ -1,19 +1,23 @@
 """Unified run configuration (port of tensornetworksfork_tpu/utils/config.py).
 
 One dataclass for the tabular CLI, loadable from argparse flags
-(`from_args`) or an override dict (`merge`), with the JAX package's key
-names for the fields the port's CLIs read. The fields of code not ported
-yet (the image CLI's CB/kernel_*) come with that code (ROADMAP item 18). max_iter and tol are not fields: nothing
-reads them from a RunConfig in either package (train_image reads MAX_ITER
-from its environment, and the estimator leaves both at SweepConfig's
-defaults). The
-port adds `device` ("cuda" by default; "cpu" only when asked for, and no
-visible card raises), and writes its results under `build/` by default.
+(`from_args`), from environment variables (`from_env`, the JAX package's
+parsing: upper-cased field names, with an optional prefix) or an override
+dict (`merge`), with the JAX package's key names for the fields the port's
+readers read. `validation_split`, `CB`, `kernel_size` and `kernel_stride`
+stay out until a reader of them is ported (no module of the port reads them
+from a RunConfig; train_image reads its own environment). max_iter and tol are not
+fields: nothing reads them from a RunConfig in either package (train_image
+reads MAX_ITER from its environment, and the estimator leaves both at
+SweepConfig's defaults). The port adds `device` ("cuda" by default; "cpu"
+only when asked for, and no visible card raises), and writes its results
+under `build/` by default.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional
 
 
@@ -38,7 +42,7 @@ class RunConfig:
     batch_size: int = 512
     method: str = "ridge_cholesky"
     swipe_method: str = "batch_same"  # tt_batch: batch_unique | batch_same | batch_block
-    stream: Optional[str] = None      # tt_batch: "native" is ROADMAP item 18
+    stream: Optional[str] = None      # tt_batch: "native" = the C++ prefetcher
     # numerics tier: reference | fast | fastest | None = respect TNF_* env
     precision: Optional[str] = None
     # solve numerics: refine = one f32 iterative-refinement pass;
@@ -62,6 +66,18 @@ class RunConfig:
     @classmethod
     def field_names(cls):
         return [f.name for f in dataclasses.fields(cls)]
+
+    @classmethod
+    def from_env(cls, prefix: str = "") -> "RunConfig":
+        """Env-var config: each field from the variable named by the prefix
+        and the field's name, upper-cased (N, EPS, CONSTRICT_BOND, ...);
+        absent variables keep the defaults."""
+        cfg = cls()
+        for f in dataclasses.fields(cls):
+            key = (prefix + f.name).upper()
+            if key in os.environ:
+                setattr(cfg, f.name, _coerce(os.environ[key], getattr(cfg, f.name)))
+        return cfg
 
     @classmethod
     def from_args(cls, argv=None) -> "RunConfig":
@@ -91,6 +107,24 @@ class RunConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def _coerce(val: str, default):
+    """An environment variable's string as the type of the field's default:
+    booleans are "1", "true" or "yes" (any case); an Optional field parses a
+    number when it can, "", "None" and "none" as None, else the string."""
+    if isinstance(default, bool):
+        return val.lower() in ("1", "true", "yes")
+    if isinstance(default, int):
+        return int(val)
+    if isinstance(default, float):
+        return float(val)
+    if default is None:
+        try:
+            return float(val) if "." in val else int(val)
+        except ValueError:
+            return None if val in ("", "None", "none") else val
+    return val
 
 
 def _parser_for(default):

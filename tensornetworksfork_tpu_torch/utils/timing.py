@@ -1,12 +1,16 @@
-"""Phase timing (port of tensornetworksfork_tpu/utils/timing.py: `Timer`).
+"""Phase timing and tracing (port of tensornetworksfork_tpu/utils/timing.py).
 
-Each phase synchronises the CUDA device at its start and end, so its totals
-are the card's time and not the host's launch time (the JAX package blocks
-on its results for the same reason). The JAX package's `xla_trace` is not
-ported (ROADMAP item 18).
+Each `Timer` phase synchronises the CUDA device at its start and end, so its
+totals are the card's time and not the host's launch time (the JAX package
+blocks on its results for the same reason). `block_on` waits for the
+devices of the tensors it is given, as `jax.block_until_ready`. `xla_trace`
+keeps the JAX package's name so that a reader finds the counterpart; here
+it is a `torch.profiler` context (the host and, where a card is visible,
+CUDA activity) that writes a Chrome trace into its directory on exit.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -18,6 +22,26 @@ import torch
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def block_on(x):
+    """Waits until the work producing the tensors of `x` (a tensor, or
+    dicts, lists and tuples of them) is done on their CUDA devices; returns
+    `x`."""
+    for dev in {t.device for t in _tensors(x) if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return x
 
 
 class Timer:
@@ -46,3 +70,22 @@ class Timer:
                 "mean_s": self.totals[k] / max(self.counts[k], 1)}
             for k in self.totals
         }
+
+
+@contextmanager
+def xla_trace(log_dir: str = "build/tnf_trace"):
+    """A `torch.profiler` trace of the block: host activity, and CUDA
+    activity where a card is visible. Yields `log_dir`, as the JAX package
+    does; on exit the Chrome trace (chrome://tracing or Perfetto) is written
+    there as `trace-<pid>-<ms>.json`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+        _sync()
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace-{os.getpid()}-{int(time.time() * 1000)}.json"))

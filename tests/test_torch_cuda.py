@@ -2,7 +2,8 @@
 and csrc/wgram.cu against its plain version on the card, at small, ragged
 shapes (K6 in f32 also against float64; K2, K3/K4 and K8 bit for bit, K1's
 Jt too, and its Kt in f32); the Krylov solvers and the float64 solve tier
-on CUDA tensors against float64.
+on CUDA tensors against float64; serving artifacts on the card against the
+eager forward, and the native-stream batch regressor against the CPU.
 
 This file imports no JAX, so it also runs on a machine without it (the
 suite's conftest.py imports JAX, hence --noconftest there):
@@ -506,3 +507,94 @@ def test_polynomial_and_tnml_on_cuda():
     yv = bc["y_val"].reshape(-1)
     acc = float(np.mean(est.predict(bc["X_val"]).argmax(1) == yv))
     assert est.fit_ok_ and acc > max(yv.mean(), 1 - yv.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 300])
+def test_serving_artifact_on_cuda(batch, tmp_path):
+    """A type-I sum of conv-TTs exported on the card with a symbolic batch,
+    saved and loaded with torch alone: its output at batches 1, 3 and 300
+    (past the trace's example batch) stays on the card and matches the
+    eager forward within 1e-5 of max|pred|, argmax equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.models.layers import SumLayer, TensorConvolutionTrainLayer
+    from tensornetworksfork_tpu_torch.utils.serving import export_forward, load_forward, save_forward
+    model = SumLayer([TensorConvolutionTrainLayer(n, 6, 12, 9, output_shape=(9,),
+                                                  convolution_bond=3, seed=n, device="cuda")
+                      for n in (1, 2, 3)])
+    p = str(tmp_path / "sum.pt2")
+    save_forward(p, export_forward(model, (12, 9), device="cuda", example_batch=256))
+    f = load_forward(p)
+    x = torch.randn(batch, 12, 9, device="cuda")
+    got, want = f(x), model(x)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_estimator_export_on_cuda():
+    """A classification TensorTrainRegressor fitted on the card exports
+    with its device; the artifact's logits match predict."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
+    from tensornetworksfork_tpu_torch.utils.serving import load_forward
+    rng = np.random.default_rng(2)
+    X = rng.uniform(-1, 1, size=(512, 6)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.int64)
+    reg = TensorTrainRegressor(N=3, r=4, task="classification", num_swipes=2,
+                               eps_start=0.5, seed=0, device="cuda").fit(X, y)
+    f = load_forward(reg.export())
+    assert f.device.type == "cuda"
+    logits, ref = f(X).cpu().numpy(), reg.predict(X)
+    assert np.abs(logits - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swipe_method", ["batch_unique", "batch_same", "batch_block"])
+def test_native_stream_batch_regressor_on_cuda(swipe_method, monkeypatch):
+    """TensorTrainBatchRegressor(stream="native") on the card: the native
+    stream opens, the batches' rows are the host X's, the fit launches the
+    split Gram, and its predictions match the same fit on the CPU (the same
+    stream, so the same minibatches) within 1e-4 of max|pred|. eps 5.0 down
+    to 5.0 x 0.25^3 (phase 10's): at eps 1.0 batch_same amplifies rounding
+    (on the CPU, y one ulp up moves its predictions by 7.9e-3 of max|pred|,
+    against 4.2e-7 here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.module import TensorTrainBatchRegressor
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    from tensornetworksfork_tpu_torch.utils import data_stream
+    X, y = make_regression(S=2560, d=16, degree=3, seed=0)
+    opened = []
+    Stream = data_stream.MinibatchStream
+
+    class Checked(Stream):
+        def epoch(self):
+            for xb, idx in super().epoch():
+                assert np.array_equal(xb, self._owner[idx])
+                yield xb, idx
+
+    def record(*a, **k):
+        opened.append(Checked(*a, **k))
+        return opened[-1]
+    monkeypatch.setattr(data_stream, "MinibatchStream", record)
+    preds = []
+    for dev in ("cuda", "cpu"):
+        kg.reset_launches()
+        est = TensorTrainBatchRegressor(N=3, r=4, batch_size=512, num_swipes=2,
+                                        swipe_method=swipe_method, perturb=False,
+                                        constrict_bond=False, eps_start=5.0,
+                                        eps_end=5.0 * 0.25 ** 3, seed=0,
+                                        stream="native", device=dev)
+        est.fit(X[:2048], y[:2048], X[2048:], y[2048:])
+        if dev == "cuda":
+            assert kg.LAUNCHES["weighted_gram"] > 0
+        preds.append(est.predict(X[2048:]))
+    assert all(s.batches_per_epoch == 4 for s in opened) and len(opened) == 2
+    assert np.abs(preds[0] - preds[1]).max() <= 1e-4 * np.abs(preds[1]).max()

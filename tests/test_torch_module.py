@@ -114,8 +114,17 @@ def test_early_stopping_regressor_matches_jax():
 
 
 def test_stream_native_waits_for_item_18():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        tm.TensorTrainBatchRegressor(stream="native", device="cpu")
+    """stream="native" raised until item 18 ported the native prefetcher;
+    now it fits through it (tests/test_torch_native.py holds it to the JAX
+    package's native fit) and a stream it does not know raises."""
+    X, y = _data()
+    est = tm.TensorTrainBatchRegressor(N=2, r=4, num_swipes=1, batch_size=64,
+                                       stream="native", seed=0, device="cpu")
+    est.fit(X, y)
+    assert [e["epoch"] for e in est.trajectory] == [1]
+    assert np.isfinite(est.predict(X)).all()
+    with pytest.raises(ValueError, match="stream"):
+        tm.TensorTrainBatchRegressor(stream="numpy", device="cpu")
 
 
 def test_tt_natural_gradient_matches_jax():

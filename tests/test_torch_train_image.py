@@ -246,9 +246,25 @@ def test_unported_precisions_raise_in_train_image(env, monkeypatch, tmp_path):
         tti.train_model(tti.get_config_from_env())
 
 
-def test_digits_flat_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        trr.main("digits_flat")
+def test_digits_flat_raises(monkeypatch, tmp_path):
+    """digits_flat raised until item 18 wrote out the quantile transform;
+    now main("digits_flat") runs its fits (one seed at 2 swipes here;
+    tests/test_torch_utils.py holds it to the JAX package) and appends its
+    rows under build/."""
+    from tensornetworksfork_tpu_torch.experiments import train_tabular as ttt
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DEVICE", "cpu")
+    run = ttt.run
+
+    def short(cfg, overrides=None, data=None):
+        cfg.num_swipes = 2
+        return run(cfg, overrides, data=data)
+    monkeypatch.setattr(ttt, "run", short)
+    accs = trr.main("digits_flat", seeds=(43,))
+    assert len(accs) == 1 and 10.0 < accs[0] <= 100.0
+    with open(tmp_path / "build" / "reproduce_digits_flat.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["seed"] for r in rows] == ["43"] and rows[0]["model_type"] == "tt"
 
 
 def test_train_image_needs_the_card_unless_asked(monkeypatch, tmp_path):
