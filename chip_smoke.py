@@ -572,10 +572,12 @@ def check_retile_hmix(device, S, C, D, dtype, shift=0, timed=False):
     if not torch.equal(Jt.view(bits), Jt_p.view(bits)):
         raise AssertionError(f"{what}: Jt differs from the plain version")
     dK = (Kt.float() - Kt_p.float()).abs()
-    same = float((Kt.view(bits) == Kt_p.view(bits)).float().mean())
+    # counted in int64: an f32 mean of some 1e8 ones need not come to 1.0
+    differ = int((Kt.view(bits) != Kt_p.view(bits)).sum())
     ulps = float((dK / bf16_ulp(Kt_p.float())).max())
-    if dtype == torch.float32 and same < 1.0:
-        raise AssertionError(f"{what}: Kt not bit-equal ({same * 100:.4f}%)")
+    if dtype == torch.float32 and differ:
+        raise AssertionError(f"{what}: Kt not bit-equal ({differ} of {Kt.numel()} values "
+                             "differ)")
     if ulps > 1.0:
         raise AssertionError(f"{what}: Kt off by {ulps} bf16 ulp (> 1)")
     u = 2.0 ** -24
@@ -597,7 +599,7 @@ def check_retile_hmix(device, S, C, D, dtype, shift=0, timed=False):
         # the class mix and the rhs: a multiply and an add per term, in f32
         bound=bound(2.0 * S * C * (C + 1) * D, nbytes(J3, H, gvec, Jt, Kt, b), "f32"),
         note=f"A2/A3 chunk (S={S}, C={C}, D={D}, Dp={Dp}), Jt bit-equal, Kt max "
-             f"{ulps:.3g} bf16 ulp ({same * 100:.4f}% bit-equal), b max {rb:.3g} "
+             f"{ulps:.3g} bf16 ulp ({differ} values differ), b max {rb:.3g} "
              f"sqrt(S*C) 2^-24 of sum|g||J| (bound {HMIX_B_BOUND}); {runs} runs of {rps} "
              f"samples; without b {bare:.4f} ms; the rhs as the engine formed it before, "
              f"gvec.float() @ Jt.float(), {rhs_old:.4f} ms")
@@ -2966,7 +2968,11 @@ def check_phase10_rest(device, card: str):
 # build/. (vi) reproduce_result digits_flat over seeds 42-51: the mean
 # within DIGITS_FLAT_FLOOR of RESULTS.md's 94.36 +/- 1.17 %, the noise floor
 # 2 x 1.17 x sqrt(2/10) of two 10-seed means, and every seed's parameters
-# finite
+# finite. Each of these paths that launches kernels (the TNML fit, the
+# native-stream fits, the traced swipe, digits_flat) runs with the counts
+# reset and records the shapes it gives them; check_growth_shapes then holds
+# every kernel to its plain version at each and times the largest under the
+# path's name
 SERVE_REL = 1e-5
 SERVE_BATCH = 2048
 SERVE_DIR = "build/chip_smoke_serving"
@@ -2995,8 +3001,10 @@ def _serves(what, f, eager, x, classes: bool):
 
 def run_serving(device, card: str, model, config, reg):
     """Phase 11 (i): the headline model, phase 5's estimator and a TNML fit
-    through export, save and load_forward on the card. Returns the test
-    split (patches on the card) for (iii)."""
+    through export, save and load_forward on the card. The TNML fit runs
+    with the launch counters reset and the shapes it gives the kernels
+    recorded. Returns the test split (patches on the card) for (iii) and
+    {path: (launches, shapes seen)} of the TNML fit."""
     import torch
     from tensornetworksfork_tpu_torch.data.tabular import load_sklearn_dataset
     from tensornetworksfork_tpu_torch.experiments import train_image
@@ -3007,8 +3015,7 @@ def run_serving(device, card: str, model, config, reg):
     os.makedirs(SERVE_DIR, exist_ok=True)
     xtr, _, xte, _, synthetic = train_image.load_data(config)
     t0 = time.perf_counter()
-    blob = export_forward(model, tuple(xtr.shape[1:]), device=device,
-                          example_batch=SERVE_BATCH)
+    blob = export_forward(model, tuple(xtr.shape[1:]), device=device)
     export_s = time.perf_counter() - t0
     path = os.path.join(SERVE_DIR, "headline.pt2")
     save_forward(path, blob)
@@ -3048,13 +3055,16 @@ def run_serving(device, card: str, model, config, reg):
     bc = load_sklearn_dataset("breast_cancer", seed=42)
     tn = TNMLRegressor(r=4, num_swipes=2, eps_start=0.5, task="classification",
                        input_scale="minmax", device=device)
-    tn.fit(bc["X_train"], bc["y_train"], X_val=bc["X_val"], y_val=bc["y_val"])
+    _, launches, seen, wall = _timed_run(device, lambda: tn.fit(
+        bc["X_train"], bc["y_train"], X_val=bc["X_val"], y_val=bc["y_val"]))
+    log(f"[serve] tnml fit (breast_cancer, r={tn.r}) on the card: {wall:.3f} s, launches "
+        f"{({k: v for k, v in launches.items() if v})}")
     h = load_forward(tn.export())
     for rows in (1, 3, len(bc["X_test"])):
         _serves(f"tnml artifact vs predict (breast_cancer, {tn.N} carriages), {rows} rows",
                 h, lambda x: tn.predict(x.cpu().numpy()),
                 torch.from_numpy(bc["X_test"][:rows]), classes=True)
-    return xte
+    return xte, {"tnml serving fit": (launches, seen)}
 
 
 def run_native_stream(device, card: str):
@@ -3179,7 +3189,9 @@ def record_flops(device, card: str, walls):
 def check_trace(device):
     """Phase 11 (v): one small conv-TT swipe on the card under xla_trace
     leaves a non-empty Chrome trace under build/; the card's kernels in it
-    are counted."""
+    are counted. The swipe runs with the launch counters reset and the
+    shapes it gives the kernels recorded: returns {path: (launches, shapes
+    seen)}."""
     import glob
     import torch
     from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
@@ -3192,27 +3204,30 @@ def check_trace(device):
     X = torch.tensor(rng.standard_normal((512, 8, 5), np.float32), device=device)
     y = torch.eye(4, device=device)[torch.from_numpy(rng.integers(0, 4, 512)).to(device)]
     before = set(glob.glob(os.path.join(TRACE_DIR, "trace-*.json")))
-    with xla_trace(TRACE_DIR):
-        Sweeper(layer.network, XEBregman(w=1.0), SweepConfig(num_swipes=1)).run(
-            [layer.params], X, y)
+    def swipe():
+        with xla_trace(TRACE_DIR):
+            Sweeper(layer.network, XEBregman(w=1.0), SweepConfig(num_swipes=1)).run(
+                [layer.params], X, y)
+    _, launches, seen, _ = _timed_run(device, swipe)
     (path,) = set(glob.glob(os.path.join(TRACE_DIR, "trace-*.json"))) - before
     with open(path) as fh:
         events = json.load(fh).get("traceEvents", [])
     kernels = sum(1 for e in events if e.get("cat") == "kernel")
     log(f"[trace] {path}: {os.path.getsize(path) / 2**10:.1f} KiB, {len(events)} events, "
-        f"{kernels} of them kernels on the card")
+        f"{kernels} of them kernels on the card; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
     if not events:
         raise AssertionError("xla_trace wrote an empty trace")
+    return {"trace conv-TT swipe": (launches, seen)}
 
 
 def run_digits_flat_gate(device, card: str):
     """Phase 11 (vi): reproduce_result digits_flat, seeds 42-51, on the card:
     each seed's accuracy, the mean within DIGITS_FLAT_FLOOR of
-    DIGITS_FLAT_TARGET, every model's parameters finite. Returns its
-    launches."""
+    DIGITS_FLAT_TARGET, every model's parameters finite, one of the kernels
+    launched. Returns {path: (launches, shapes seen)}."""
     import torch
     from tensornetworksfork_tpu_torch.experiments import reproduce_result, train_tabular
-    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
     models, build = [], train_tabular.build_model
 
     def recording(*args):
@@ -3222,13 +3237,8 @@ def run_digits_flat_gate(device, card: str):
     train_tabular.build_model = recording
     try:
         with env(DEVICE=str(device)):
-            torch.cuda.synchronize()
-            kg.reset_launches()
-            t0 = time.perf_counter()
-            accs = reproduce_result.main("digits_flat")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(kg.LAUNCHES)
+            accs, launches, seen, wall = _timed_run(
+                device, lambda: reproduce_result.main("digits_flat"))
     finally:
         train_tabular.build_model = build
     mean = float(np.mean(accs))
@@ -3243,7 +3253,9 @@ def run_digits_flat_gate(device, card: str):
     if not abs(mean - DIGITS_FLAT_TARGET) <= DIGITS_FLAT_FLOOR:
         raise AssertionError(f"digits_flat: mean {mean:.2f} % is outside the noise floor "
                              f"{DIGITS_FLAT_FLOOR:.2f} of {DIGITS_FLAT_TARGET} %")
-    return launches
+    if not any(launches.values()):
+        raise AssertionError("digits_flat launched none of the kernels")
+    return {"digits_flat": (launches, seen)}
 
 
 def main() -> int:
@@ -3339,17 +3351,20 @@ def main() -> int:
         f"{time.perf_counter() - t10c:.1f} s")
 
     t11 = time.perf_counter()
-    test_split = run_serving(device, smi, headline, headline_config, reg)
-    native = run_native_stream(device, smi)
-    for path, (_, seen) in native.items():
-        kernels += check_growth_shapes(device, path, seen, done10)
-    grow.update(native)
+    test_split, phase11 = run_serving(device, smi, headline, headline_config, reg)
+    phase11.update(run_native_stream(device, smi))
     check_checkpoint(device, headline, headline_config, test_split)
     record_flops(device, smi, {"int8": int8["wall"], "bf16": slice16["wall"],
                                "f32": slice32["wall"], "fastest": fastest["wall"]})
-    check_trace(device)
-    digits_flat = run_digits_flat_gate(device, smi)
-    log(f"[env] phase 11 took {time.perf_counter() - t11:.1f} s")
+    phase11.update(check_trace(device))
+    phase11.update(run_digits_flat_gate(device, smi))
+    t11c = time.perf_counter()
+    # every kernel at every shape phase 11's paths gave it
+    for path, (_, seen) in phase11.items():
+        kernels += check_growth_shapes(device, path, seen, done10)
+    grow.update(phase11)
+    log(f"[env] phase 11 took {time.perf_counter() - t11:.1f} s, its shape checks "
+        f"{time.perf_counter() - t11c:.1f} s")
 
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
@@ -3373,7 +3388,7 @@ def main() -> int:
                 # phase 9's kernels at its width paths' shapes: that path's launches
                 **{(k["name"], k["dtype"]): zoo_width[k["dtype"].split(", zoo width ", 1)[1]][0][
                     k["name"]] for k in kernels if ", zoo width " in k["dtype"]},
-                # phase 10's kernels at its paths' shapes: that path's launches
+                # phase 10's and 11's kernels at their paths' shapes: that path's launches
                 **{(k["name"], k["dtype"]): grow[k["dtype"].split(", ", 1)[1]][0][k["name"]]
                    for k in kernels if k["dtype"].split(", ", 1)[-1] in grow}}
     # this slice's paths: bf16 J (int8 codes) in the fastest tier, f32 J in
@@ -3391,11 +3406,11 @@ def main() -> int:
              **{f"zoo width {p}": (runs, full) for p, (runs, _) in zoo_width.items()},
              "zoo table": (zoo_table["launches"], full),
              # phase 10: grow_cart in the fastest tier (bf16 J, int8 codes)
-             # and in f32; the other growth and estimator paths in f32
+             # and in f32; the other growth and estimator paths in f32, as
+             # are phase 11's (in grow): the TNML serving fit, the native
+             # stream's fits, the traced swipe and digits_flat
              **{p: (runs, low if p == "grow_cart fastest" else full)
-                for p, (runs, _) in grow.items()},
-             # phase 11: the native stream's fits (in grow) and digits_flat, f32
-             "digits_flat": (digits_flat, full)}
+                for p, (runs, _) in grow.items()}}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,

@@ -101,21 +101,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         path = lib_path()
-        fresh = not path.exists()
-        while True:
-            if fresh:
-                _error = _build(path)
-                if _error is not None:
-                    return None
-            try:
-                lib = ctypes.CDLL(str(path))
-                break
-            except OSError as e:
-                _error = f"loading {path}: {e}"
-                if fresh:
-                    return None
-                fresh = True  # a library another machine built: build it here
-        _error = None
+        if not path.exists():
+            _error = _build(path)
+            if _error is not None:
+                return None
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            _error = f"loading {path}: {e}"
+            return None
         _bind(lib)
         _lib = lib
         return _lib

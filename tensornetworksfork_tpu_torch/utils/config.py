@@ -71,12 +71,15 @@ class RunConfig:
     def from_env(cls, prefix: str = "") -> "RunConfig":
         """Env-var config: each field from the variable named by the prefix
         and the field's name, upper-cased (N, EPS, CONSTRICT_BOND, ...);
-        absent variables keep the defaults."""
+        absent variables keep the defaults. Booleans are "1", "true" or
+        "yes" (any case); other fields parse as from_args parses them."""
         cfg = cls()
         for f in dataclasses.fields(cls):
             key = (prefix + f.name).upper()
             if key in os.environ:
-                setattr(cfg, f.name, _coerce(os.environ[key], getattr(cfg, f.name)))
+                val, default = os.environ[key], getattr(cfg, f.name)
+                setattr(cfg, f.name, val.lower() in ("1", "true", "yes")
+                        if isinstance(default, bool) else _parser_for(default)(val))
         return cfg
 
     @classmethod
@@ -107,24 +110,6 @@ class RunConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
-
-
-def _coerce(val: str, default):
-    """An environment variable's string as the type of the field's default:
-    booleans are "1", "true" or "yes" (any case); an Optional field parses a
-    number when it can, "", "None" and "none" as None, else the string."""
-    if isinstance(default, bool):
-        return val.lower() in ("1", "true", "yes")
-    if isinstance(default, int):
-        return int(val)
-    if isinstance(default, float):
-        return float(val)
-    if default is None:
-        try:
-            return float(val) if "." in val else int(val)
-        except ValueError:
-            return None if val in ("", "None", "none") else val
-    return val
 
 
 def _parser_for(default):

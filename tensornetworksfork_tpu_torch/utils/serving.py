@@ -20,10 +20,9 @@ The layers are not `nn.Module`s: a serving module holds each member's node
 tensors as buffers and calls `layer(x, params=...)` with them, so the
 params are the artifact's state and not constants folded into its graph.
 With `batch_polymorphic` the batch dimension is a `torch.export.Dim`: the
-contraction plan is made from the trace's example batch (`example_batch`
-rows, at least 2, since torch.export specialises a dimension whose example
-is 1) and does not guard on it, so one artifact serves every batch size,
-1 included. The JAX package's `platforms=` becomes `device=`: the device
+contraction plan is made from the trace's example batch (EXAMPLE_BATCH
+rows; torch.export specialises a dimension whose example is 1) and does
+not guard on it, so one artifact serves every batch size, 1 included. The JAX package's `platforms=` becomes `device=`: the device
 the artifact's tensors live on, and the one its inputs must be on.
 """
 from __future__ import annotations
@@ -35,6 +34,8 @@ from typing import Sequence, Union
 import torch
 
 from .device import resolve_device
+
+EXAMPLE_BATCH = 1024  # rows of the trace's example input when batch_polymorphic
 
 
 def _members(model):
@@ -92,8 +93,7 @@ class ServingModule(torch.nn.Module):
 def export_forward(model, feature_shape: Sequence[int], *,
                    classification: bool = False, add_bias: bool = False,
                    dtype=torch.float32, device="cuda",
-                   batch_polymorphic: bool = True,
-                   example_batch: int = 1024) -> bytes:
+                   batch_polymorphic: bool = True) -> bytes:
     """Export a trained TNLayer / SumLayer (or a callable of them) to a
     serialized `torch.export` program.
 
@@ -101,28 +101,24 @@ def export_forward(model, feature_shape: Sequence[int], *,
     model's __call__ takes (features for tabular TT, (patches,
     patch_pixels) for conv-TT). The batch dim is symbolic when
     batch_polymorphic (one artifact serves any batch size; the trace runs
-    on `example_batch` fake rows, which set the contraction plan); otherwise
+    on EXAMPLE_BATCH fake rows, which set the contraction plan); otherwise
     pass the fixed batch size as the first entry of feature_shape and it is
     used verbatim. A SumLayer whose members read one global input shares
     that input's batch dimension."""
     dev = resolve_device(device)
     mod = ServingModule(model, classification, add_bias, dev)
     return export_module(mod, feature_shape, dtype=dtype, device=dev,
-                         batch_polymorphic=batch_polymorphic,
-                         example_batch=example_batch)
+                         batch_polymorphic=batch_polymorphic)
 
 
 def export_module(mod: torch.nn.Module, feature_shape: Sequence[int], *,
-                  dtype=torch.float32, device="cuda", batch_polymorphic: bool = True,
-                  example_batch: int = 1024) -> bytes:
+                  dtype=torch.float32, device="cuda", batch_polymorphic: bool = True
+                  ) -> bytes:
     """`export_forward`'s trace and serialisation of a serving module."""
     dev = resolve_device(device)
     mod = mod.eval()
     if batch_polymorphic:
-        if example_batch < 2:
-            raise ValueError("example_batch must be >= 2: torch.export "
-                             "specialises a dimension whose example is 1")
-        shape = (example_batch, *feature_shape)
+        shape = (EXAMPLE_BATCH, *feature_shape)
         dynamic = ({0: torch.export.Dim("batch")},)
     else:
         shape, dynamic = tuple(feature_shape), None

@@ -514,7 +514,7 @@ def test_polynomial_and_tnml_on_cuda():
 def test_serving_artifact_on_cuda(batch, tmp_path):
     """A type-I sum of conv-TTs exported on the card with a symbolic batch,
     saved and loaded with torch alone: its output at batches 1, 3 and 300
-    (past the trace's example batch) stays on the card and matches the
+    (none of them the trace's example batch) stays on the card and matches the
     eager forward within 1e-5 of max|pred|, argmax equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -524,7 +524,7 @@ def test_serving_artifact_on_cuda(batch, tmp_path):
                                                   convolution_bond=3, seed=n, device="cuda")
                       for n in (1, 2, 3)])
     p = str(tmp_path / "sum.pt2")
-    save_forward(p, export_forward(model, (12, 9), device="cuda", example_batch=256))
+    save_forward(p, export_forward(model, (12, 9), device="cuda"))
     f = load_forward(p)
     x = torch.randn(batch, 12, 9, device="cuda")
     got, want = f(x), model(x)

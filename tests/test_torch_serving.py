@@ -10,6 +10,7 @@ conv-TTs and a fitted classification estimator; and an artifact loads and
 serves in a process where `tensornetworksfork_tpu_torch` cannot be
 imported.
 """
+import io
 import os
 import subprocess
 import sys
@@ -210,9 +211,19 @@ def test_artifact_loads_without_the_package(tmp_path):
 
 
 def test_export_refuses_a_batch_of_one_example():
+    """torch.export specialises a dimension whose example size is 1: the
+    symbolic batch is traced at EXAMPLE_BATCH rows (never 1), the loaded
+    program's batch dimension stays symbolic, and it serves batches of 1
+    and 2 as the eager forward does (within 1e-5)."""
+    from tensornetworksfork_tpu_torch.utils.serving import EXAMPLE_BATCH
+    assert EXAMPLE_BATCH >= 2
     layer = tl.TensorTrainLayer(2, 3, 4, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="example_batch"):
-        export_forward(layer, (4,), device="cpu", example_batch=1)
-    f = load_forward(export_forward(layer, (4,), device="cpu", example_batch=2))
-    x = torch.randn(1, 4)
-    _close(f(x).numpy(), layer(x).numpy())
+    blob = export_forward(layer, (4,), device="cpu")
+    ep = torch.export.load(io.BytesIO(blob))
+    (x_node,) = [n for n in ep.graph.nodes
+                 if n.op == "placeholder" and n.name not in ep.graph_signature.inputs_to_buffers]
+    assert isinstance(x_node.meta["val"].shape[0], torch.SymInt)
+    f = load_forward(blob)
+    for rows in (1, 2):
+        x = torch.randn(rows, 4)
+        _close(f(x).numpy(), layer(x).numpy())
