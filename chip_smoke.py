@@ -174,6 +174,31 @@ printing its own lines:
    digits_flat`, seeds 42-51: the mean within 2 x 1.17 x sqrt(2/10) of
    RESULTS.md's 94.36 %, every seed's parameters finite.
 
+12. the data mesh and the drivers — (i) `parallel.launch` starts 2 gloo
+   ranks that share the card (NCCL refuses two ranks on one device; the
+   parent built the kernel library, so no rank runs nvcc), and each sweeps
+   the flagship (phase 4's layer, data and config: 1,024 of each 2,048-row
+   chunk a rank) on the 1-D data mesh (`parallel/mesh.py`,
+   `Sweeper.run(mesh=)`) in int8 and in f32; each run's params held to
+   phase 4's single-process swipe from the same weights (test_parallel.py's
+   rtol = atol: 5e-2 in int8, whose per-rank quantisation blocks differ,
+   5e-3 in f32), the ranks' params bit-equal, every kernel of the path
+   launched on each rank; each rank's swipe time and the all-reduces'
+   calls, bytes and seconds are printed; (ii) phase 5's regression rows and
+   TT (65,536 x 128 features, N=3, r=8, 512-row chunks) for two f32 swipes
+   on the mesh (K8 + K7 at D = 8,256, K9), held to the same sweep in one
+   process at 5e-3; (iii) phase 8c's small conv-TT in one minres swipe on
+   the mesh, held to one process at 5e-3, its iteration counts equal on
+   both ranks; every kernel is then held to its plain version at every
+   shape either rank gave it. (iv) the drivers: `experiments/sweep.py`'s
+   run_sweep (GP-EI, 3 trials, a 2 s fold timeout) on its CLI's synthetic
+   regression, `grid_search` at test_experiments.py's small grid (test r2
+   above 0.5), `image_sweep.run_config` at the MNIST grid's first point on
+   the stand-in in process and as a subprocess, and `utils/viz.py`'s text
+   listing of the flagship; their fits' kernel shapes are held as (i)'s.
+   reporting, plots and prepare_data need pandas or matplotlib, which the
+   card's machine lacks; the CPU tests hold them.
+
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -1284,7 +1309,8 @@ def run_slice(device, tier, seed: int = 0):
     missing = [k for k in FLAGSHIP_KERNELS[tier] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return dict(launches=launches, wall=wall, loss0=loss0, loss1=loss1)
+    return dict(launches=launches, wall=wall, loss0=loss0, loss1=loss1,
+                params={k: v.cpu().numpy() for k, v in params.items()})
 
 
 def run_regression(device):
@@ -3258,6 +3284,263 @@ def run_digits_flat_gate(device, card: str):
     return {"digits_flat": (launches, seen)}
 
 
+# phase 12: the 1-D data mesh (parallel/mesh.py) on 2 gloo ranks sharing the
+# card, and the experiment drivers (the module note, item 12)
+MESH_RANKS = 2
+MESH_TIERS = ("int8", "f32")
+# test_parallel.py's tolerances on params (rtol = atol): f32 sums reordered
+# over the ranks; int8 codes quantised per rank in other 2,048-row blocks
+MESH_TOL = {"int8": 5e-2, "f32": 5e-3}
+MESH_TABULAR_SWIPES = 2
+# phase 8c's conv-TT, its data and its minres settings (card against CPU
+# within 2e-4 there): at eps 0.1 a minres swipe of a wider conv-TT parts
+# from itself summed in another order by 9e-2 (Krylov iterates amplify
+# reassociation along near-null directions, as test_parallel.py:80 says)
+MESH_MINRES = dict(S=96, P=6, pp=5, C=3, N=4, r=4, CB=2, batch=48)
+DRIVER_FOLD_TIMEOUT = 2.0  # seconds a fold of the sweep's CV may take
+SWEEP_TRIALS = 3
+IMAGE_POINT = dict(DATASET="MNIST", KERNEL_SIZE=4, KERNEL_STRIDE=4, N=2, R=8, CB=4,
+                   NUM_SWIPES=1, EARLY_STOPPING=1000, VERBOSE=0,
+                   DATA_PATH="build/no_mnist_staged",
+                   RESULTS_FILE="build/chip_smoke_image_sweep.csv")
+IMAGE_SUBPROCESS_TIMEOUT = 300.0
+
+
+def mesh_tabular_data(device):
+    """Phase 5's regression rows (65,536 x 128 features from
+    make_regression, seed 0) with the estimator's bias column, and its TT
+    (N=3, r=8: A2 has D = 8,256) from seed 0."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.models.layers import TensorTrainLayer
+    c = REGRESSION
+    X, y = make_regression(S=c["fit"], d=c["d"], degree=3, seed=0)
+    X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], axis=1)
+    layer = TensorTrainLayer(c["N"], c["r"], c["d"] + 1, output_shape=(1,), seed=0,
+                             device=device)
+    return layer, torch.tensor(X, device=device), torch.tensor(y, device=device)
+
+
+def mesh_minres_data(device):
+    """A small conv-TT (MESH_MINRES) and its data, for the matrix-free
+    sweep under the mesh."""
+    import torch
+    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
+    c = MESH_MINRES
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((c["S"], c["P"], c["pp"])).astype(np.float32)
+    y = np.eye(c["C"] + 1, dtype=np.float32)[rng.integers(0, c["C"] + 1, c["S"])]
+    layer = TensorConvolutionTrainLayer(c["N"], c["r"], c["P"], c["pp"],
+                                        output_shape=(c["C"],), convolution_bond=c["CB"],
+                                        seed=0, device=device)
+    return layer, torch.tensor(X, device=device), torch.tensor(y, device=device)
+
+
+MESH_MINRES_CONFIG = dict(num_swipes=1, batch_size=MESH_MINRES["batch"], method="minres",
+                          eps=1.0, max_iter=60, tol=1e-5)
+MESH_TABULAR_CONFIG = dict(num_swipes=MESH_TABULAR_SWIPES, batch_size=REGRESSION["batch"],
+                           method="ridge_cholesky", eps=5.0, eps_decay=0.25)
+
+
+def _mesh_sweep(mesh, layer, loss, cfg, X, y, tier_env):
+    """One Sweeper.run (under `mesh` when given) with the counters reset
+    just before it and the kernel shapes recorded: params (numpy), ok, wall
+    seconds, launches, shapes, the collectives' stats and the Krylov
+    iteration counts."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    from tensornetworksfork_tpu_torch.utils.convert import params_to_numpy
+    sweeper = Sweeper(layer.network, loss, SweepConfig(**cfg))
+    with env(**tier_env), recorded_shapes() as seen:
+        torch.cuda.synchronize()
+        kg.reset_launches()
+        if mesh is not None:
+            mesh.reset_stats()
+        t0 = time.perf_counter()
+        params, ok = sweeper.run([layer.params], X, y, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kg.LAUNCHES)
+        stats = None if mesh is None else dict(mesh.stats)
+    return dict(params=params_to_numpy(params[0]), ok=ok, wall=wall, launches=launches,
+                seen=set(seen), stats=stats,
+                iters=[int(k) for _, _, k in sweeper.krylov_iters])
+
+
+def mesh_rank():
+    """One rank of phase 12: the flagship swipe in each MESH_TIERS tier,
+    the tabular TT's fit and the minres swipe, each on the 1-D data mesh
+    over both ranks (the card shared). Returns each run's _mesh_sweep."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.bregman import SquareBregFunction, XEBregman
+    from tensornetworksfork_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(MESH_RANKS)
+    out = {}
+    X, y = flagship_data(SLICE_SAMPLES, 0, mesh.device)
+    for tier in MESH_TIERS:
+        out[f"flagship {tier}"] = _mesh_sweep(mesh, flagship_layer(mesh.device, 0),
+                                              XEBregman(w=1.0), SLICE_CONFIG, X, y,
+                                              SLICE_TIERS[tier])
+    del X, y
+    layer, X, y = mesh_tabular_data(mesh.device)
+    out["tabular TT f32"] = _mesh_sweep(mesh, layer, SquareBregFunction(),
+                                        MESH_TABULAR_CONFIG, X, y, SLICE_TIERS["f32"])
+    del X, y
+    layer, X, y = mesh_minres_data(mesh.device)
+    out["minres"] = _mesh_sweep(mesh, layer, XEBregman(w=1.0), MESH_MINRES_CONFIG, X, y,
+                                SLICE_TIERS["f32"])
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _params_within(what, got, want, tol):
+    """got within tol * (1 + |want|) of want, entry by entry (rtol = atol,
+    as test_parallel.py holds them); returns the largest |d| / (1 + |want|)."""
+    worst = max(float(np.max(np.abs(got[k] - want[k]) / (1.0 + np.abs(want[k]))))
+                for k in want)
+    if not worst <= tol:
+        raise AssertionError(f"{what}: params differ by {worst:.3g} (bound {tol})")
+    return worst
+
+
+def run_mesh(device, card: str, single):
+    """Phase 12 (i)-(iii): MESH_RANKS gloo ranks on the one card
+    (parallel.launch; the kernel library was built by this process, so no
+    rank runs nvcc). Each run is held to the single process from the same
+    params: the flagship to phase 4's swipes (`single`: tier -> params),
+    the tabular TT and the minres swipe to runs made here. The ranks'
+    params must be bit-equal, every kernel of each path launched on each
+    rank, and the minres iteration counts equal. Returns {path: (launches
+    of both ranks, shapes)}."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.bregman import SquareBregFunction, XEBregman
+    from tensornetworksfork_tpu_torch.parallel import mesh as pmesh
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = pmesh.launch(mesh_rank, MESH_RANKS, timeout=600, join_timeout=900)
+    log(f"[mesh] {card}: {MESH_RANKS} gloo ranks on one card, spawned, run and joined in "
+        f"{time.perf_counter() - t0:.1f} s; peak mem per rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    layer, X, y = mesh_tabular_data(device)
+    single["tabular TT f32"] = _mesh_sweep(None, layer, SquareBregFunction(),
+                                           MESH_TABULAR_CONFIG, X, y,
+                                           SLICE_TIERS["f32"])["params"]
+    del X, y
+    layer, X, y = mesh_minres_data(device)
+    single["minres"] = _mesh_sweep(None, layer, XEBregman(w=1.0), MESH_MINRES_CONFIG, X, y,
+                                   SLICE_TIERS["f32"])["params"]
+    # the int8 tier's own spread, for scale: one process, int8 against f32
+    spread = max(float(np.max(np.abs(single["flagship int8"][k] - single["flagship f32"][k])
+                              / (1.0 + np.abs(single["flagship f32"][k]))))
+                 for k in single["flagship f32"])
+    log(f"[mesh] {card}: for scale, phase 4's int8 swipe against its f32 one: params "
+        f"within {spread:.3g}")
+    need = {"flagship int8": FLAGSHIP_KERNELS["int8"], "flagship f32": FLAGSHIP_KERNELS["f32"],
+            "tabular TT f32": REGRESSION_KERNELS, "minres": ()}
+    paths = {}
+    for run, kernels in need.items():
+        r0, r1 = ranks[0][run], ranks[1][run]
+        if not (r0["ok"] and r1["ok"]):
+            raise AssertionError(f"mesh {run}: a rank reported a singular solve")
+        for k in r0["params"]:
+            if not np.array_equal(r0["params"][k], r1["params"][k]):
+                raise AssertionError(f"mesh {run}: the ranks' {k} differ")
+        tol = MESH_TOL["int8" if run.endswith("int8") else "f32"]
+        worst = _params_within(f"mesh {run}", r0["params"], single[run], tol)
+        missing = [k for k in kernels for r in (r0, r1) if r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"mesh {run}: kernels never launched on a rank: {missing}")
+        if run == "minres" and (not r0["iters"] or r0["iters"] != r1["iters"]):
+            raise AssertionError(f"mesh minres: iterations differ over the ranks: "
+                                 f"{r0['iters']} vs {r1['iters']}")
+        s = r0["stats"]
+        log(f"[mesh] {card}: {run}: swipe wall {r0['wall']:.3f} / {r1['wall']:.3f} s "
+            f"(rank 0 / 1); all-reduces {s['calls']} calls, "
+            f"{s['bytes'] / 2**30:.3f} GiB, {s['seconds']:.3f} s on rank 0 "
+            f"({s['bytes'] / max(s['seconds'], 1e-9) / 1e9:.2f} GB/s), of which the "
+            f"staging copies to and from the host {s['copy_seconds']:.3f} s; ranks bit-equal; "
+            f"params within {worst:.3g} of the single process (bound {tol}); launches "
+            f"rank 0 {({k: v for k, v in r0['launches'].items() if v})}"
+            + (f"; minres iterations {r0['iters']}" if run == "minres" else ""))
+        launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+        paths[f"mesh {run} (2 ranks)"] = (launches, r0["seen"] | r1["seen"])
+    return paths
+
+
+def run_drivers(device, card: str):
+    """Phase 12 (iv): the experiment drivers on the card. run_sweep's
+    GP-EI search (SWEEP_TRIALS trials, DRIVER_FOLD_TIMEOUT seconds a fold)
+    on the sweep CLI's synthetic data; grid_search at test_experiments.py's
+    small grid; image_sweep.run_config at the MNIST grid's first point on
+    the stand-in, in process and as a subprocess; visualize_topology's
+    text of the flagship. reporting, plots and prepare_data need pandas or
+    matplotlib, which the card's machine lacks: the CPU tests hold them.
+    Returns {path: (launches, shapes)} of the fits."""
+    import torch
+    from tensornetworksfork_tpu_torch.data.synthetic import make_regression
+    from tensornetworksfork_tpu_torch.experiments import grid_search, image_sweep, sweep
+    from tensornetworksfork_tpu_torch.utils.config import RunConfig
+    from tensornetworksfork_tpu_torch.utils.viz import topology_text, visualize_topology
+    paths = {}
+
+    X, y = make_regression(S=2048, d=6, degree=3, seed=42)
+    cfg = RunConfig(verbose=0, timeout=DRIVER_FOLD_TIMEOUT, device=str(device))
+    csv = "build/chip_smoke_sweep.csv"
+    if os.path.exists(csv):
+        os.remove(csv)
+    best, launches, seen, wall = _timed_run(device, lambda: sweep.run_sweep(
+        cfg, X, y, n_trials=SWEEP_TRIALS, results_file=csv, use_wandb=False, search="bayes"))
+    with open(csv) as f:
+        rows = f.read().splitlines()
+    log(f"[drivers] {card}: run_sweep (bayes, {SWEEP_TRIALS} trials): {wall:.1f} s, best "
+        f"{best}, {len(rows) - 1} rows in {csv}")
+    if len(rows) - 1 != SWEEP_TRIALS or best is None or not np.isfinite(best[0]):
+        raise AssertionError(f"run_sweep: {len(rows) - 1} rows, best {best}")
+    paths["drivers run_sweep"] = (launches, seen)
+
+    gcfg = RunConfig(dataset="synthetic", model_type="tt", num_swipes=2, eps=1e-3,
+                     eps_decay=0.7, batch_size=512, verbose=0, device=str(device))
+    out, launches, seen, wall = _timed_run(device, lambda: grid_search.grid_search(
+        gcfg, {"N": [2], "r": [3, 5]}, val_seeds=[42], test_seeds=[52, 53]))
+    r2 = [r["test_r2"] for r in out["test_rows"]]
+    log(f"[drivers] {card}: grid_search N=[2], r=[3, 5]: {wall:.1f} s, best "
+        f"{out['best_overrides']}, test r2 {r2}")
+    if len(out["test_rows"]) != 2 or not all(v > 0.5 for v in r2):
+        raise AssertionError(f"grid_search: test rows {out['test_rows']}")
+    if not os.path.exists("build/synthetic_ablation_results_tt.csv"):
+        raise AssertionError("grid_search wrote no ablation CSV")
+    paths["drivers grid_search"] = (launches, seen)
+
+    res, launches, seen, wall = _timed_run(device, lambda: image_sweep.run_config(IMAGE_POINT))
+    log(f"[drivers] {card}: image_sweep.run_config {IMAGE_POINT['KERNEL_SIZE']}/"
+        f"{IMAGE_POINT['KERNEL_STRIDE']} N={IMAGE_POINT['N']} R={IMAGE_POINT['R']} "
+        f"CB={IMAGE_POINT['CB']} in process: {wall:.1f} s, {res['dataset']}, test accuracy "
+        f"{res['test_accuracy']} %")
+    if not res["test_accuracy"] > 10.0 or res["singular"]:
+        raise AssertionError(f"image_sweep in process: {res}")
+    paths["drivers image_sweep"] = (launches, seen)
+    t0 = time.perf_counter()
+    sub = image_sweep.run_config(IMAGE_POINT, timeout=IMAGE_SUBPROCESS_TIMEOUT,
+                                 subprocess_mode=True)
+    log(f"[drivers] {card}: image_sweep.run_config as a subprocess: "
+        f"{time.perf_counter() - t0:.1f} s, {sub}")
+    if sub.get("completed") is not True:
+        raise AssertionError(f"image_sweep subprocess: {sub}")
+
+    topology = flagship_layer(device, 0).topology
+    drawn = visualize_topology(topology)
+    text = drawn if isinstance(drawn, str) else topology_text(topology)
+    if not text.startswith("topology:\n  column 0:"):
+        raise AssertionError(f"visualize_topology: {text[:80]!r}")
+    for ln in text.splitlines():
+        log(f"[drivers] {ln}")
+    torch.cuda.synchronize()
+    return paths
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3366,6 +3649,20 @@ def main() -> int:
     log(f"[env] phase 11 took {time.perf_counter() - t11:.1f} s, its shape checks "
         f"{time.perf_counter() - t11c:.1f} s")
 
+    t12 = time.perf_counter()
+    phase12 = run_mesh(device, smi, {"flagship int8": int8["params"],
+                                     "flagship f32": slice32["params"]})
+    t12d = time.perf_counter()
+    phase12.update(run_drivers(device, smi))
+    t12c = time.perf_counter()
+    # every kernel at every shape a rank or a driver gave it
+    for path, (_, seen) in phase12.items():
+        kernels += check_growth_shapes(device, path, seen, done10)
+    grow.update(phase12)
+    log(f"[env] phase 12 took {time.perf_counter() - t12:.1f} s: the mesh "
+        f"{t12d - t12:.1f} s, the drivers {t12c - t12d:.1f} s, the shape checks "
+        f"{time.perf_counter() - t12c:.1f} s")
+
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
@@ -3408,8 +3705,11 @@ def main() -> int:
              # phase 10: grow_cart in the fastest tier (bf16 J, int8 codes)
              # and in f32; the other growth and estimator paths in f32, as
              # are phase 11's (in grow): the TNML serving fit, the native
-             # stream's fits, the traced swipe and digits_flat
-             **{p: (runs, low if p == "grow_cart fastest" else full)
+             # stream's fits, the traced swipe and digits_flat; and phase
+             # 12's: the mesh's flagship in int8 and f32 (both ranks'
+             # launches), its tabular fit and minres swipe, the drivers' fits
+             **{p: (runs, low if p in ("grow_cart fastest", "mesh flagship int8 (2 ranks)")
+                    else full)
                 for p, (runs, _) in grow.items()}}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"

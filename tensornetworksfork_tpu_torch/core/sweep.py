@@ -33,7 +33,16 @@ the loop.
   environments; inside a type-I sum the other members' cached outputs are
   its rest term, and its own forward, padded and chunked, feeds theirs.
 
-Not ported yet (raises NotImplementedError): mesh (multi-device) runs.
+- Under a 1-D data mesh (`run(mesh=)`, parallel/mesh.py) each rank keeps
+  its block of every chunk's rows and accumulates its own sums with the
+  kernels; each is summed over the ranks once per node update (A's carry
+  or deferred own-out block before it is finished, b and the loss; in the
+  matrix-free branch b, the loss and every matvec), and the solve runs
+  replicated. An input-less member's update sees every row on every rank
+  and is not summed. Branches that decide whether collectives run (the
+  timeout, convergence, the singular flag) take rank 0's decision. The
+  2-D data x model mesh (ROADMAP item 17, step 2) raises
+  NotImplementedError.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.cuda import gram as kgram
+from ..parallel import mesh as pmesh
 from . import gauges, krylov
 from .contract import contract
 from .engine import Network
@@ -140,6 +150,8 @@ class Sweeper:
         # (member, node name, k) of each Krylov solve, k a device tensor
         # (read it after the run: reading it here would sync every update)
         self.krylov_iters: List = []
+        # the data mesh of the current run (None: one process)
+        self._mesh = None
 
     def _defer_ok(self, ok, name: str) -> None:
         self._pending_ok.append((ok, name))
@@ -151,7 +163,9 @@ class Sweeper:
         if not self._pending_ok:
             return True
         pending, self._pending_ok = self._pending_ok, []
-        oks = torch.stack([o for o, _ in pending]).cpu()
+        oks = torch.stack([o for o, _ in pending]).to("cpu", torch.int32)
+        if self._mesh is not None:  # rank 0's flags: every rank stops alike
+            oks = pmesh.replicate(oks, self._mesh)
         if bool(oks.all()):
             return True
         if self.cfg.verbose > 0:
@@ -190,14 +204,27 @@ class Sweeper:
         lines.append(f"{'TOTAL':<28} {total:>8.3f}")
         return "\n".join(lines)
 
+    def _sum_ranks(self, *ts) -> None:
+        """Sums each tensor over the mesh's ranks, in place (nothing without
+        a mesh)."""
+        if self._mesh is not None:
+            for t in ts:
+                pmesh.all_reduce_sum(t, self._mesh)
+
     # ------------------------------------------------------------------ data
-    def _prepare(self, x, y, sample_weight):
+    def _prepare(self, x, y, sample_weight, mesh=None):
         """Pads the sample axis and stores everything pre-chunked as
-        (nchunks, B, ...); padding rows carry weight 0."""
+        (nchunks, B, ...); padding rows carry weight 0. With a mesh, B is
+        rounded up to a multiple of its size and each rank keeps its block
+        of every chunk's rows (`shard_chunked`); the full chunked y and w
+        are kept as well for input-less members, whose updates see every
+        row."""
         S = int(y.shape[0])
         B = self.cfg.batch_size
         if B is None or B <= 0 or B > S:
             B = S
+        if mesh is not None:
+            B = ((B + mesh.size - 1) // mesh.size) * mesh.size
         P = ((S + B - 1) // B) * B
         pad = P - S
 
@@ -222,29 +249,46 @@ class Sweeper:
             chunked.append((v, chunk(v)))
             return chunked[-1][1]
 
-        return {
+        data = {
             "y": chunk(y),
             "w": chunk(w),
             "inputs": [{k: chunk_once(v) for k, v in m.input_fn(x).items()}
                        for m in self.members],
             "S": S, "B": B, "P": P,
         }
+        if mesh is not None:
+            if any(not m.net.topology.input_nodes for m in self.members):
+                data["y_full"], data["w_full"] = data["y"], data["w"]
+            data["y"], data["w"] = pmesh.shard_chunked((data["y"], data["w"]), mesh)
+            # members sharing a chunked input share its shard too
+            shards: Dict[int, torch.Tensor] = {}
 
-    def _prepare_cached(self, x, y, sample_weight):
-        """_prepare memoised on input identity: repeated run() calls on the
-        same tensors skip re-chunking and keep the environment history
-        valid across epochs. The history is keyed on TNF_AUX_PRECISION as
-        well (environments depend on the contraction precision), as in the
-        JAX package."""
+            def shard_once(v):
+                if id(v) not in shards:
+                    shards[id(v)] = pmesh.shard_chunked(v, mesh)
+                return shards[id(v)]
+            data["inputs"] = [{k: shard_once(v) for k, v in d.items()}
+                              for d in data["inputs"]]
+        return data
+
+    def _prepare_cached(self, x, y, sample_weight, mesh=None):
+        """_prepare memoised on input identity and the mesh: repeated run()
+        calls on the same tensors skip re-chunking and keep the environment
+        history valid across epochs. The history is keyed on
+        TNF_AUX_PRECISION as well (environments depend on the contraction
+        precision), as in the JAX package."""
         aux = os.environ.get("TNF_AUX_PRECISION", "")
+        mesh_key = None if mesh is None else (mesh.size, mesh.rank, str(mesh.device))
+        key = (x, y, sample_weight, mesh_key, self.cfg.batch_size)
         data = None
         if self._data_cache is not None:
-            (ox, oy, ow, ob), cached = self._data_cache
-            if ox is x and oy is y and ow is sample_weight and ob == self.cfg.batch_size:
+            (ox, oy, ow, omk, ob), cached = self._data_cache
+            if (ox is x and oy is y and ow is sample_weight and omk == mesh_key
+                    and ob == self.cfg.batch_size):
                 data = cached
         if data is None:
-            data = self._prepare(x, y, sample_weight)
-            self._data_cache = ((x, y, sample_weight, self.cfg.batch_size), data)
+            data = self._prepare(x, y, sample_weight, mesh)
+            self._data_cache = (key, data)
         elif self._hist_aux == aux:
             return data
         # recorded environments were computed from other data, or at
@@ -403,10 +447,12 @@ class Sweeper:
                     pred = pred + piece["rest"]
                 loss, g, _ = weighted_terms(pred, piece)
                 b = net.rhs(ni, J, g)
+                self._sum_ranks(b)  # this chunk's rows on every rank
                 cur = apply_update(cur, -b, cfg.lr, cfg.adaptive_step,
                                    cfg.max_norm, mask)
                 loss_acc = loss_acc + loss.sum()
                 del J, pred, g, b
+            self._sum_ranks(loss_acc)
             ok = torch.isfinite(cur).all()
             # singular guard (deferred-ok contract: see _flush_ok)
             new_core = torch.where(ok, cur, core)
@@ -493,6 +539,9 @@ class Sweeper:
             b_acc = b_acc + b
             loss_acc = loss_acc + loss.sum()
             del pj, pred, g, H, A, b
+        # under a mesh: each rank's raw sums (the in-kernel carry, the
+        # deferred own-out block or A) summed once, before they are finished
+        self._sum_ranks(A_acc, b_acc, loss_acc)
         if in_kernel_acc:
             A = net.packed_gram_finisher(plan)(A_acc)
         elif ownout is not None and ownout["plan"] is not None:
@@ -530,6 +579,7 @@ class Sweeper:
             b_rhs = b_rhs + net.jacobian_transpose_apply(ni, ops, g)
             loss_acc = loss_acc + loss.sum()
             H_all.append(H)
+        self._sum_ranks(b_rhs, loss_acc)
 
         def matvec_raw(v_flat):
             v = v_flat.reshape(core.shape)
@@ -537,6 +587,9 @@ class Sweeper:
             for ops, H in zip(ops_all, H_all):
                 coeff = net.hessian_apply(H, net.jacobian_apply(ni, ops, v))
                 Av = Av + net.jacobian_transpose_apply(ni, ops, coeff)
+            # one all-reduce a matvec: every rank's Krylov iterates and
+            # stopping tests see the same numbers
+            self._sum_ranks(Av)
             return Av.reshape(-1)
 
         # The ridge (the reference's iterative tier has none) and a scale
@@ -612,8 +665,9 @@ class Sweeper:
         return torch.where(ok, new_core, core), loss.sum(), ok
 
     def _member_forward_chunked(self, mi: int, params_list, data):
-        """Chunked (nc, B, *out) forward of member `mi`; a member with no
-        input node is padded to the chunked sample count P first."""
+        """Chunked (nc, B, *out) forward of member `mi` (under a mesh, this
+        rank's rows of each chunk); a member with no input node is padded to
+        the chunked sample count P first."""
         net = self.members[mi].net
         if not net.topology.input_nodes:
             def standalone():
@@ -621,8 +675,10 @@ class Sweeper:
                 pad = data["P"] - out.shape[0]
                 if pad:
                     out = torch.cat([out, out.new_zeros((pad,) + tuple(out.shape[1:]))])
-                return out.reshape((data["P"] // data["B"], data["B"])
-                                   + tuple(out.shape[1:]))
+                out = out.reshape((data["P"] // data["B"], data["B"])
+                                  + tuple(out.shape[1:]))
+                # the other members see this rank's rows of each chunk
+                return out if self._mesh is None else pmesh.shard_chunked(out, self._mesh)
             return self._timed("member_forward", standalone)
         inputs = data["inputs"][mi]
         nc = next(iter(inputs.values())).shape[0]
@@ -636,17 +692,37 @@ class Sweeper:
             node_order: Optional[Sequence] = None, mesh=None,
             model_axis_labels: Sequence[str] = ()):
         """Runs num_swipes * (first pass, second pass). Returns
-        (params_list, success) — success False on timeout or singular solve."""
-        if mesh is not None or model_axis_labels:
-            raise NotImplementedError("mesh runs are not ported yet")
+        (params_list, success) — success False on timeout or singular solve.
+
+        mesh: a 1-D data mesh (parallel.mesh.make_mesh) shards the samples
+        over its ranks; every rank calls run with the same full x and y and
+        the same params (rank 0's are broadcast), and ends with the same
+        params. A mesh of more than one axis or `model_axis_labels` (the
+        2-D data x model mesh) raises NotImplementedError."""
+        if model_axis_labels or (mesh is not None and len(mesh.axis_names) != 1):
+            raise NotImplementedError(
+                f"mesh axes {None if mesh is None else mesh.axis_names}, model "
+                f"axis labels {tuple(model_axis_labels)}: {pmesh.STEP2}")
+        self._mesh = mesh
+        try:
+            return self._run(params_list, x, y, sample_weight, convergence_criterion,
+                             block_callback, loss_callback, node_order)
+        finally:
+            self._mesh = None
+
+    def _run(self, params_list, x, y, sample_weight, convergence_criterion,
+             block_callback, loss_callback, node_order):
         cfg = self.cfg
+        mesh = self._mesh
         if isinstance(params_list, dict):
             params_list = [params_list]
         params_list = list(params_list)
+        if mesh is not None:
+            params_list = [pmesh.replicate(p, mesh) for p in params_list]
         # live view for callbacks (convergence_criterion closures read
         # current params through sweeper.params_list)
         self.params_list = params_list
-        data = self._prepare_cached(x, y, sample_weight)
+        data = self._prepare_cached(x, y, sample_weight, mesh)
         start = time.time()
 
         seq = [(mi, ni) for mi, m in enumerate(self.members)
@@ -864,7 +940,10 @@ class Sweeper:
             ci = t.col_of[ni]
             if frozen_other is not None and frozen_other == (mi, ci):
                 continue
-            if cfg.timeout is not None and (time.time() - start) > cfg.timeout:
+            # under a mesh rank 0's clock decides, so every rank stops at
+            # the same update
+            if cfg.timeout is not None and pmesh.agree(
+                    (time.time() - start) > cfg.timeout, self._mesh):
                 if cfg.verbose > 0:
                     print(f"Timeout reached ({cfg.timeout} s). Stopping sweep.")
                 self._pending_ok.clear()
@@ -878,10 +957,16 @@ class Sweeper:
 
             standalone = not t.input_nodes
             if standalone:
+                # every row on every rank (replicated: never summed); under
+                # a mesh the rest is assembled from the ranks' shards
+                y_s, w_s, rest = data["y"], data["w"], rest_for(mi)
+                if self._mesh is not None:
+                    y_s, w_s = data["y_full"], data["w_full"]
+                    if rest is not None:
+                        rest = pmesh.gather_chunked(rest, self._mesh)
                 new_core, loss_sum, ok = self._timed(
                     f"update:{name}", self._update_standalone, mi, ni, method,
-                    use_rest, params_list[mi], data["y"], data["w"],
-                    rest_for(mi), eps)
+                    use_rest, params_list[mi], y_s, w_s, rest, eps)
                 pred = None
             else:
                 ensure_run(i, mi)
@@ -928,7 +1013,8 @@ class Sweeper:
                 print(f"NS: {NS}, loss ({name}): {avg_loss} (eps: {eps})")
             if loss_callback is not None:
                 loss_callback(NS, name, avg_loss)
-            if convergence_criterion is not None and convergence_criterion():
+            if convergence_criterion is not None and pmesh.agree(
+                    convergence_criterion(), self._mesh):
                 if cfg.verbose > 0:
                     print("Converged")
                 if block_callback is not None:

@@ -73,7 +73,7 @@ def flagship():
     s = torch.empty((rows // block, Dp), device=dev)
     for W in (16, 32, 16, 32):
         fn = lambda: lib.tnf_quantize_bf16(K.data_ptr(), Qt.data_ptr(), s.data_ptr(), rows, Dp,
-                                           block, rows // block, ldq, W, kg._stream())
+                                           block, rows // block, ldq, W, kg._stream(X.device))
         assert fn() == 0
         torch.cuda.synchronize()
         same = torch.equal(Qt[:, :rows].T, Q2)

@@ -6,7 +6,9 @@ version (`<fn>_plain`, beside it) only for tensors that lie on the CPU; for
 CUDA tensors it launches its kernel from `csrc/gram.cu` (the int8 Gram K3/K4:
 `csrc/qgram.cu`; the float Grams K6, K7, K9, K10 and K11: `csrc/wgram.cu`)
 or raises — there is no fallback. Each wrapper checks device, dtype, shape
-and layout, raises when the launch reports an error, and adds one to
+and layout, launches on its operands' device and that device's current
+stream (whatever device is current; operands on different devices raise),
+raises when the launch reports an error, and adds one to
 `LAUNCHES[<name>]` per call that launches its kernel.
 
 Layouts differ from the TPU's where the TPU's were schedule choices: the
@@ -138,13 +140,33 @@ def wgram_plan(rows: int, D: int, ncls: int, upper: bool, sms: int,
 
 # ------------------------------------------------------------------ checks
 def _on_cpu(*ts) -> bool:
-    devs = {t.device.type for t in ts}
+    devs = {t.device for t in ts}
     if len(devs) != 1:
-        raise ValueError(f"operands on mixed devices: {sorted(devs)}")
-    dev = devs.pop()
+        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop().type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device type {dev!r}")
     return dev == "cpu"
+
+
+def _on_operands_device(fn):
+    """Runs a launching wrapper with its tensor operands' CUDA device made
+    current (a device guard), so the kernel launches on that device and on
+    its stream whatever device the caller has made current. Operands on
+    different devices raise; CPU operands pass straight through."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        ts = [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
+        devs = {t.device for t in ts}
+        if len(devs) != 1:
+            raise ValueError(f"{fn.__name__}: operands on different devices: "
+                             f"{sorted(map(str, devs))}")
+        dev = devs.pop()
+        if dev.type != "cuda":
+            return fn(*args, **kwargs)
+        with torch.cuda.device(dev):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def _check(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
@@ -170,12 +192,13 @@ def _raise_on(status: int, kernel: str) -> None:
                            f"cudaError {status}")
 
 
-def _stream() -> int:
-    """The current device's current CUDA stream, as an integer handle, read
-    through the raw-stream call that PyTorch's own generated kernels use:
-    building a torch.cuda.Stream instead took ~7 us a launch on an H100
-    host, about as long as K8 takes on the card."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+def _stream(device: torch.device) -> int:
+    """`device`'s current CUDA stream, as an integer handle, read through
+    the raw-stream call that PyTorch's own generated kernels use: building a
+    torch.cuda.Stream instead took ~7 us a launch on an H100 host, about as
+    long as K8 takes on the card. Launch under _on_operands_device, so the
+    stream's device is the current one."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def sm_count(device: torch.device) -> int:
@@ -251,6 +274,7 @@ def hmix_plan(S: int, C: int, Dp: int, itemsize: int, sms: int) -> Tuple[int, in
     return split_rows(S, max(1, min(S, HMIX_RESIDENT * sms // strips)))
 
 
+@_on_operands_device
 def retile_hmix(J3: torch.Tensor, H: torch.Tensor, Dp: int,
                 gvec: Optional[torch.Tensor] = None):
     """Fused class-major retile + Hessian class mixing (+ the rhs).
@@ -298,7 +322,7 @@ def retile_hmix(J3: torch.Tensor, H: torch.Tensor, Dp: int,
           else _build.lib().tnf_retile_hmix_f32)
     _raise_on(fn(J3.data_ptr(), H.data_ptr(), None if gvec is None else gvec.data_ptr(),
                  Jt.data_ptr(), Kt.data_ptr(), None if part is None else part.data_ptr(),
-                 None if b is None else b.data_ptr(), S, C, D, Dp, rps, _stream()),
+                 None if b is None else b.data_ptr(), S, C, D, Dp, rps, _stream(J3.device)),
               "retile_hmix")
     LAUNCHES["retile_hmix"] += 1
     return Jt, Kt, b
@@ -320,6 +344,7 @@ def retile_hmix_plain(J3: torch.Tensor, H: torch.Tensor, Dp: int,
 
 
 # ---------------------------------------------------------------- K8
+@_on_operands_device
 def retile_rows(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None):
     """(rows, D) -> the tiled layout: (rows, Dp) in X's dtype, columns
     zero-padded. With h ((rows,) f32) also Kt = X * h[r] multiplied in f32
@@ -351,7 +376,7 @@ def retile_rows(X: torch.Tensor, Dp: int, h: Optional[torch.Tensor] = None):
           else _build.lib().tnf_retile_rows_f32)
     _raise_on(fn(X.data_ptr(), None if h is None else h.data_ptr(),
                  Jt.data_ptr(), None if Kt is None else Kt.data_ptr(),
-                 rows, D, Dp, sm_count(X.device), _stream()), "retile_rows")
+                 rows, D, Dp, sm_count(X.device), _stream(X.device)), "retile_rows")
     LAUNCHES["retile_rows"] += 1
     return Jt, Kt
 
@@ -381,6 +406,7 @@ def quant_strip(BS: int) -> int:
                      f"{QUANT_THREADS * 16} rows")
 
 
+@_on_operands_device
 def quantize_tiled(X: torch.Tensor, block: int = BLOCK):
     """Absmax int8 quantisation of a (rows, Dp) bf16 operand per (block of
     BS rows, column): s = max|x| * f32(1/127) (1 for a zero column),
@@ -413,7 +439,7 @@ def quantize_tiled(X: torch.Tensor, block: int = BLOCK):
     Qt = torch.empty((Dp, ldq), dtype=torch.int8, device=X.device)
     s = torch.empty((nb, Dp), dtype=torch.float32, device=X.device)
     _raise_on(_build.lib().tnf_quantize_bf16(
-        X.data_ptr(), Qt.data_ptr(), s.data_ptr(), rows, Dp, BS, nb, ldq, W, _stream()),
+        X.data_ptr(), Qt.data_ptr(), s.data_ptr(), rows, Dp, BS, nb, ldq, W, _stream(X.device)),
         "quantize_tiled")
     LAUNCHES["quantize_tiled"] += 1
     return Qt[:, :Bp].T, s
@@ -490,6 +516,7 @@ def _qgram_lib():
     return lib
 
 
+@_on_operands_device
 def _gram_pair_q(Q1, s1, Q2, s2, acc, band: bool, has_acc: bool = True):
     if Q1.shape != Q2.shape or s1.shape != s2.shape:
         raise ValueError(
@@ -514,7 +541,7 @@ def _gram_pair_q(Q1, s1, Q2, s2, acc, band: bool, has_acc: bool = True):
     pairs = _pair_table(Dp // QTILE, TILE // QTILE, band, Q1.device)
     _raise_on(lib.tnf_gram_q(Q1.data_ptr(), Q1.stride(1), s1.data_ptr(), Q2.data_ptr(),
                              Q2.stride(1), s2.data_ptr(), acc.data_ptr(), pairs.data_ptr(),
-                             pairs.shape[0], Bp, Dp, BS, int(has_acc), _stream()),
+                             pairs.shape[0], Bp, Dp, BS, int(has_acc), _stream(Q1.device)),
               "gram_pair_q")
     LAUNCHES["gram_pair_q"] += 1
     return acc
@@ -553,6 +580,7 @@ def mirror_band(A: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- K6 / K10
+@_on_operands_device
 def gram_pair(X: torch.Tensor, Y: torch.Tensor,
               acc: Optional[torch.Tensor] = None,
               splits: Optional[int] = None, D: Optional[int] = None) -> torch.Tensor:
@@ -606,7 +634,7 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
         pairs = _pair_table(-(-D // WTILE), 1, False, X.device)
         _raise_on(_wgram_lib().tnf_gram_tf32x3(
             X.data_ptr(), Y.data_ptr(), W, pairs.data_ptr(), pairs.shape[0], rows, D,
-            acc.data_ptr(), W, 1, _stream()), "gram_pair")
+            acc.data_ptr(), W, 1, _stream(X.device)), "gram_pair")
     else:
         _launch_wgram_split(X, None, 0, None, acc, D, True, 1, "gram_pair", Y=Y,
                             has_acc=True)
@@ -662,14 +690,15 @@ def _launch_wgram_split(X, h, hstride, cls, out, D, upper, splits, key,
     _raise_on(fn(X.data_ptr(), Y.data_ptr(), ld, h_p, hstride, cls_p, ncls,
                  pairs.data_ptr(), npairs, int(upper), rows, rps, splits, D,
                  tgt.data_ptr(), ocls, ostride, ldo, sstride,
-                 int(has_acc and ws is None), _stream()), key)
+                 int(has_acc and ws is None), _stream(X.device)), key)
     if ws is not None:
         _raise_on(lib.tnf_wgram_reduce(ws.data_ptr(), splits, ncls, D, int(upper),
                                        int(has_acc), out.data_ptr(), cls_p,
-                                       ldc * ldc, ldc, _stream()), key)
+                                       ldc * ldc, ldc, _stream(X.device)), key)
 
 
 # ---------------------------------------------------------------- K7
+@_on_operands_device
 def weighted_gram_tiled(Xt: torch.Tensor, h: torch.Tensor,
                         acc: torch.Tensor, D: Optional[int] = None) -> torch.Tensor:
     """acc += Xtᵀ diag(h) Xt over the upper 128x128 tiles, in place; returns
@@ -714,6 +743,7 @@ def weighted_gram_tiled_plain(Xt, h, acc):
 
 
 # ---------------------------------------------------------------- K9
+@_on_operands_device
 def weighted_gram(X: torch.Tensor, h: torch.Tensor,
                   splits: Optional[int] = None) -> torch.Tensor:
     """A = Xᵀ diag(h) X of a flat (rows, D) operand over the upper 128x128
@@ -751,6 +781,7 @@ def _class_pairs_np(C: int) -> np.ndarray:
     return (iu * C + ju).astype(np.int32)
 
 
+@_on_operands_device
 def own_out_gram(Jt: torch.Tensor, H: torch.Tensor, C: int,
                  D: Optional[int] = None,
                  splits: Optional[int] = None) -> torch.Tensor:

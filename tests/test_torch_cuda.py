@@ -598,3 +598,28 @@ def test_native_stream_batch_regressor_on_cuda(swipe_method, monkeypatch):
         preds.append(est.predict(X[2048:]))
     assert all(s.batches_per_epoch == 4 for s in opened) and len(opened) == 2
     assert np.abs(preds[0] - preds[1]).max() <= 1e-4 * np.abs(preds[1]).max()
+
+
+@pytest.mark.cuda
+def test_launch_on_operands_device_on_cuda():
+    """A wrapper launches on its operands' device and that device's stream,
+    whatever device is current: K10 on operands on the second card while
+    the first is current, held to its plain version; operands on two
+    cards raise."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the operands must lie on another "
+                    "card than the current one")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X, Y = (torch.randn((333, 137), generator=gen, device=dev) for _ in range(2))
+    before = kg.LAUNCHES["gram_pair"]
+    A = kg.gram_pair(X, Y)
+    torch.cuda.synchronize(dev)
+    assert A.device == dev and torch.cuda.current_device() == 0
+    assert kg.LAUNCHES["gram_pair"] == before + 1
+    ref = kg.gram_pair_plain(X, Y)
+    torch.testing.assert_close(torch.triu(A), torch.triu(ref), rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="different devices"):
+        kg.gram_pair(X, Y.to("cuda:0"))

@@ -498,3 +498,24 @@ def test_k6_3xtf32_numerics_pass_float64_check(rows, D):
     assert chip_smoke.pair_errors(tf32x_gram(X, Y, 3), A64, scale)[1] <= bound
     for terms in (1, 2):
         assert chip_smoke.pair_errors(tf32x_gram(X, Y, terms), A64, scale)[1] > 2 * bound
+
+
+@pytest.mark.parametrize("name", ["gram_pair", "weighted_gram", "retile_rows",
+                                  "quantize_tiled"])
+def test_launch_wrappers_refuse_operands_on_different_devices(name):
+    """Every launching wrapper takes its device from its operands and
+    raises when they lie on different devices (here the CPU and the meta
+    device, so the check runs without a card)."""
+    X = torch.zeros((64, 64))
+    other = torch.zeros((64, 64), device="meta")
+    calls = {"gram_pair": lambda: tg.gram_pair(X, other),
+             "weighted_gram": lambda: tg.weighted_gram(X, other[:, 0]),
+             "retile_rows": lambda: tg.retile_rows(X, 128, other[:, 0]),
+             "quantize_tiled": lambda: tg.quantize_tiled(X.to("meta"))}
+    if name == "quantize_tiled":
+        # one operand: its device is the launch's, and meta is not a card's
+        with pytest.raises(ValueError, match="unsupported device type"):
+            calls[name]()
+        return
+    with pytest.raises(ValueError, match="different devices"):
+        calls[name]()
