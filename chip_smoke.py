@@ -198,6 +198,27 @@ printing its own lines:
    listing of the flagship; their fits' kernel shapes are held as (i)'s.
    reporting, plots and prepare_data need pandas or matplotlib, which the
    card's machine lacks; the CPU tests hold them.
+13. the 2-D mesh and the precisions — (i) `parallel.launch` starts 4 gloo
+   ranks that share the card as a 2 x 2 data x model mesh
+   (`make_mesh(axis=("data", "model"), shape=(2, 2))`), and each sweeps the
+   flagship (phase 4's layer, data and config) with its 50 patches split
+   over the model pair (`model_axis_labels=("patches",)`: 25 a rank), in
+   int8 and in f32, then once more in int8 on a 1-D data mesh of the 4
+   ranks; the f32 params held to phase 4's at 5e-3, the int8 ones at 5e-2
+   and to the 4-rank 1-D swipe's at MESH2D_INT8_1D_TOL (a 2-D rank's Gram
+   rows are the rows rank 2i + j holds there), the ranks' params
+   bit-equal, every kernel of the path launched on every rank and held to
+   its plain version at every shape a rank gave it; each rank's swipe
+   time, peak memory and its all-reduces', all-to-alls' and broadcasts'
+   calls, bytes and seconds (the staging copies' apart) are printed; (ii)
+   phase 12's minres conv-TT on the 2 x 2 mesh, held to one process at
+   5e-3, its iteration counts equal on all ranks; (iii) `matmul(...,
+   "high")` (bf16x3: three bf16 products with f32 outputs) on the card
+   against its CPU plain version and against float64, with the single-pass
+   product as a control that must fail; the flagship swipe in the int8
+   Gram tier with TNF_AUX_PRECISION=high (K1, K2, K3, K10); and, card
+   against CPU on phase 6's conv-TT, that tier and swipes of networks built
+   at precision "default" and "high".
 
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
@@ -3342,11 +3363,11 @@ MESH_TABULAR_CONFIG = dict(num_swipes=MESH_TABULAR_SWIPES, batch_size=REGRESSION
                            method="ridge_cholesky", eps=5.0, eps_decay=0.25)
 
 
-def _mesh_sweep(mesh, layer, loss, cfg, X, y, tier_env):
-    """One Sweeper.run (under `mesh` when given) with the counters reset
-    just before it and the kernel shapes recorded: params (numpy), ok, wall
-    seconds, launches, shapes, the collectives' stats and the Krylov
-    iteration counts."""
+def _mesh_sweep(mesh, layer, loss, cfg, X, y, tier_env, labels=()):
+    """One Sweeper.run (under `mesh` when given, with `labels` its model
+    axis labels) with the counters reset just before it and the kernel
+    shapes recorded: params (numpy), ok, wall seconds, launches, shapes, the
+    collectives' stats by kind and the Krylov iteration counts."""
     import torch
     from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
@@ -3358,11 +3379,11 @@ def _mesh_sweep(mesh, layer, loss, cfg, X, y, tier_env):
         if mesh is not None:
             mesh.reset_stats()
         t0 = time.perf_counter()
-        params, ok = sweeper.run([layer.params], X, y, mesh=mesh)
+        params, ok = sweeper.run([layer.params], X, y, mesh=mesh, model_axis_labels=labels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kg.LAUNCHES)
-        stats = None if mesh is None else dict(mesh.stats)
+        stats = None if mesh is None else {k: dict(v) for k, v in mesh.stats.items()}
     return dict(params=params_to_numpy(params[0]), ok=ok, wall=wall, launches=launches,
                 seen=set(seen), stats=stats,
                 iters=[int(k) for _, _, k in sweeper.krylov_iters])
@@ -3456,7 +3477,7 @@ def run_mesh(device, card: str, single):
         if run == "minres" and (not r0["iters"] or r0["iters"] != r1["iters"]):
             raise AssertionError(f"mesh minres: iterations differ over the ranks: "
                                  f"{r0['iters']} vs {r1['iters']}")
-        s = r0["stats"]
+        s = r0["stats"]["all_reduce"]
         log(f"[mesh] {card}: {run}: swipe wall {r0['wall']:.3f} / {r1['wall']:.3f} s "
             f"(rank 0 / 1); all-reduces {s['calls']} calls, "
             f"{s['bytes'] / 2**30:.3f} GiB, {s['seconds']:.3f} s on rank 0 "
@@ -3539,6 +3560,249 @@ def run_drivers(device, card: str):
         log(f"[drivers] {ln}")
     torch.cuda.synchronize()
     return paths
+
+
+# phase 13: the 2-D (data x model) mesh and the high / default precisions.
+# (i) 4 gloo ranks sharing the card as a 2 x 2 mesh sweep the flagship with
+# its patches split over the model pair (25 a rank), in int8 and in f32, and
+# once more in int8 on a 1-D mesh of the 4 ranks: a 2-D rank's Gram rows are
+# the rows rank 2i + j holds there, so that swipe is the tight reference
+# (the same quantisation blocks; J's f32 sums over the patches reordered);
+# (ii) phase 12's minres conv-TT on the same mesh; (iii) the bf16x3 product
+# and swipes at the high and default precisions, card against CPU.
+MESH2D = (2, 2)
+MESH2D_LABELS = ("patches",)
+# the 2-D int8 swipe's params against the 4-rank 1-D int8 swipe's, in
+# test_parallel.py's measure (|d| / (1 + |want|)). The two hold the same
+# rows and quantisation blocks a rank; only J's f32 sums over the patches
+# run in another order, and the int8 swipe carries the codes those flip
+# through its chained solves: 0.0162 on an H100 (PERF.md §6),
+# against 0.045 from one process; predicted ~5e-3 before that reading
+MESH2D_INT8_1D_TOL = 2.5e-2
+# matmul(..., "high") against float64 of the operands as given, over
+# sum|a||b| per entry: bf16x3 drops lo·lo and lo's rounding, about 2^-17 of
+# each product, which average out over a sum (8.7e-7 on the CPU at K = 400,
+# tests/test_torch_aux.py); the single-pass product ("default") must exceed
+# the bound. Shapes (m, k, n): a 1,024-row chunk's packed prediction of A2,
+# and a column strip of a 2,048-row chunk's rhs product gᵀJt
+HIGH_PRODUCT_BOUND = 2.0 ** -18
+HIGH_SHAPES = ((1024 * 9, 16200, 1), (1, 2048 * 9, 2048))
+# phase 6's conv-TT and data for the precisions' card-against-CPU swipes:
+# the flagship's widths on the CPU's plain int8 Gram take minutes a node
+PRECISION_TOL = {"int8, high aux": 2e-2, "precision default": 2e-2, "precision high": 1e-4}
+
+
+def mesh2d_rank():
+    """One rank of phase 13 (i)-(ii): the flagship swipe in int8 and f32 on
+    the 2 x 2 mesh (patches over "model"), the int8 swipe on the 4-rank data
+    mesh, the minres swipe on the 2 x 2 mesh. Returns each run's
+    _mesh_sweep and the rank's peak memory."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    from tensornetworksfork_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(4, axis=("data", "model"), shape=MESH2D)
+    flat = pmesh.make_mesh(4)
+    out = {}
+    X, y = flagship_data(SLICE_SAMPLES, 0, mesh.device)
+    for tier in MESH_TIERS:
+        torch.cuda.reset_peak_memory_stats()
+        out[f"flagship {tier}"] = _mesh_sweep(mesh, flagship_layer(mesh.device, 0),
+                                              XEBregman(w=1.0), SLICE_CONFIG, X, y,
+                                              SLICE_TIERS[tier], MESH2D_LABELS)
+        torch.cuda.synchronize()
+        out[f"flagship {tier}"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["flagship int8, 1-D"] = _mesh_sweep(flat, flagship_layer(mesh.device, 0),
+                                            XEBregman(w=1.0), SLICE_CONFIG, X, y,
+                                            SLICE_TIERS["int8"])
+    del X, y
+    layer, X, y = mesh_minres_data(mesh.device)
+    out["minres"] = _mesh_sweep(mesh, layer, XEBregman(w=1.0), MESH_MINRES_CONFIG, X, y,
+                                SLICE_TIERS["f32"], MESH2D_LABELS)
+    return out
+
+
+def run_mesh2d(device, card: str, single):
+    """Phase 13 (i)-(ii): 4 gloo ranks on the one card as a 2 x 2 data x
+    model mesh (parallel.launch). The flagship's f32 params held to phase
+    4's (`single`) at 5e-3, its int8 params at 5e-2 and to the 4-rank data
+    mesh's int8 swipe at MESH2D_INT8_1D_TOL; the minres swipe to one process
+    at 5e-3, its iteration counts equal on all ranks; every rank's params
+    bit-equal and every kernel of each path launched on every rank. Logs
+    each rank's swipe wall time, peak memory and its collectives (calls,
+    bytes, seconds, the staging copies' seconds, by kind). Returns {path:
+    (launches of all ranks, shapes)}."""
+    import torch
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    from tensornetworksfork_tpu_torch.parallel import mesh as pmesh
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    n = MESH2D[0] * MESH2D[1]
+    t0 = time.perf_counter()
+    ranks = pmesh.launch(mesh2d_rank, n, timeout=600, join_timeout=900)
+    log(f"[mesh2d] {card}: {n} gloo ranks on one card as a {MESH2D[0]} x {MESH2D[1]} "
+        f"data x model mesh (patches over model, {FLAGSHIP['P'] // MESH2D[1]} a rank), "
+        f"spawned, run and joined in {time.perf_counter() - t0:.1f} s")
+    layer, X, y = mesh_minres_data(device)
+    single["minres"] = _mesh_sweep(None, layer, XEBregman(w=1.0), MESH_MINRES_CONFIG,
+                                   X, y, SLICE_TIERS["f32"])["params"]
+    del X, y
+    need = {"flagship int8": FLAGSHIP_KERNELS["int8"], "flagship f32": FLAGSHIP_KERNELS["f32"],
+            "flagship int8, 1-D": FLAGSHIP_KERNELS["int8"], "minres": ()}
+    paths = {}
+    for run, kernels in need.items():
+        rs = [r[run] for r in ranks]
+        if not all(r["ok"] for r in rs):
+            raise AssertionError(f"mesh2d {run}: a rank reported a singular solve")
+        for r in rs[1:]:
+            for k in rs[0]["params"]:
+                if not np.array_equal(rs[0]["params"][k], r["params"][k]):
+                    raise AssertionError(f"mesh2d {run}: the ranks' {k} differ")
+        if run.startswith("flagship int8"):
+            worst = _params_within(f"mesh2d {run}", rs[0]["params"], single["flagship int8"],
+                                   MESH_TOL["int8"])
+        else:
+            worst = _params_within(f"mesh2d {run}", rs[0]["params"], single[run],
+                                   MESH_TOL["f32"])
+        missing = [k for k in kernels for r in rs if r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"mesh2d {run}: kernels never launched on a rank: {missing}")
+        if run == "minres" and (not rs[0]["iters"]
+                                or any(r["iters"] != rs[0]["iters"] for r in rs)):
+            raise AssertionError(f"mesh2d minres: iterations differ over the ranks: "
+                                 f"{[r['iters'] for r in rs]}")
+        line = [f"[mesh2d] {card}: {run}: ranks bit-equal; params within {worst:.3g} of "
+                f"the single process; swipe wall per rank "
+                f"{[round(r['wall'], 3) for r in rs]} s"]
+        if "peak_gib" in rs[0]:
+            line.append(f"peak mem per rank {[round(r['peak_gib'], 2) for r in rs]} GiB")
+        for kind in ("all_reduce", "all_to_all", "broadcast"):
+            st = rs[0]["stats"][kind]
+            line.append(f"{kind} on rank 0: {st['calls']} calls, "
+                        f"{st['bytes'] / 2**30:.3f} GiB, {st['seconds']:.3f} s "
+                        f"({st['bytes'] / max(st['seconds'], 1e-9) / 1e9:.2f} GB/s), staging "
+                        f"copies {st['copy_seconds']:.3f} s")
+        line.append(f"launches rank 0 {({k: v for k, v in rs[0]['launches'].items() if v})}"
+                    + (f"; minres iterations {rs[0]['iters']}" if run == "minres" else ""))
+        log("; ".join(line))
+        launches = {k: sum(r["launches"][k] for r in rs) for k in rs[0]["launches"]}
+        seen = set().union(*(r["seen"] for r in rs))
+        name = "mesh2d " + run + (" (4 ranks)" if run.endswith("1-D") else " (2 x 2)")
+        paths[name] = (launches, seen)
+    tight = _params_within("mesh2d flagship int8 against the 4-rank 1-D int8 swipe",
+                           ranks[0]["flagship int8"]["params"],
+                           ranks[0]["flagship int8, 1-D"]["params"], MESH2D_INT8_1D_TOL)
+    log(f"[mesh2d] {card}: the 2 x 2 int8 swipe's params within {tight:.3g} of the 4-rank "
+        f"1-D int8 swipe's (bound {MESH2D_INT8_1D_TOL})")
+    return paths
+
+
+def check_high_products(device, card: str):
+    """Phase 13 (iii): matmul(..., "high") on the card (three bf16 products
+    with f32 outputs) against its CPU plain version, and against float64 of
+    the operands as given: within HIGH_PRODUCT_BOUND of sum|a||b| per entry,
+    which the single-pass product ("default", the lo terms dropped) must
+    exceed, and the card's within it of the CPU's; at the flagship's
+    packed-prediction and rhs shapes."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.contract import matmul
+    rng = np.random.default_rng(7)
+    for m, k, n in HIGH_SHAPES:
+        a = torch.tensor(rng.standard_normal((m, k)).astype(np.float32))
+        b = torch.tensor(rng.standard_normal((k, n)).astype(np.float32))
+        exact = a.double() @ b.double()
+        size = a.double().abs() @ b.double().abs()
+        card_high = matmul(a.to(device), b.to(device), "high").cpu()
+        cpu_high = matmul(a, b, "high")
+        errs = {name: float(((v.double() - want).abs() / size).max())
+                for name, v, want in (
+                    ("card high", card_high, exact), ("cpu high", cpu_high, exact),
+                    ("card default", matmul(a.to(device), b.to(device), "default").cpu(),
+                     exact),
+                    ("card against cpu", card_high, cpu_high.double()))}
+        log(f"[precision] {card}: matmul high ({m} x {k}) @ ({k} x {n}): error over "
+            f"sum|a||b|, against float64 unless named: "
+            + ", ".join(f"{nm} {v:.3g}" for nm, v in errs.items())
+            + f" (bound {HIGH_PRODUCT_BOUND:.3g}; card default must exceed it)")
+        if not all(v <= HIGH_PRODUCT_BOUND for nm, v in errs.items() if nm != "card default"):
+            raise AssertionError(f"matmul high is off by {errs}")
+        if errs["card default"] <= HIGH_PRODUCT_BOUND:
+            raise AssertionError("the single-pass product passes the bf16x3 bound, so the "
+                                 "check cannot see the lo terms")
+
+
+def run_precisions(device, card: str, single):
+    """Phase 13 (iii): the flagship swipe (S=8,192) in the int8 Gram tier
+    with TNF_AUX_PRECISION=high on the card (K1, K2, K3, K10 launched; loss
+    lowered; params within 5e-2 of phase 4's int8 swipe, which differs only
+    in the aux products' precision); then, card against CPU on phase 6's
+    conv-TT (S=96: the CPU's plain int8 Gram at the flagship's widths takes
+    minutes a node), that tier and swipes of networks built at
+    precision "default" and "high" (TNF_PRECISION's counterpart; every
+    contraction at that precision, the aux ones following it), each held
+    to PRECISION_TOL of max|pred|. Returns {path: (launches, shapes)}."""
+    import torch
+    from tensornetworksfork_tpu_torch.core.engine import Network
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    X, y = flagship_data(SLICE_SAMPLES, 0, device)
+    layer = flagship_layer(device, 0)
+    loss_fn = XEBregman(w=1.0)
+    loss0 = float(loss_fn(layer.forward_batch(X, BATCH), y, only_loss=True).mean())
+    tier = dict(TNF_GRAM_DTYPE="int8", TNF_AUX_PRECISION="high")
+    sweeper = Sweeper(layer.network, loss_fn, SweepConfig(**SLICE_CONFIG))
+    with env(**tier):
+        (params, ok), launches, seen, wall = _timed_run(
+            device, lambda: sweeper.run([layer.params], X, y))
+    layer.params = params[0]
+    loss1 = float(loss_fn(layer.forward_batch(X, BATCH), y, only_loss=True).mean())
+    got = {k: v.cpu().numpy() for k, v in params[0].items()}
+    worst = _params_within("flagship int8 with the high aux tier", got,
+                           single["flagship int8"], MESH_TOL["int8"])
+    log(f"[precision] {card}: flagship int8 swipe with TNF_AUX_PRECISION=high: wall "
+        f"{wall:.3f} s, ok={ok}, loss {loss0:.6f} -> {loss1:.6f}, params within {worst:.3g} "
+        f"of phase 4's int8 swipe (f32 aux), launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    if not ok or not loss1 < loss0:
+        raise AssertionError(f"flagship int8 high-aux swipe: ok={ok}, loss {loss0} -> {loss1}")
+    missing = [k for k in FLAGSHIP_KERNELS["int8"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"flagship int8 high-aux swipe never launched {missing}")
+    del X, y
+
+    rng = np.random.default_rng(1)
+    S, P, pp, C = 96, 6, 5, 3
+    Xn = rng.standard_normal((S, P, pp)).astype(np.float32)
+    yn = np.eye(C + 1, dtype=np.float32)[rng.integers(0, C + 1, S)]
+    runs = {"int8, high aux": (dict(TNF_GRAM_DTYPE="int8", TNF_AUX_PRECISION="high"), None),
+            "precision default": (dict(TNF_GRAM_DTYPE="f32"), "default"),
+            "precision high": (dict(TNF_GRAM_DTYPE="f32"), "high")}
+    for name, (tier_env, precision) in runs.items():
+        outs = {}
+        for dev in ("cpu", device):
+            with env(**{"TNF_PACKED_SYRK_MIN_D": 1, "TNF_AUX_PRECISION": "", **tier_env}):
+                if precision is not None:
+                    os.environ.pop("TNF_AUX_PRECISION")  # follow the network's
+                small = TensorConvolutionTrainLayer(4, 4, P, pp, output_shape=(C,),
+                                                    convolution_bond=2, seed=0, device=dev)
+                net = Network(small.topology, device=dev, use_kernels=True,
+                              precision=precision)
+                if net.aux_precision != (precision or "high"):
+                    raise AssertionError(f"{name}: aux precision {net.aux_precision}")
+                Xd, yd = torch.tensor(Xn, device=dev), torch.tensor(yn, device=dev)
+                params, ok = Sweeper(net, XEBregman(1.0), SweepConfig(
+                    num_swipes=1, batch_size=48, method="ridge_cholesky", eps=5.0,
+                    eps_decay=0.25)).run([small.params], Xd, yd)
+                if not ok:
+                    raise AssertionError(f"{name} swipe on {dev} failed")
+                outs[dev] = net.forward(params[0], Xd).cpu()
+        err = float((outs[device] - outs["cpu"]).abs().max())
+        scale = float(outs["cpu"].abs().max())
+        log(f"[precision] {card}: {name} swipe (phase 6's conv-TT): card against CPU "
+            f"max|d pred| {err:.3g} (max|pred| {scale:.3g}, rtol {PRECISION_TOL[name]})")
+        if not err <= PRECISION_TOL[name] * scale:
+            raise AssertionError(f"{name}: card and CPU differ by {err}")
+    return {"flagship int8, high aux": (launches, seen)}
 
 
 def main() -> int:
@@ -3663,6 +3927,21 @@ def main() -> int:
         f"{t12d - t12:.1f} s, the drivers {t12c - t12d:.1f} s, the shape checks "
         f"{time.perf_counter() - t12c:.1f} s")
 
+    t13 = time.perf_counter()
+    single = {"flagship int8": int8["params"], "flagship f32": slice32["params"]}
+    phase13 = run_mesh2d(device, smi, single)
+    t13d = time.perf_counter()
+    check_high_products(device, smi)
+    phase13.update(run_precisions(device, smi, single))
+    t13c = time.perf_counter()
+    # every kernel at every shape a rank or the high-aux swipe gave it
+    for path, (_, seen) in phase13.items():
+        kernels += check_growth_shapes(device, path, seen, done10)
+    grow.update(phase13)
+    log(f"[env] phase 13 took {time.perf_counter() - t13:.1f} s: the 2-D mesh "
+        f"{t13d - t13:.1f} s, the precisions {t13c - t13d:.1f} s, the shape checks "
+        f"{time.perf_counter() - t13c:.1f} s")
+
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
     # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
@@ -3707,8 +3986,14 @@ def main() -> int:
              # are phase 11's (in grow): the TNML serving fit, the native
              # stream's fits, the traced swipe and digits_flat; and phase
              # 12's: the mesh's flagship in int8 and f32 (both ranks'
-             # launches), its tabular fit and minres swipe, the drivers' fits
-             **{p: (runs, low if p in ("grow_cart fastest", "mesh flagship int8 (2 ranks)")
+             # launches), its tabular fit and minres swipe, the drivers'
+             # fits; and phase 13's: the 2-D mesh's flagship in int8 and f32
+             # and the 4-rank int8 swipe (every rank's launches), its minres
+             # swipe, the flagship int8 swipe with the high aux tier
+             **{p: (runs, low if p in ("grow_cart fastest", "mesh flagship int8 (2 ranks)",
+                                       "mesh2d flagship int8 (2 x 2)",
+                                       "mesh2d flagship int8, 1-D (4 ranks)",
+                                       "flagship int8, high aux")
                     else full)
                 for p, (runs, _) in grow.items()}}
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"

@@ -24,8 +24,12 @@ is written in letters of its own: a step holds only its two operands' axes.
 `precision` is the JAX package's dot precision, by name. "highest" runs
 each pairwise step in f32. "default" runs it as the TPU runs a
 `Precision.DEFAULT` dot: operands rounded to bf16, products summed in f32,
-an f32 result (`matmul`). "high" (the TPU's bf16x3) is not ported (ROADMAP
-item 19).
+an f32 result. "high" runs it as the TPU runs a `Precision.HIGH` dot
+(bf16x3): each f32 operand split into a bf16 part and the bf16 rounding of
+its remainder, and the three products of parts hi·hi, hi·lo and lo·hi
+summed in f32 (`matmul`). A product of two bf16 values is exact in f32, so
+on the card's bf16 tensor cores, which sum in f32 as the TPU's MXU does,
+these are the TPU's products, summed in another order.
 """
 from __future__ import annotations
 
@@ -228,18 +232,32 @@ def _plan(expr: str, shapes: Tuple[Tuple[int, ...], ...], cap: int):
     return steps
 
 
-PRECISIONS = ("highest", "default")
+PRECISIONS = ("highest", "high", "default")
 
 
 def check_precision(precision: str) -> str:
-    """`precision` if this port runs it; NotImplementedError for "high"."""
-    if precision == "high":
-        raise NotImplementedError(
-            "precision 'high' (the TPU's bf16x3 dot) has no exact "
-            "counterpart on the card and is not ported (ROADMAP item 19)")
+    """`precision` if it is one of PRECISIONS; ValueError otherwise."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, not {precision!r}")
     return precision
+
+
+def split_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = bf16(a), lo = bf16(a - hi), the split of an f32
+    operand that a `Precision.HIGH` dot multiplies (a - hi is exact in
+    f32)."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a.float() - hi.float()).to(torch.bfloat16)
+
+
+def _bf16_products(a: torch.Tensor, b: torch.Tensor, precision: str, fn):
+    """fn over the bf16 parts of a and b, summed in f32: one product of
+    the rounded operands ("default"), or the three of bf16x3 ("high"),
+    hi·hi + (hi·lo + lo·hi)."""
+    if precision == "default":
+        return fn(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    (ah, al), (bh, bl) = split_bf16(a), split_bf16(b)
+    return fn(ah, bh) + (fn(ah, bl) + fn(al, bh))
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
@@ -249,35 +267,42 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     "highest": in the operands' promoted dtype, bf16 operands upcast to f32
     (their products are exact in f32). "default": the operands rounded to
     bf16, the products summed in f32 and returned in f32 (the JAX package's
-    DEFAULT dot with `preferred_element_type=float32`). On the card that is
-    a bf16 product with an f32 output (`out_dtype`), never a bf16-output
-    product, which rounds its result; on the CPU, whose torch has no such
-    kernel, the rounded operands are multiplied in f32: the same products,
-    summed in another order."""
-    if precision == "default" and not (a.is_complex() or b.is_complex()):
-        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        if a16.device.type == "cpu":
-            return a16.float() @ b16.float()
-        fn = torch.bmm if a16.ndim == 3 else torch.mm
-        return fn(a16, b16, out_dtype=torch.float32)
+    DEFAULT dot with `preferred_element_type=float32`). "high": bf16x3, the
+    three products of the operands' bf16 parts (`split_bf16`) summed in f32.
+    On the card each product is a bf16 product with an f32 output
+    (`out_dtype`), never a bf16-output product, which rounds its result; on
+    the CPU, whose torch has no such kernel, the bf16 parts are multiplied
+    in f32: the same products, summed in another order. Complex operands
+    run at "highest"."""
+    if precision != "highest" and not (a.is_complex() or b.is_complex()):
+        if a.device.type == "cpu":
+            def fn(x, y):
+                return x.float() @ y.float()
+        else:
+            mm = torch.bmm if a.ndim == 3 else torch.mm
+
+            def fn(x, y):
+                return mm(x, y, out_dtype=torch.float32)
+        return _bf16_products(a, b, precision, fn)
     rt = torch.promote_types(a.dtype, b.dtype)
     if rt == torch.bfloat16:
         rt = torch.float32
     return a.to(rt) @ b.to(rt)
 
 
-def _einsum_pair_default(sub: str, x: torch.Tensor, y: torch.Tensor
-                         ) -> torch.Tensor:
-    """One pairwise einsum step "x,y->z" lowered to `matmul(..., "default")`:
-    letters of one operand that the result drops are summed first (in f32,
-    as XLA reduces before its dot), then the operands are permuted to
-    (batch, free, contracted) and (batch, contracted, free) and multiplied."""
+def _einsum_pair(sub: str, x: torch.Tensor, y: torch.Tensor, precision: str
+                 ) -> torch.Tensor:
+    """One pairwise einsum step "x,y->z" of real operands lowered to
+    `matmul(..., precision)` ("default" or "high"): letters of one operand
+    that the result drops are summed first (in f32, as XLA reduces before
+    its dot), then the operands are permuted to (batch, free, contracted)
+    and (batch, contracted, free) and multiplied."""
     ins, out = sub.split("->")
     tx, ty = ins.split(",")
     if len(set(tx)) != len(tx) or len(set(ty)) != len(ty):
         # a repeated letter takes a diagonal, which no product lowers
-        return torch.einsum(sub, x.to(torch.bfloat16).float(),
-                            y.to(torch.bfloat16).float())
+        return _bf16_products(x, y, precision, lambda p, q: torch.einsum(
+            sub, p.float(), q.float()))
 
     def drop_own(t, arr, other):
         own = [ch for ch in t if ch not in other and ch not in out]
@@ -308,7 +333,7 @@ def _einsum_pair_default(sub: str, x: torch.Tensor, y: torch.Tensor
     else:
         xm = xm.reshape(prod(fx), prod(contr))
         ym = ym.reshape(prod(contr), prod(fy))
-    z = matmul(xm, ym, "default").reshape([size[ch] for ch in batch + fx + fy])
+    z = matmul(xm, ym, precision).reshape([size[ch] for ch in batch + fx + fy])
     cur = batch + fx + fy
     return z.permute(*[cur.index(ch) for ch in out])
 
@@ -341,8 +366,9 @@ def contract(operands: Sequence[Tuple[Axes, torch.Tensor]],
         picked = [work[i] for i in step]
         for i in sorted(step, reverse=True):
             del work[i]
-        if precision == "default" and len(picked) == 2:
-            work.append(_einsum_pair_default(sub, *picked))
+        if (precision != "highest" and len(picked) == 2
+                and not any(p.is_complex() for p in picked)):
+            work.append(_einsum_pair(sub, *picked, precision))
         else:
             work.append(torch.einsum(sub, *picked))
     (out,) = work

@@ -12,19 +12,32 @@ Functions over a static `Topology` + a params dict:
   `gram_matvec`        J v, Jᵀ u, H u and JᵀHJ v for the matrix-free tier,
                        each one contraction at `Network.precision`
 
-The auxiliary contractions (environment chains, Jacobian builds,
-predictions, right-hand sides) run at `Network.aux_precision`
-(TNF_AUX_PRECISION = highest | default, read on every call): "default"
-rounds their operands to bf16 and sums in f32, as the TPU runs a DEFAULT
-dot (`contract.matmul`). A's own product follows TNF_GRAM_DTYPE
-(f32 | bf16 | int8) and the solves stay f32 (float64 where
-solve_dtype asks for it). The route thresholds
-follow TNF_PACKED_SYRK_MIN_D, with the JAX package's defaults, so both
-packages take the same route for a node. Where XLA was asked for a bf16 dot
-with an f32 result on the Gram ladder, the operands are upcast to f32
-instead (bf16 products are exact in f32). TNF_PRECISION (which in the JAX
-package also relaxes A's f32 product and the forward) and
-TNF_AUX_PRECISION=high are not ported (ROADMAP item 19).
+Every contraction runs at the network's dot precision, `Network.precision`
+(highest | high | default: `contract.matmul`), taken from TNF_PRECISION
+once, at import, as in the JAX package: the forward, the plain routes' A
+products and K builds, the matrix-free tier. The auxiliary contractions
+(environment chains, Jacobian builds, predictions, right-hand sides) run at
+`Network.aux_precision` (TNF_AUX_PRECISION, read on every call, else the
+network's precision): "default" rounds their operands to bf16 and sums in
+f32, as the TPU runs a DEFAULT dot; "high" sums the three bf16 products of
+the TPU's bf16x3. A's product on the kernel routes follows TNF_GRAM_DTYPE
+(f32 | bf16 | int8), which no precision relaxes (the JAX package's Pallas
+kernels never see it either), and the solves stay f32 (float64 where
+solve_dtype asks for it). The route thresholds follow
+TNF_PACKED_SYRK_MIN_D, with the JAX package's defaults, so both packages
+take the same route for a node. Where XLA was asked for a bf16 dot with an
+f32 result on the Gram ladder, the operands are upcast to f32 instead
+(bf16 products are exact in f32).
+
+Under a 2-D (data x model) mesh (`shard_model`, set by Sweeper.run) the
+input axes of the named labels hold the model rank's block. Every
+contraction slices the params' full copies of such an axis to that block
+where an operand holds it so, and sums its result over the model group
+where it sums the axis (one such axis a contraction: the forward goes
+column by column). A Jacobian that keeps the axis keeps the block; the
+Gram stage takes whole-sample row blocks with all columns from
+`rows_for_gram` (an all-to-all over the model group), and a right-hand side
+or Jᵀu that keeps it is assembled over the model group.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda import gram as kgram
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from .contract import check_precision, contract, matmul
 from .topology import CONST, INPUT, PARAM, Topology
@@ -46,15 +60,9 @@ def _prime(a):
     return ("~", a)
 
 
-def _check_precision_env() -> None:
-    """TNF_PRECISION relaxes every contraction of the JAX package, A's f32
-    product and the forward included; only its "highest" is ported."""
-    val = os.environ.get("TNF_PRECISION", "highest").lower()
-    if val != "highest":
-        raise NotImplementedError(
-            f"TNF_PRECISION={val!r}: this port runs A's f32 product and the "
-            "forward in full f32 (ROADMAP item 19); TNF_AUX_PRECISION=default "
-            "relaxes the auxiliary contractions")
+# The dot precision of every network built without one (JAX engine.py's
+# DEFAULT_PRECISION): TNF_PRECISION, read once, at import
+DEFAULT_PRECISION = check_precision(os.environ.get("TNF_PRECISION", "highest").lower())
 
 
 def _packed_min_d() -> int:
@@ -81,13 +89,19 @@ class Network:
     on a TPU) and TNF_KERNELS is not "0", which turns every network built
     meanwhile to the plain torch routes, as a reference for the kernels'.
     With use_kernels on CPU tensors the same routes run through the
-    kernels' plain versions."""
+    kernels' plain versions. `precision` is the dot precision of its
+    contractions (module docstring; DEFAULT_PRECISION when None)."""
 
     def __init__(self, topology: Topology,
                  consts: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cuda", use_kernels: Optional[bool] = None):
-        _check_precision_env()
-        self.aux_precision  # raises for a TNF_AUX_PRECISION not ported
+                 device="cuda", use_kernels: Optional[bool] = None,
+                 precision: Optional[str] = None):
+        self.precision = check_precision((precision or DEFAULT_PRECISION).lower())
+        self.aux_precision  # raises for an unknown TNF_AUX_PRECISION
+        # the model sharding of a 2-D mesh run (shard_model): the mesh and,
+        # per sharded axis id, this rank's block (start, size)
+        self.mesh = None
+        self.model_blocks: Dict[int, Tuple[int, int]] = {}
         self.device = resolve_device(device)
         if use_kernels is None:
             use_kernels = (self.device.type == "cuda"
@@ -109,12 +123,146 @@ class Network:
     def aux_precision(self) -> str:
         """Precision of the auxiliary contractions: environment chains,
         Jacobian builds, predictions, rhs products. Read from
-        TNF_AUX_PRECISION on every call, as in the JAX package; A's product
-        keeps its own ladder (TNF_GRAM_DTYPE) and the solves stay f32.
-        "highest" (also when unset) or "default"; "high" raises
-        NotImplementedError (ROADMAP item 19)."""
-        return check_precision(
-            os.environ.get("TNF_AUX_PRECISION", "highest").lower())
+        TNF_AUX_PRECISION on every call (highest | high | default), the
+        network's own precision when it is unset, as in the JAX package; A's
+        product keeps its own ladder (TNF_GRAM_DTYPE) and the solves stay
+        f32."""
+        name = os.environ.get("TNF_AUX_PRECISION")
+        return self.precision if name is None else check_precision(name.lower())
+
+    # --------------------------------------------------------- model sharding
+    def shard_model(self, mesh, labels: Sequence[str] = ()) -> None:
+        """Shards the input axes whose labels are in `labels` over the model
+        axis of the 2-D `mesh`: this rank's block of each (its inputs must
+        come sharded so, parallel.mesh.shard_chunked_inputs). None (or no
+        labels, or a model axis of one rank) ends the sharding. Raises
+        ValueError when an axis does not split evenly."""
+        self.mesh, self.model_blocks = None, {}
+        if mesh is None or not labels or mesh.axis_size("model") == 1:
+            return
+        t = self.topology
+        m, j = mesh.axis_size("model"), mesh.axis_rank("model")
+        blocks = {}
+        for ni in t.input_nodes:
+            for a, lbl in zip(t.node_axes[ni], t.nodes[ni].labels):
+                if lbl in labels:
+                    n = t.axis_size[a]
+                    if n % m:
+                        raise ValueError(f"axis {lbl!r} of {t.nodes[ni].name} ({n}) "
+                                         f"does not split over {m} model ranks")
+                    blocks[a] = (j * (n // m), n // m)
+        self.mesh, self.model_blocks = mesh, blocks
+
+    def _local_axes(self, ops) -> set:
+        """The model-sharded axes that some operand holds as this rank's
+        block (its size there is the block's, not the axis's)."""
+        return {a for axes, arr in ops for a, n in zip(axes, arr.shape)
+                if a in self.model_blocks and n == self.model_blocks[a][1]}
+
+    def _packed_local(self, pj) -> set:
+        """The model-sharded node axes a packed Jacobian holds as blocks."""
+        return {a for a, n in zip((pj["a0"],) + pj["rest"], pj["node_local_shape"])
+                if a in self.model_blocks and n == self.model_blocks[a][1]}
+
+    def _slice_ops(self, ops, local) -> List[Operand]:
+        """The operands with each full copy of an axis in `local` cut to this
+        rank's block."""
+        out = []
+        for axes, arr in ops:
+            for k, a in enumerate(axes):
+                if a in local and arr.shape[k] == self.topology.axis_size[a]:
+                    start, n = self.model_blocks[a]
+                    arr = arr.narrow(k, start, n)
+            out.append((axes, arr))
+        return out
+
+    def _model_sum(self, out: torch.Tensor, summed: set) -> torch.Tensor:
+        """out summed over the model group when its contraction summed a
+        model-sharded axis held as blocks (each rank summed its block)."""
+        if len(summed) > 1:
+            raise ValueError(f"one contraction sums the model-sharded axes {summed}: "
+                             "each block sum must be summed over the ranks alone")
+        if summed:
+            pmesh.all_reduce_sum(out, self.mesh, "model")
+        return out
+
+    def _tp_contract(self, ops, keep, precision: str) -> torch.Tensor:
+        """contract() under the model sharding: the params' full copies of a
+        sharded axis that an operand holds as a block are cut to it, and a
+        result that sums such an axis is summed over the model group."""
+        local = self._local_axes(ops) if self.model_blocks else set()
+        if not local:
+            return contract(ops, keep, precision)
+        out = contract(self._slice_ops(ops, local), keep, precision)
+        return self._model_sum(out, local - set(keep))
+
+    def _assemble(self, axes, arr: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from this rank's block of its model-sharded axes
+        (each rank's block placed in zeros, summed over the model group);
+        arr itself when it holds none."""
+        local = self._local_axes([(axes, arr)]) if self.model_blocks else set()
+        if not local:
+            return arr
+        full = arr.new_zeros([self.topology.axis_size[a] if a in local else d
+                              for a, d in zip(axes, arr.shape)])
+        view = full
+        for k, a in enumerate(axes):
+            if a in local:
+                start, n = self.model_blocks[a]
+                view = view.narrow(k, start, n)
+        view.copy_(arr)
+        return pmesh.all_reduce_sum(full, self.mesh, "model")
+
+    def _rows_block(self, arr: torch.Tensor, s_dim: int, local_dim: Optional[int],
+                    groups: int) -> torch.Tensor:
+        """Of each of `groups` equal runs of arr's rows (dim s_dim), the
+        model rank's block, with all columns: when dim local_dim holds this
+        rank's block of a sharded axis, each rank sends each other rank its
+        block of rows (an all-to-all over the model group) and the column
+        blocks received are joined in rank order."""
+        if local_dim is None:
+            return pmesh.rows_of(arr, self.mesh, groups, dim=s_dim)
+        m = self.mesh.axis_size("model")
+        a = arr.movedim(s_dim, 0)
+        c = local_dim - (local_dim > s_dim)  # the local dim among the columns
+        rows, cols = a.shape[0], tuple(a.shape[1:])
+        if rows % (groups * m):
+            raise ValueError(f"{rows} rows do not split into {groups} runs over "
+                             f"{m} model ranks")
+        rb = rows // (groups * m)
+        send = a.reshape((groups, m, rb) + cols).transpose(0, 1)
+        got = pmesh.all_to_all(send.contiguous(), self.mesh, "model")
+        # (m, groups, rb, cols...): the rank-k block beside the local dim
+        got = got.movedim(0, 3 + c - 1)
+        shape = list(got.shape)
+        shape[3 + c - 1:3 + c + 1] = [m * shape[3 + c]]
+        return got.reshape([groups * rb] + shape[2:]).movedim(0, s_dim)
+
+    def rows_for_gram(self, J, groups: int = 1):
+        """This rank's rows of a Jacobian for the Gram stage under the 2-D
+        mesh, with all its columns: of each of `groups` equal runs of its
+        samples (the chunks of a merged batch), the model rank's block, as a
+        1-D mesh of every rank would hold them. J is an operand (axes, arr)
+        or a packed Jacobian (packed_jacobian's dict)."""
+        t = self.topology
+        if isinstance(J, dict):
+            arr, n_out = J["arr"], J["n_out"]
+            axes = (t.sample_axis,) + J["out_part"] + (J["a0"],) + J["rest"]
+            full = arr.reshape(arr.shape[:1 + n_out] + J["node_local_shape"])
+            local = self._packed_local(J)
+            if len(local) > 1:
+                raise ValueError(f"J holds blocks of several sharded axes {local}")
+            got = self._rows_block(full, 0, axes.index(next(iter(local)))
+                                   if local else None, groups)
+            return dict(J, arr=got.reshape(got.shape[:2 + n_out] + (-1,)),
+                        node_local_shape=tuple(got.shape[1 + n_out:]))
+        axes, arr = J
+        local = self._local_axes([J])
+        if len(local) > 1:
+            raise ValueError(f"J holds blocks of several sharded axes {local}")
+        return (axes, self._rows_block(arr, axes.index(t.sample_axis),
+                                       axes.index(next(iter(local))) if local else None,
+                                       groups))
 
     # ------------------------------------------------------------------ inputs
     def bind_inputs(self, x) -> Dict[str, torch.Tensor]:
@@ -169,15 +317,21 @@ class Network:
     # ------------------------------------------------------------ environments
     def env_step(self, prev: Optional[Operand], ci: int, params, inputs,
                  cols_so_far: Sequence[int]) -> Operand:
-        """Contract column `ci` into the running environment."""
+        """Contract column `ci` into the running environment (summed over
+        the model group where it sums a model-sharded axis)."""
         col_ops = self.column_operands(ci, params, inputs)
         keep = self.env_keep(cols_so_far)
+        ops = ([prev] if prev is not None else []) + col_ops
+        local = self._local_axes(ops) if self.model_blocks else set()
+        if local:
+            ops = self._slice_ops(ops, local)
+            col_ops = ops[len(ops) - len(col_ops):]
         if prev is not None:
             fast = self._env_step_conv_fast(prev, col_ops, keep)
             if fast is not None:
-                return (keep, fast)
-        ops = ([prev] if prev is not None else []) + col_ops
-        return (keep, contract(ops, keep, self.aux_precision))
+                return (keep, self._model_sum(fast, local - set(keep)))
+        return (keep, self._model_sum(contract(ops, keep, self.aux_precision),
+                                      local - set(keep)))
 
     def _env_step_conv_fast(self, prev, col_ops, keep):
         """Staged lowering of a conv-TT-like column advance, or None.
@@ -229,8 +383,11 @@ class Network:
         # conv := the operand sharing X's q; core := the one sharing p. Keep
         # the operand-order roles unless their intermediates exceed the byte
         # cap; swap only then, falling back to the generic einsum when
-        # neither choice fits (same rule as the JAX package).
-        szs = t.axis_size
+        # neither choice fits (same rule as the JAX package). Sizes are the
+        # operands' own: a model-sharded axis is this rank's block
+        szs = dict(t.axis_size)
+        for ax, arr in [prev] + col_ops:
+            szs.update(zip(ax, arr.shape))
         B_guess = X.shape[x_axes.index(s)]
         cap = STAGED_MAX_BYTES
 
@@ -253,7 +410,7 @@ class Network:
             return None
         if set(keep) != {s, r_k, cb_k, *outs}:
             return None
-        sz = t.axis_size
+        sz = szs
         Pn, Qn = sz[p], sz[q]
         CBb, CBk, Rb, Rk = sz[cb_b], sz[cb_k], sz[r_b], sz[r_k]
         O = 1
@@ -315,11 +472,22 @@ class Network:
         return tuple(keep)
 
     def forward(self, params, x) -> torch.Tensor:
-        """Model output with axes ordered as output_labels."""
+        """Model output with axes ordered as output_labels, at the network's
+        precision. Under the model sharding column by column, each column's
+        sum over its sharded axis summed over the model group."""
         inputs = self.bind_inputs(x)
+        if self.model_blocks:
+            ncols = len(self.topology.columns)
+            prev: List[Operand] = []
+            for ci in range(ncols):
+                keep = (self.env_keep(range(ci + 1)) if ci < ncols - 1
+                        else self.output_keep())
+                ops = prev + self.column_operands(ci, params, inputs)
+                prev = [(keep, self._tp_contract(ops, keep, self.precision))]
+            return prev[0][1]
         ops = [self.operand(ni, params, inputs)
                for ni in range(len(self.topology.nodes))]
-        return contract(ops, self.output_keep())
+        return contract(ops, self.output_keep(), self.precision)
 
     # --------------------------------------------------------------- jacobian
     def jacobian_operands(self, ni: int, params, inputs,
@@ -355,7 +523,7 @@ class Network:
         Jacobian of the (multi-linear) output w.r.t. that node."""
         ops = self.jacobian_operands(ni, params, inputs, left_env, right_env)
         keep = self.jacobian_keep(ni, [ax for ax, _ in ops])
-        return (keep, contract(ops, keep, self.aux_precision))
+        return (keep, self._tp_contract(ops, keep, self.aux_precision))
 
     # ------------------------------------------------------ packed jacobian
     def column_operand_axes(self, ni: int, left_axes, right_axes
@@ -434,7 +602,9 @@ class Network:
     def packed_jacobian(self, ni: int, params, inputs, left_env, right_env):
         """Layout-packed Jacobian (S, [out...], A0, prod(rest node axes)),
         stored in the Gram operand dtype (bf16 under the bf16/int8 tiers),
-        or None (see packed_plan)."""
+        or None (see packed_plan). Under the model sharding a sharded node
+        axis holds this rank's block (`node_local_shape`: the sizes of A0
+        and the rest axes as stored)."""
         ops = self.jacobian_operands(ni, params, inputs, left_env, right_env)
         if any(arr.is_complex() for _, arr in ops):
             return None
@@ -445,41 +615,51 @@ class Network:
         s = t.sample_axis
         li, a0, rest, bridges = plan["li"], plan["a0"], plan["rest"], plan["bridges"]
         out_part = plan["out_part"]
+        local = self._local_axes(ops) if self.model_blocks else set()
+        ops = self._slice_ops(ops, local)
         L_axes, L_arr = ops[li]
         others = [op for i, op in enumerate(ops) if i != li]
         # stage 1: everything but L, rest axes flattened last
         prec = self.aux_precision
-        W = contract(others, (s,) + bridges + rest, prec)
+        W_keep = (s,) + bridges + rest
+        summed = {a for ax, _ in others for a in ax} - set(W_keep)
+        W = self._model_sum(contract(others, W_keep, prec), local & summed)
         S_sz = W.shape[0]
         b_sz = 1
         for a in bridges:
-            b_sz *= t.axis_size[a]
-        W2 = W.reshape(S_sz, b_sz, plan["r_sz"])
+            b_sz *= W.shape[W_keep.index(a)]
+        rest_shape = tuple(W.shape[1 + len(bridges):])
+        W2 = W.reshape(S_sz, b_sz, -1)
         # stage 2: batched matmul over the sample axis
         perm = ([L_axes.index(s)] + [L_axes.index(a) for a in out_part]
                 + [L_axes.index(a0)] + [L_axes.index(a) for a in bridges])
         c_sz = 1
         for a in out_part:
             c_sz *= t.axis_size[a]
-        L3 = L_arr.permute(*perm).reshape(S_sz, c_sz * plan["a0_sz"], b_sz)
-        J2 = matmul(L3, W2, prec)
+        a0_sz = L_arr.shape[L_axes.index(a0)]
+        L3 = L_arr.permute(*perm).reshape(S_sz, c_sz * a0_sz, b_sz)
+        J2 = self._model_sum(matmul(L3, W2, prec), local & set(bridges))
         gd = kgram.gram_dtype()
         if gd is not None:
             # stored in the Gram operand dtype: every consumer wants bf16
             # operands, so this loses nothing and halves J's footprint
             J2 = J2.to(gd)
         out_sizes = tuple(t.axis_size[a] for a in out_part)
-        J2 = J2.reshape((S_sz,) + out_sizes + (plan["a0_sz"], plan["r_sz"]))
-        return dict(plan, arr=J2)
+        J2 = J2.reshape((S_sz,) + out_sizes + (a0_sz, W2.shape[2]))
+        return dict(plan, arr=J2, node_local_shape=(a0_sz,) + rest_shape)
 
     def packed_predict(self, pj, core: torch.Tensor) -> torch.Tensor:
         """J · core at the aux precision, f32 out; the core is cast to J's
-        dtype first, as in the JAX package."""
+        dtype first, as in the JAX package. Under the model sharding a J
+        holding blocks of a sharded axis meets the core's blocks, and the
+        prediction is summed over the model group."""
         J2 = pj["arr"]
-        D = pj["a0_sz"] * pj["r_sz"]
+        local = self._packed_local(pj)
+        core = self._slice_ops([((pj["a0"],) + pj["rest"], core)], local)[0][1]
+        D = J2.shape[-2] * J2.shape[-1]
         core2 = core.reshape(D, 1).to(J2.dtype)
         pred = matmul(J2.reshape(-1, D), core2, self.aux_precision)
-        pred = pred.reshape(J2.shape[:-2])
+        pred = self._model_sum(pred.reshape(J2.shape[:-2]), local)
         if pj["pad_out"]:
             pred = pred.reshape(pred.shape + (1,) * pj["pad_out"])
         return pred
@@ -519,6 +699,9 @@ class Network:
         caller finishes the carry once with packed_gram_finisher. Without
         `acc` a fresh carry is used and the finished (D, D) A returned.
         Elsewhere A is the full (D, D) f32 product of plain dots."""
+        if self.model_blocks and self._packed_local(pj):
+            raise ValueError("packed_gram_rhs needs all of J's columns: take "
+                             "rows_for_gram's rows first")
         J2 = pj["arr"]
         n_out = pj["n_out"]
         S_sz = J2.shape[0]
@@ -532,6 +715,7 @@ class Network:
         g2 = grad.reshape(S_sz, -1).to(J3.dtype)
         gd = kgram.gram_dtype()
         prec = self.aux_precision
+        dot_prec = self.precision if gd is None else "highest"
         if self.packed_kernel_route(pj):
             finish = acc is None
             if finish:
@@ -582,12 +766,13 @@ class Network:
         else:
             H2 = hess.reshape(S_sz, C_sz, C_sz).to(J3.dtype)
             # K[s,c',d] = sum_c H[s,c,c'] J[s,c,d] (bf16 under the bf16/int8
-            # tiers: the JAX package runs this dot at DEFAULT precision)
-            K3 = torch.bmm(H2.transpose(1, 2).float(), J3.float()).to(J3.dtype)
+            # tiers: the JAX package runs this dot at DEFAULT precision, whose
+            # bf16 products "highest" runs exactly in f32)
+            K3 = matmul(H2.transpose(1, 2), J3, dot_prec).to(J3.dtype)
         Jop, Kop = J3, K3
         if gd is not None:
             Jop, Kop = J3.to(gd), K3.to(gd)
-        A = Jop.reshape(-1, D).float().T @ Kop.reshape(-1, D).float()
+        A = matmul(Jop.reshape(-1, D).T, Kop.reshape(-1, D), dot_prec)
         return A, b
 
     def predict_from_jacobian(self, ni: int, J: Operand,
@@ -596,19 +781,22 @@ class Network:
         each node."""
         J_axes, J_arr = J
         node_axes = self.topology.node_axes[ni]
-        return contract([(J_axes, J_arr), (node_axes, core)], self.output_keep(),
-                        self.aux_precision)
+        return self._tp_contract([(J_axes, J_arr), (node_axes, core)],
+                                 self.output_keep(), self.aux_precision)
 
     # ------------------------------------------------------------------- A, b
     def rhs(self, ni: int, J: Operand, grad: torch.Tensor) -> torch.Tensor:
         """b = Jᴴ g over the node axes, at the aux precision: the rhs line
-        of gram_and_rhs, alone (the gradient method needs no A)."""
+        of gram_and_rhs, alone (the gradient method needs no A). Whole on
+        every model rank: assembled over the model group from J's blocks of
+        a sharded axis."""
         t = self.topology
         J_axes, J_arr = J
         Jc = J_arr.conj() if J_arr.is_complex() else J_arr
         g_axes = (t.sample_axis,) + t.output_axes
-        return contract([(J_axes, Jc), (g_axes, grad)], t.node_axes[ni],
-                        self.aux_precision)
+        b = self._tp_contract([(J_axes, Jc), (g_axes, grad)], t.node_axes[ni],
+                              self.aux_precision)
+        return self._assemble(t.node_axes[ni], b)
 
     def _kernel_gram(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """Symmetric Gram XᵀY of flat (rows, D) operands through the Gram
@@ -642,6 +830,9 @@ class Network:
         missing = [a for a in node_axes if a not in present]
         if missing:
             raise ValueError(f"node axes {missing} appear in neither jacobian nor outputs")
+        if self.model_blocks and self._local_axes([J]):
+            raise ValueError("gram_and_rhs needs all of J's columns: take "
+                             "rows_for_gram's rows first")
 
         b = self.rhs(ni, J, grad)
 
@@ -688,13 +879,13 @@ class Network:
                     A = kgram.mirror_gram(kgram.weighted_gram(
                         J2.contiguous(), W.reshape(S * C).float().contiguous()))
                 else:
-                    K2 = torch.einsum("scd,sci->sdi", W.to(J3.dtype),
-                                      J3).reshape(S * C, D)
+                    K2 = matmul(W.to(J3.dtype).transpose(1, 2), J3,
+                                self.precision).reshape(S * C, D)
                     if gd is not None:
                         J2, K2 = J2.to(gd), K2.to(gd)
                     A = self._kernel_gram(J2, K2)
             else:
-                A = _flat_gram(J3, W, diag)
+                A = _flat_gram(J3, W, diag, self.precision)
             return A.reshape(node_shape + node_shape), b
 
         # ---- general einsum path ------------------------------------------
@@ -723,6 +914,8 @@ class Network:
                     DJ *= t.axis_size[a]
                 if S_sz * C_sz * C_sz * DJ <= OWNOUT_K_MAX_ELEMS:
                     gd = kgram.gram_dtype()
+                    # bf16 operands' products are exact in f32 ("highest")
+                    dot_prec = self.precision if gd is None else "highest"
                     perm = [J_axes.index(s)] + [J_axes.index(a) for a in rest]
                     Jf = J_arr.permute(*perm).reshape(S_sz, DJ)
                     Hf = hess.reshape(S_sz, C_sz, C_sz)
@@ -759,14 +952,14 @@ class Network:
                         iu_t = torch.as_tensor(iu, device=Hop.device)
                         ju_t = torch.as_tensor(ju, device=Hop.device)
                         Kup = Hop[:, iu_t, ju_t, None] * Jop[:, None, :]
-                        A_raw = (Kup.reshape(S_sz, len(iu) * DJ).float().T
-                                 @ Jop.float()).to(J_arr.dtype)
+                        A_raw = matmul(Kup.reshape(S_sz, len(iu) * DJ).T, Jop,
+                                       dot_prec).to(J_arr.dtype)
                         defer_ownout["plan"] = (
                             C_sz, DJ, out_sizes, rest_sizes, perm_out)
                         return A_raw.reshape(len(iu), DJ, DJ), b
                     K4 = Hop[:, :, :, None] * Jop[:, None, None, :]
-                    A_raw = (K4.reshape(S_sz, C_sz * C_sz * DJ).float().T
-                             @ Jop.float()).to(J_arr.dtype)
+                    A_raw = matmul(K4.reshape(S_sz, C_sz * C_sz * DJ).T, Jop,
+                                   dot_prec).to(J_arr.dtype)
                     A5 = A_raw.reshape(out_sizes + out_sizes
                                        + rest_sizes + rest_sizes)
                     return A5.permute(*perm_out), b
@@ -780,7 +973,8 @@ class Network:
             J2_axes = tuple(primed.get(a, a) if a != s else s for a in J_axes)
         keep_A = node_axes + tuple(primed.get(a, a) for a in node_axes)
         Jc = J_arr.conj() if J_arr.is_complex() else J_arr
-        A = contract([(J_axes, Jc), (J2_axes, J_arr), (H_axes, hess)], keep_A)
+        A = contract([(J_axes, Jc), (J2_axes, J_arr), (H_axes, hess)], keep_A,
+                     self.precision)
         return A, b
 
     @staticmethod
@@ -806,8 +1000,8 @@ class Network:
     # at the aux tier's: only the operands they are handed (environments,
     # jacobian_operands) come from the aux sites. Each is one contraction
     # over the Jacobian's operands, planned under contract's memory cap, so
-    # J itself is never built.
-    precision = "highest"
+    # J itself is never built. Under the model sharding each result is whole
+    # on every model rank.
 
     def jacobian_apply(self, ni: int, operands: Sequence[Operand],
                        v: torch.Tensor) -> torch.Tensor:
@@ -815,7 +1009,7 @@ class Network:
         t = self.topology
         keep = (t.sample_axis,) + t.output_axes
         ops = list(operands) + [(t.node_axes[ni], v)]
-        return contract(ops, keep, self.precision)
+        return self._tp_contract(ops, keep, self.precision)
 
     def jacobian_transpose_apply(self, ni: int, operands: Sequence[Operand],
                                  u: torch.Tensor) -> torch.Tensor:
@@ -824,7 +1018,8 @@ class Network:
         u_axes = (t.sample_axis,) + t.output_axes
         ops = [(axes, arr.conj() if arr.is_complex() else arr)
                for axes, arr in operands] + [(u_axes, u)]
-        return contract(ops, t.node_axes[ni], self.precision)
+        out = self._tp_contract(ops, t.node_axes[ni], self.precision)
+        return self._assemble(t.node_axes[ni], out)
 
     def hessian_apply(self, hess: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """H u over the output axes; diagonal (ndim == u.ndim) or full."""
@@ -848,8 +1043,8 @@ class Network:
         out_axes = t.output_axes
         s = t.sample_axis
         coeff_keep = (s,) + out_axes
-        Jv = contract([(J_axes, J_arr), (node_axes, v)], coeff_keep,
-                      self.precision)
+        Jv = self._tp_contract([(J_axes, J_arr), (node_axes, v)], coeff_keep,
+                               self.precision)
         if hess.ndim == grad_ndim:
             coeff = hess * Jv
         else:
@@ -858,19 +1053,22 @@ class Network:
                               ((s,) + tuple(_prime(a) for a in out_axes), Jv)],
                              coeff_keep, self.precision)
         Jc = J_arr.conj() if J_arr.is_complex() else J_arr
-        return contract([(J_axes, Jc), (coeff_keep, coeff)], node_axes,
-                        self.precision)
+        return self._assemble(node_axes, self._tp_contract(
+            [(J_axes, Jc), (coeff_keep, coeff)], node_axes, self.precision))
 
 
-def _flat_gram(J3: torch.Tensor, W: torch.Tensor, diag: bool) -> torch.Tensor:
-    """A = sum_s J3ᴴ W J3 over (sample, class) rows, as one flat matmul."""
+def _flat_gram(J3: torch.Tensor, W: torch.Tensor, diag: bool,
+               precision: str) -> torch.Tensor:
+    """A = sum_s J3ᴴ W J3 over (sample, class) rows, as one flat matmul at
+    `precision`."""
     S, C, D = J3.shape
     if diag:
         K = J3 * W[..., None].to(J3.dtype)
     else:
-        K = torch.einsum("scd,sci->sdi", W.to(J3.dtype), J3)
+        K = matmul(W.to(J3.dtype).transpose(1, 2), J3, precision).to(J3.dtype)
     Jc = J3.conj() if J3.is_complex() else J3
-    return Jc.reshape(S * C, D).T @ K.reshape(S * C, D)
+    return matmul(Jc.reshape(S * C, D).T, K.reshape(S * C, D), precision).to(
+        torch.promote_types(J3.dtype, K.dtype))
 
 
 def _embed_diag(hess_diag: torch.Tensor) -> torch.Tensor:

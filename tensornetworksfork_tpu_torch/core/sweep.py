@@ -40,9 +40,17 @@ the loop.
   matrix-free branch b, the loss and every matvec), and the solve runs
   replicated. An input-less member's update sees every row on every rank
   and is not summed. Branches that decide whether collectives run (the
-  timeout, convergence, the singular flag) take rank 0's decision. The
-  2-D data x model mesh (ROADMAP item 17, step 2) raises
-  NotImplementedError.
+  timeout, convergence, the singular flag) take rank 0's decision.
+- Under a 2-D (data x model) mesh with `model_axis_labels` the input axes
+  of those labels are sharded over the model axis as well, and the
+  networks sum over the model group where a contraction sums them
+  (`Network.shard_model`): the environments, Jacobians and predictions of
+  a data shard's rows are whole on each of its model ranks. The dense
+  branch then gives each rank its block of those rows with all of J's
+  columns (`Network.rows_for_gram`: the rows a 1-D mesh of every rank would
+  give it) and sums A, b and the loss over every rank, as the 1-D mesh
+  does; the matrix-free and gradient branches, whose sums are whole on the
+  model ranks, sum over the data axis alone.
 """
 from __future__ import annotations
 
@@ -211,14 +219,30 @@ class Sweeper:
             for t in ts:
                 pmesh.all_reduce_sum(t, self._mesh)
 
+    def _sum_data(self, *ts) -> None:
+        """Sums each tensor over the mesh's data axis, in place: sums whole
+        on the model ranks of a 2-D mesh (on a 1-D mesh, every rank)."""
+        if self._mesh is not None:
+            for t in ts:
+                pmesh.all_reduce_sum(t, self._mesh, self._mesh.axis_names[0])
+
+    def _model_mesh(self):
+        """The mesh when it has a model axis (the 2-D mesh), else None."""
+        m = self._mesh
+        return m if m is not None and "model" in m.axis_names else None
+
     # ------------------------------------------------------------------ data
-    def _prepare(self, x, y, sample_weight, mesh=None):
+    def _prepare(self, x, y, sample_weight, mesh=None, model_labels=()):
         """Pads the sample axis and stores everything pre-chunked as
         (nchunks, B, ...); padding rows carry weight 0. With a mesh, B is
-        rounded up to a multiple of its size and each rank keeps its block
-        of every chunk's rows (`shard_chunked`); the full chunked y and w
-        are kept as well for input-less members, whose updates see every
-        row."""
+        rounded up to a multiple of its size (d x m on a 2-D mesh: the Gram
+        stage splits a data shard's rows over the model ranks, and the port
+        has no unsharded product to fall back on when they do not split;
+        the padding rows weigh 0, so no sum changes) and each rank keeps its
+        data block of every chunk's rows (`shard_chunked`), and with
+        `model_labels` its model block of those input axes
+        (`shard_chunked_inputs`); the full chunked y and w are kept as well
+        for input-less members, whose updates see every row."""
         S = int(y.shape[0])
         B = self.cfg.batch_size
         if B is None or B <= 0 or B > S:
@@ -260,25 +284,33 @@ class Sweeper:
             if any(not m.net.topology.input_nodes for m in self.members):
                 data["y_full"], data["w_full"] = data["y"], data["w"]
             data["y"], data["w"] = pmesh.shard_chunked((data["y"], data["w"]), mesh)
-            # members sharing a chunked input share its shard too
-            shards: Dict[int, torch.Tensor] = {}
+            # members sharing a chunked input (and its labels) share its
+            # shard too
+            shards: Dict = {}
 
-            def shard_once(v):
-                if id(v) not in shards:
-                    shards[id(v)] = pmesh.shard_chunked(v, mesh)
-                return shards[id(v)]
-            data["inputs"] = [{k: shard_once(v) for k, v in d.items()}
-                              for d in data["inputs"]]
+            def shard_once(v, labels):
+                if (id(v), labels) not in shards:
+                    shards[id(v), labels] = pmesh.shard_chunked_inputs(
+                        {"v": v}, mesh, {"v": labels}, model_labels)["v"]
+                return shards[id(v), labels]
+            for mi, m in enumerate(self.members):
+                t = m.net.topology
+                labels = {t.nodes[ni].name: tuple(lb for lb in t.nodes[ni].labels
+                                                  if lb != t.sample_dim)
+                          for ni in t.input_nodes}
+                data["inputs"][mi] = {k: shard_once(v, labels.get(k, ()))
+                                      for k, v in data["inputs"][mi].items()}
         return data
 
-    def _prepare_cached(self, x, y, sample_weight, mesh=None):
+    def _prepare_cached(self, x, y, sample_weight, mesh=None, model_labels=()):
         """_prepare memoised on input identity and the mesh: repeated run()
         calls on the same tensors skip re-chunking and keep the environment
         history valid across epochs. The history is keyed on
         TNF_AUX_PRECISION as well (environments depend on the contraction
         precision), as in the JAX package."""
         aux = os.environ.get("TNF_AUX_PRECISION", "")
-        mesh_key = None if mesh is None else (mesh.size, mesh.rank, str(mesh.device))
+        mesh_key = None if mesh is None else (tuple(mesh.shape.items()), mesh.rank,
+                                              str(mesh.device), tuple(model_labels))
         key = (x, y, sample_weight, mesh_key, self.cfg.batch_size)
         data = None
         if self._data_cache is not None:
@@ -287,7 +319,7 @@ class Sweeper:
                     and ob == self.cfg.batch_size):
                 data = cached
         if data is None:
-            data = self._prepare(x, y, sample_weight, mesh)
+            data = self._prepare(x, y, sample_weight, mesh, model_labels)
             self._data_cache = (key, data)
         elif self._hist_aux == aux:
             return data
@@ -447,19 +479,20 @@ class Sweeper:
                     pred = pred + piece["rest"]
                 loss, g, _ = weighted_terms(pred, piece)
                 b = net.rhs(ni, J, g)
-                self._sum_ranks(b)  # this chunk's rows on every rank
+                self._sum_data(b)  # this chunk's rows on every rank
                 cur = apply_update(cur, -b, cfg.lr, cfg.adaptive_step,
                                    cfg.max_norm, mask)
                 loss_acc = loss_acc + loss.sum()
                 del J, pred, g, b
-            self._sum_ranks(loss_acc)
+            self._sum_data(loss_acc)
             ok = torch.isfinite(cur).all()
             # singular guard (deferred-ok contract: see _flush_ok)
             new_core = torch.where(ok, cur, core)
         else:
             new_core, loss_acc, ok = self._update_dense(
                 net, ni, plan, method, core, mask, eps, use_rest, nc,
-                piece_at, env_ops, params, weighted_terms)
+                piece_at, env_ops, params, weighted_terms,
+                nc0 if merged else 1)
 
         pred_out = None
         if return_pred:
@@ -485,15 +518,18 @@ class Sweeper:
         return new_core, loss_acc, ok, pred_out, x_sol
 
     def _update_dense(self, net, ni, plan, method, core, mask, eps, use_rest,
-                      nc, piece_at, env_ops, params, weighted_terms):
+                      nc, piece_at, env_ops, params, weighted_terms, groups=1):
         """The dense branch: A and b accumulated over the chunks, one block
         solve. Returns (new_core, loss_sum, ok).
 
         Route: the packed Jacobian (`plan`), and with it the tiled kernel
         route whose chunk carry lives inside the Gram kernel; otherwise the
         generic Jacobian, whose own-out Gram comes back deferred for an
-        output-owning node."""
+        output-owning node. Under a 2-D mesh each chunk's J, y, w and rest
+        are cut to this rank's rows first (of each of `groups` runs, the
+        chunks of a merged batch, its model block), J with all columns."""
         cfg = self.cfg
+        tp = self._model_mesh()
         t = net.topology
         D = core.numel()
         A_acc = (net.packed_gram_acc_init(plan, core.device)
@@ -514,10 +550,17 @@ class Sweeper:
             Lop, Rop = env_ops(piece)
             pj = (net.packed_jacobian(ni, params, piece["x"], Lop, Rop)
                   if plan is not None else None)
+            J = net.jacobian(ni, params, piece["x"], Lop, Rop) if pj is None else None
+            if tp is not None:
+                if pj is not None:
+                    pj = net.rows_for_gram(pj, groups)
+                else:
+                    J = net.rows_for_gram(J, groups)
+                piece = {k: pmesh.rows_of(v, tp, groups) for k, v in piece.items()
+                         if k in ("y", "w", "rest")}
             if pj is not None:
                 pred = net.packed_predict(pj, core)
             else:
-                J = net.jacobian(ni, params, piece["x"], Lop, Rop)
                 pred = net.predict_from_jacobian(ni, J, core)
             if use_rest:
                 pred = pred + piece["rest"]
@@ -538,7 +581,7 @@ class Sweeper:
                 A_acc = A if A_acc is None else A_acc + A
             b_acc = b_acc + b
             loss_acc = loss_acc + loss.sum()
-            del pj, pred, g, H, A, b
+            del pj, J, pred, g, H, A, b
         # under a mesh: each rank's raw sums (the in-kernel carry, the
         # deferred own-out block or A) summed once, before they are finished
         self._sum_ranks(A_acc, b_acc, loss_acc)
@@ -579,7 +622,7 @@ class Sweeper:
             b_rhs = b_rhs + net.jacobian_transpose_apply(ni, ops, g)
             loss_acc = loss_acc + loss.sum()
             H_all.append(H)
-        self._sum_ranks(b_rhs, loss_acc)
+        self._sum_data(b_rhs, loss_acc)
 
         def matvec_raw(v_flat):
             v = v_flat.reshape(core.shape)
@@ -589,7 +632,7 @@ class Sweeper:
                 Av = Av + net.jacobian_transpose_apply(ni, ops, coeff)
             # one all-reduce a matvec: every rank's Krylov iterates and
             # stopping tests see the same numbers
-            self._sum_ranks(Av)
+            self._sum_data(Av)
             return Av.reshape(-1)
 
         # The ridge (the reference's iterative tier has none) and a scale
@@ -644,7 +687,7 @@ class Sweeper:
                                  core.dtype, core.device)
         ops = [net.operand(nj, params, {}) for nj in range(len(t.nodes)) if nj != ni]
         keep = net.jacobian_keep(ni, [ax for ax, _ in ops])
-        J = (keep, contract(ops, keep))
+        J = (keep, contract(ops, keep, net.precision))
         pred = net.predict_from_jacobian(ni, J, core)
         n = pred.shape[0]
         y_f = y.reshape((-1,) + tuple(y.shape[2:]))[:n]
@@ -694,24 +737,34 @@ class Sweeper:
         """Runs num_swipes * (first pass, second pass). Returns
         (params_list, success) — success False on timeout or singular solve.
 
-        mesh: a 1-D data mesh (parallel.mesh.make_mesh) shards the samples
-        over its ranks; every rank calls run with the same full x and y and
-        the same params (rank 0's are broadcast), and ends with the same
-        params. A mesh of more than one axis or `model_axis_labels` (the
-        2-D data x model mesh) raises NotImplementedError."""
-        if model_axis_labels or (mesh is not None and len(mesh.axis_names) != 1):
-            raise NotImplementedError(
-                f"mesh axes {None if mesh is None else mesh.axis_names}, model "
-                f"axis labels {tuple(model_axis_labels)}: {pmesh.STEP2}")
+        mesh: a mesh of parallel.mesh.make_mesh. A 1-D data mesh shards the
+        samples over its ranks. A 2-D (data, model) mesh shards them over
+        the data axis and, with `model_axis_labels` (topology labels, e.g.
+        ("patches",)), those input axes over the model axis: tensor
+        parallelism with explicit collectives (module docstring); the
+        params stay replicated. Every rank calls run with the same full x
+        and y and the same params (rank 0's are broadcast), and ends with
+        the same params. Raises ValueError for model axis labels without a
+        model axis, and for a labelled axis that does not split over it."""
+        model_axis_labels = tuple(model_axis_labels)
+        if model_axis_labels and (mesh is None or "model" not in mesh.axis_names):
+            raise ValueError(f"model axis labels {model_axis_labels} need a mesh with a "
+                             f"'model' axis, not {None if mesh is None else mesh.axis_names}")
         self._mesh = mesh
         try:
+            for m in self.members:
+                # input-less members keep no model sharding (no input to shard)
+                m.net.shard_model(mesh if m.net.topology.input_nodes else None,
+                                  model_axis_labels)
             return self._run(params_list, x, y, sample_weight, convergence_criterion,
-                             block_callback, loss_callback, node_order)
+                             block_callback, loss_callback, node_order, model_axis_labels)
         finally:
             self._mesh = None
+            for m in self.members:
+                m.net.shard_model(None)
 
     def _run(self, params_list, x, y, sample_weight, convergence_criterion,
-             block_callback, loss_callback, node_order):
+             block_callback, loss_callback, node_order, model_labels):
         cfg = self.cfg
         mesh = self._mesh
         if isinstance(params_list, dict):
@@ -722,7 +775,7 @@ class Sweeper:
         # live view for callbacks (convergence_criterion closures read
         # current params through sweeper.params_list)
         self.params_list = params_list
-        data = self._prepare_cached(x, y, sample_weight, mesh)
+        data = self._prepare_cached(x, y, sample_weight, mesh, model_labels)
         start = time.time()
 
         seq = [(mi, ni) for mi, m in enumerate(self.members)

@@ -59,7 +59,8 @@ class TTNaturalGradient:
         inputs = self._inputs(x)
         ops = [net.operand(nj, params, inputs) for nj in range(len(t.nodes)) if nj != ni]
         keep = net.jacobian_keep(ni, [ax for ax, _ in ops])
-        A, b = net.gram_and_rhs(ni, (keep, contract(ops, keep)), d_loss, sqd_loss)
+        A, b = net.gram_and_rhs(ni, (keep, contract(ops, keep, net.precision)),
+                                d_loss, sqd_loss)
         D = params[t.nodes[ni].name].numel()
         return A.reshape(D, D), b.reshape(D)
 

@@ -1,14 +1,18 @@
-"""The bf16 aux tier (TNF_AUX_PRECISION=default; PRECISION=fast|fastest):
-the port against the JAX package on the CPU.
+"""The bf16 aux tier (TNF_AUX_PRECISION=default; PRECISION=fast|fastest)
+and the high / default dot precisions (TNF_AUX_PRECISION=high,
+Network(precision=)): the port against the JAX package on the CPU.
 
 On a TPU a DEFAULT-precision dot rounds its operands to bf16 and sums the
-products in f32. XLA on the CPU ignores DEFAULT and runs the dot in f32, so
-the JAX side is made to round as the TPU does in one of two ways: its
-operands are rounded to bf16 before the call (a single product), or
-`tpu_default_dots` wraps the `dot_general` behind `jax.lax.dot_general`
+products in f32; a HIGH-precision dot (bf16x3) splits each f32 operand
+into hi = bf16(a) and lo = bf16(a - hi) and sums the three products
+hi·hi, hi·lo and lo·hi in f32. XLA on the CPU ignores both and runs the
+dot in f32, so the JAX side is made to round as the TPU does in one of two
+ways: its operands are rounded to bf16 before the call (a single product),
+or `tpu_default_dots` wraps the `dot_general` behind `jax.lax.dot_general`
 and `jnp.einsum` for the test's duration, rounding the operands of every
-dot asked for at DEFAULT precision (products chained through rounded
-intermediates). Nothing in the JAX package changes.
+dot asked for at DEFAULT precision and splitting those of every dot asked
+for at HIGH (products chained through rounded intermediates). Nothing in
+the JAX package changes.
 """
 import functools
 
@@ -41,25 +45,34 @@ def bf16(a):
     return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
 
 
-def _is_default(p):
-    D = jax.lax.Precision.DEFAULT
+def _is(p, want):
     if isinstance(p, (tuple, list)):
-        return len(p) > 0 and all(q == D for q in p)
-    return p == D
+        return len(p) > 0 and all(q == want for q in p)
+    return p == want
+
+
+def _bf16(x):
+    return x.astype(jnp.bfloat16).astype(jnp.float32) if x.dtype == jnp.float32 else x
 
 
 @pytest.fixture
 def tpu_default_dots(monkeypatch):
     """The JAX package's DEFAULT dots round their f32 operands to bf16 and
-    sum in f32, as on the TPU."""
+    sum in f32, and its HIGH dots sum the three bf16 products of bf16x3 in
+    f32, hi·hi + (hi·lo + lo·hi), as on the TPU."""
     orig = jax.lax.dot_general
 
     def dot(lhs, rhs, dimension_numbers, precision=None,
             preferred_element_type=None, **kw):
-        if _is_default(precision):
-            lhs, rhs = (x.astype(jnp.bfloat16).astype(jnp.float32)
-                        if x.dtype == jnp.float32 else x for x in (lhs, rhs))
-            precision = jax.lax.Precision.HIGHEST
+        def one(a, b):
+            return orig(a, b, dimension_numbers, jax.lax.Precision.HIGHEST,
+                        preferred_element_type=preferred_element_type, **kw)
+        if _is(precision, jax.lax.Precision.DEFAULT):
+            return one(_bf16(lhs), _bf16(rhs))
+        if _is(precision, jax.lax.Precision.HIGH) and jnp.float32 in (lhs.dtype, rhs.dtype):
+            lh, rh = _bf16(lhs), _bf16(rhs)
+            ll, rl = _bf16(lhs - lh), _bf16(rhs - rh)
+            return one(lh, rh) + (one(lh, rl) + one(ll, rh))
         return orig(lhs, rhs, dimension_numbers, precision,
                     preferred_element_type=preferred_element_type, **kw)
 
@@ -139,6 +152,59 @@ def test_matmul_default_rounds_operands():
                                    atol=1e-6 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("axes,keep,shapes", PAIRS + [
+    ([(0, 1, 7), (1, 2)], (2, 0), [(6, 8, 3), (8, 5)]),
+    ([(0, 1), (1, 2), (2, 3)], (0, 3), [(12, 20), (20, 15), (15, 4)]),
+])
+def test_contract_high_matches_jax_tpu_rounding(axes, keep, shapes, tpu_default_dots):
+    """contract(..., "high") against the JAX contract at HIGH with the
+    TPU's bf16x3: 1e-6 of max|A| (f32 sums in another order). Single-pass
+    rounding ("default") misses it by more than 1e-4 of max|A|, so a port
+    that drops the lo terms fails here."""
+    rng = np.random.default_rng(11 + len(axes))
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    ops = [(a, torch.from_numpy(x)) for a, x in zip(axes, arrs)]
+    got = tcon.contract(ops, keep, "high").numpy()
+    want = np.asarray(jcon.contract([(a, jnp.asarray(x)) for a, x in zip(axes, arrs)],
+                                    keep, jax.lax.Precision.HIGH))
+    scale = np.abs(want).max()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    single = tcon.contract(ops, keep, "default").numpy()
+    assert np.abs(single - want).max() > 1e-4 * scale
+
+
+def test_matmul_high_is_bf16x3():
+    """matmul at "high": the three products of the operands' bf16 parts,
+    summed in f32, for 2-D and batched operands. Against float64 of the
+    operands as given its error stays below 2^-18 of sum|a||b| per entry
+    (measured 8.7e-7 of it: bf16x3 drops lo·lo and lo's rounding, about
+    2^-17 of each product), while "default"'s exceeds it (5.1e-4): the
+    product without the lo terms fails the bound. hi + lo reproduces each operand within 2^-16 of its size."""
+    rng = np.random.default_rng(5)
+    for sa, sb in (((30, 400), (400, 7)), ((3, 30, 400), (3, 400, 7))):
+        a = torch.from_numpy(rng.standard_normal(sa).astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(sb).astype(np.float32))
+        exact = a.double() @ b.double()
+        size = a.double().abs() @ b.double().abs()
+        hi, lo = tcon.split_bf16(a)
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        assert float(((hi.double() + lo.double() - a.double()).abs()
+                      / a.double().abs()).max()) <= 2.0 ** -16
+        errs = {}
+        for p in ("high", "default", "highest"):
+            got = tcon.matmul(a, b, p)
+            assert got.dtype == torch.float32
+            errs[p] = float(((got.double() - exact).abs() / size).max())
+        assert errs["high"] <= 2.0 ** -18 < errs["default"], errs
+        assert errs["highest"] <= errs["high"], errs
+        (ah, al), (bh, bl) = tcon.split_bf16(a), tcon.split_bf16(b)
+        want = (ah.double() @ bh.double()) + (ah.double() @ bl.double()
+                                              + al.double() @ bh.double())
+        np.testing.assert_allclose(tcon.matmul(a, b, "high").double().numpy(), want.numpy(),
+                                   rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
 # a small conv-TT: 3 carriages, so the middle core A2 has a left and a right
 # environment and the column advance into column 1 takes the staged lowering
 N, R, CB, P, PP, C, S = 3, 4, 2, 6, 5, 3, 16
@@ -178,6 +244,28 @@ def test_env_step_conv_fast_default_matches_jax(monkeypatch, tpu_default_dots):
     assert np.abs(f32.numpy() - got).max() > 1e-4 * scale
 
 
+def test_env_step_conv_fast_high_matches_jax(monkeypatch, tpu_default_dots):
+    """The staged conv advance at TNF_AUX_PRECISION=high against the JAX one
+    with the TPU's bf16x3: 1e-6 of max|env|; its "default" form misses it
+    by more than 1e-4 of it."""
+    monkeypatch.setenv("TNF_AUX_PRECISION", "high")
+    jl, tl, X = conv_pair()
+    jnet, tnet = jl.network, tl.network
+    ji, ti = jnet.bind_inputs(jnp.asarray(X)), tnet.bind_inputs(torch.from_numpy(X))
+    jprev = jnet.env_step(None, 0, jl.params, ji, [0])
+    tprev = tnet.env_step(None, 0, tl.params, ti, [0])
+    keep = tnet.env_keep([0, 1])
+    got = tnet._env_step_conv_fast(tprev, tnet.column_operands(1, tl.params, ti), keep)
+    want = jnet._env_step_conv_fast(jprev, jnet.column_operands(1, jl.params, ji), keep)
+    assert got is not None and want is not None
+    got, want = got.numpy(), np.asarray(want)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    single = tnet._env_step_conv_fast(tprev, tnet.column_operands(1, tl.params, ti), keep)
+    assert np.abs(single.numpy() - want).max() > 1e-4 * scale
+
+
 @pytest.mark.parametrize("gram", ["f32", "bf16"])
 def test_packed_jacobian_and_predict_default_match_jax(gram, monkeypatch,
                                                        tpu_default_dots):
@@ -209,21 +297,43 @@ def test_packed_jacobian_and_predict_default_match_jax(gram, monkeypatch,
 
 
 def test_aux_precision_reads_env_each_call(monkeypatch):
+    """TNF_AUX_PRECISION is read on every call, each of the JAX package's
+    three names accepted and any other raising; TNF_PRECISION is read once,
+    at import, as in the JAX package, so setting it later leaves the
+    networks' precision as it was."""
     jl, tl, _ = conv_pair()
     net = tl.network
     monkeypatch.delenv("TNF_AUX_PRECISION", raising=False)
     assert net.aux_precision == "highest"
-    monkeypatch.setenv("TNF_AUX_PRECISION", "DEFAULT")
-    assert net.aux_precision == "default"
-    monkeypatch.setenv("TNF_AUX_PRECISION", "high")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+    for name in ("DEFAULT", "high", "highest"):
+        monkeypatch.setenv("TNF_AUX_PRECISION", name)
+        assert net.aux_precision == name.lower()
+    monkeypatch.setenv("TNF_AUX_PRECISION", "bf16")
+    with pytest.raises(ValueError, match="precision must be one of"):
         net.aux_precision
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+    with pytest.raises(ValueError, match="precision must be one of"):
         Network(tl.topology, device="cpu")
     monkeypatch.setenv("TNF_AUX_PRECISION", "default")
     monkeypatch.setenv("TNF_PRECISION", "default")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        Network(tl.topology, device="cpu")
+    from tensornetworksfork_tpu_torch.core import engine
+    assert Network(tl.topology, device="cpu").precision == engine.DEFAULT_PRECISION
+
+
+def test_unset_aux_precision_follows_the_network(monkeypatch):
+    """With TNF_AUX_PRECISION unset the auxiliary contractions run at the
+    network's precision (JAX engine.py aux_precision); set, it wins. The
+    JAX package's networks do the same."""
+    jl, tl, _ = conv_pair()
+    monkeypatch.delenv("TNF_AUX_PRECISION", raising=False)
+    for name, jp in (("high", jax.lax.Precision.HIGH),
+                     ("default", jax.lax.Precision.DEFAULT),
+                     ("highest", jax.lax.Precision.HIGHEST)):
+        assert Network(tl.topology, device="cpu", precision=name).aux_precision == name
+        assert JNetwork(jl.topology, precision=jp).aux_precision == jp
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    assert Network(tl.topology, device="cpu", precision="high").aux_precision == "default"
+    assert (JNetwork(jl.topology, precision=jax.lax.Precision.HIGH).aux_precision
+            == jax.lax.Precision.DEFAULT)
 
 
 # One swipe of a tiny conv-TT (4 carriages) in the fast and fastest tiers,
@@ -272,6 +382,69 @@ def test_swipe_in_aux_tiers_matches_jax(tier, rtol, monkeypatch, tpu_default_dot
     assert all(np.isfinite(v).all() for v in pt.values())
     np.testing.assert_allclose(pred_t, pred_j, rtol=0,
                                atol=rtol * np.abs(pred_j).max())
+
+
+# A bf16x3 product moves by about 2^-17 of itself (7.6e-6) where an input
+# that moved by one f32 ulp crosses a rounding step of its lo part, and one
+# ulp moves lo's rounding about 256 times as often as a DEFAULT operand's;
+# so a swipe's 14 chained updates carry the packages' reordered f32 sums
+# further at "high" than at "default" or "highest". Measured over seeds
+# 0-2, f32 Gram operands: a single node update 9e-8..4e-7 of max|core| (as
+# at "highest"), the whole swipe's predictions 8.6e-6..1.3e-5 of max|pred|
+# ("highest": 3e-7..6e-7). Held to 3e-5.
+HIGH_SWIPE_RTOL = 3e-5
+
+
+def test_swipe_at_high_aux_precision_matches_jax(monkeypatch, tpu_default_dots):
+    """One swipe with TNF_AUX_PRECISION=high on the tiled kernel route (f32
+    Gram operands) against the JAX package with the TPU's bf16x3:
+    predictions within HIGH_SWIPE_RTOL of max|pred|. Single-pass rounding
+    misses it by more."""
+    monkeypatch.setenv("TNF_AUX_PRECISION", "high")
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    monkeypatch.setenv("TNF_FULLBATCH_MAX_BYTES", "0")
+    okj, okt, pred_j, pred_t, pt = swipe_both(0)
+    assert okj and okt
+    scale = np.abs(pred_j).max()
+    np.testing.assert_allclose(pred_t, pred_j, rtol=0, atol=HIGH_SWIPE_RTOL * scale)
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    _, _, _, pred_single, _ = swipe_both(0)
+    assert np.abs(pred_single - pred_j).max() > HIGH_SWIPE_RTOL * scale
+
+
+NET_PRECISIONS = {"default": jax.lax.Precision.DEFAULT, "high": jax.lax.Precision.HIGH}
+
+
+@pytest.mark.parametrize("name", sorted(NET_PRECISIONS))
+def test_network_precision_swipe_matches_jax(name, monkeypatch, tpu_default_dots):
+    """TNF_PRECISION's counterpart, Network(precision=): one swipe of
+    networks built at "default" and at "high" in both packages (the plain
+    routes, so every product, the Gram's too, runs at that precision; the
+    aux contractions follow it, TNF_AUX_PRECISION unset), with the TPU's
+    rounding on the JAX side: predictions within 5e-6 of max|pred|."""
+    monkeypatch.delenv("TNF_AUX_PRECISION", raising=False)
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "f32")
+    c = SW
+    jl = JLayer(c["N"], c["R"], c["P"], c["PP"], output_shape=(c["C"],),
+                convolution_bond=c["CB"], seed=1)
+    tl = TLayer(c["N"], c["R"], c["P"], c["PP"], output_shape=(c["C"],),
+                convolution_bond=c["CB"], seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((c["S"], c["P"], c["PP"])).astype(np.float32)
+    Y = np.eye(c["C"] + 1, dtype=np.float32)[rng.integers(0, c["C"] + 1, c["S"])]
+    cfg = dict(num_swipes=1, batch_size=c["B"], method="ridge_cholesky", eps=5.0)
+    jnet = JNetwork(jl.topology, precision=NET_PRECISIONS[name], use_pallas=False)
+    tnet = Network(tl.topology, device="cpu", precision=name, use_kernels=False)
+    pj, okj = JSweeper(jnet, JXE(1.0), JConfig(**cfg)).run(
+        [jl.params], jnp.asarray(X), jnp.asarray(Y))
+    p0 = params_from_numpy({k: np.asarray(v) for k, v in jl.params.items()}, device="cpu")
+    pt, okt = Sweeper(tnet, TXE(1.0), SweepConfig(**cfg)).run(
+        [p0], torch.tensor(X), torch.tensor(Y))
+    assert okj and okt
+    pred_j = np.asarray(jnet.forward(pj[0], jnp.asarray(X)))
+    pred_t = tnet.forward(pt[0], torch.tensor(X)).numpy()
+    np.testing.assert_allclose(pred_t, pred_j, rtol=0, atol=5e-6 * np.abs(pred_j).max())
 
 
 def test_history_keyed_on_aux_precision(monkeypatch):

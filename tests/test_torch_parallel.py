@@ -247,21 +247,44 @@ def test_timeout_on_one_ranks_clock_stops_both_ranks_alike(ranks):
 
 def test_collectives_were_counted(ranks):
     """Both ranks ran the same collectives (a rank that skipped one would
-    have hung), and A's reductions dominate the bytes."""
+    have hung), all-reduces and broadcasts, and no all-to-all (the 1-D mesh
+    has no model axis)."""
     s0, s1 = ranks[0]["stats"], ranks[1]["stats"]
-    assert s0["calls"] == s1["calls"] > 0 and s0["bytes"] == s1["bytes"] > 0
+    for kind in ("all_reduce", "broadcast"):
+        assert s0[kind]["calls"] == s1[kind]["calls"] > 0
+        assert s0[kind]["bytes"] == s1[kind]["bytes"] > 0
+    assert s0["all_to_all"]["calls"] == 0
 
 
-def test_two_d_mesh_and_model_axes_raise(specs):
-    """The 2-D data x model mesh is ROADMAP item 17, step 2."""
-    with pytest.raises(NotImplementedError, match="item 17, step 2"):
-        pmesh.make_mesh(axis=("data", "model"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17, step 2"):
-        pmesh.shard_chunked_inputs({}, None, {}, model_labels=("patches",))
+def test_two_d_mesh_and_model_axes_raise(specs, ranks):
+    """The errors the 2-D data x model mesh keeps (it raised
+    NotImplementedError until the port ran it): a ('data', 'model') shape
+    that does not hold the world (2 x 2 over 2 ranks), an axis of a model
+    label that does not split over the model ranks (5 patches over 2), in
+    the input shards and in the network's sharding, and model axis labels
+    without a model axis."""
+    assert "does not hold the 2 ranks" in ranks[0]["2-D shape error"]
+    assert ranks[0]["2-D shape error"] == ranks[1]["2-D shape error"]
+    mesh2 = pmesh.Mesh(None, ("data", "model"), 4, 1, torch.device("cpu"), dims=(2, 2))
+    assert mesh2.shape == {"data": 2, "model": 2}
+    assert (mesh2.axis_rank("data"), mesh2.axis_rank("model")) == (0, 1)
+    with pytest.raises(ValueError, match="does not split over 2 ranks"):
+        pmesh.shard_chunked_inputs({"x": torch.zeros(1, 4, 5, 3)}, mesh2,
+                                   {"x": ("patches", "patch_pixels")},
+                                   model_labels=("patches",))
+    with pytest.raises(ValueError, match="model labels"):
+        pmesh.shard_chunked_inputs({}, pmesh.Mesh(None, "data", 2, 0, torch.device("cpu")),
+                                   {}, model_labels=("patches",))
+    layer = cases.tl.TensorConvolutionTrainLayer(2, 3, 5, 3, output_shape=(3,),
+                                                 convolution_bond=2, device="cpu")
+    with pytest.raises(ValueError, match="does not split over 2 model ranks"):
+        layer.network.shard_model(mesh2, ("patches",))
     members, params, x, y = cases.build(specs["sweep"])
     sw = Sweeper(members, cases.tb.SquareBregFunction(), cases.SweepConfig(num_swipes=1))
-    with pytest.raises(NotImplementedError, match="item 17, step 2"):
+    with pytest.raises(ValueError, match="need a mesh with a 'model' axis"):
         sw.run(params, x, y, model_axis_labels=("patches",))
+    with pytest.raises(ValueError, match="mesh axes"):
+        pmesh.make_mesh(axis=("model", "data"), device="cpu")
 
 
 def test_make_mesh_needs_a_process_group():
@@ -271,11 +294,16 @@ def test_make_mesh_needs_a_process_group():
 
 def test_dryrun_on_four_ranks(capsys):
     """The counterpart of __graft_entry__.dryrun_multichip (:98) on 4 ranks:
-    the type-I sum and the packed kernel route under the mesh, each with its
-    OK line; the kernel route called the Gram wrappers on every rank."""
+    the type-I sum and the packed kernel route under the data mesh, then on
+    the 2 x 2 data x model mesh a training step, the packed kernel route and
+    the r=16 MINRES swipe with its rows-conserved check, each with its OK
+    line; the kernel routes called the Gram wrappers on every rank."""
     lines = dryrun.dryrun_multichip(4, device="cpu")
-    assert len(lines) == 2 and all("OK on mesh {'data': 4}" in ln for ln in lines)
-    assert capsys.readouterr().out.count("OK on mesh") == 2
+    assert len(lines) == 5
+    assert all("OK on mesh {'data': 4}" in ln for ln in lines[:2])
+    assert all("{'data': 2, 'model': 2}" in ln and " OK" in ln for ln in lines[2:])
+    assert "rows 16/4 per rank conserved" in lines[4]
+    assert capsys.readouterr().out.count("OK") == 5
 
 
 def test_shard_chunked_takes_each_ranks_rows():

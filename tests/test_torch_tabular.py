@@ -350,9 +350,9 @@ def test_unported_estimator_options_raise(kw):
 
 def test_fast_tiers_refused(monkeypatch):
     """"fast" and "fastest" (bf16 or int8 Gram operands and the bf16 aux
-    tier) fit, and the ambient env comes back after the fit; the aux tier
-    the port does not run, TNF_AUX_PRECISION=high, is refused with its
-    ROADMAP item."""
+    tier) fit, and the ambient env comes back after the fit; the bf16x3 aux
+    tier, TNF_AUX_PRECISION=high (refused until the port ran it), fits as
+    well, and an unknown aux precision is refused."""
     import os
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
     X, Y = table(6, S=32, F=4)
@@ -365,7 +365,11 @@ def test_fast_tiers_refused(monkeypatch):
         assert np.isfinite(est.predict(X)).all()
         assert os.environ.get("TNF_AUX_PRECISION") == before
     monkeypatch.setenv("TNF_AUX_PRECISION", "high")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+    est = TensorTrainRegressor(N=2, r=2, num_swipes=2, eps_start=5.0, eps_decay=0.25,
+                               device="cpu").fit(X, Y)
+    assert est.fit_ok_ and np.isfinite(est.predict(X)).all()
+    monkeypatch.setenv("TNF_AUX_PRECISION", "bf16x3")
+    with pytest.raises(ValueError, match="precision must be one of"):
         TensorTrainRegressor(N=2, r=2, device="cpu").fit(X, Y)
 
 

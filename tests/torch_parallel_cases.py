@@ -1,4 +1,5 @@
-"""The port's data-mesh scenarios, run in gloo ranks by test_torch_parallel.py.
+"""The port's mesh scenarios, run in gloo ranks by test_torch_parallel.py
+(the 1-D data mesh) and test_torch_mesh2d.py (the 2-D data x model mesh).
 
 A module of its own (no JAX, no test collection) because every rank that
 `parallel.mesh.launch` spawns imports it: each scenario is a spec of numpy
@@ -128,10 +129,39 @@ def timeout_sweep(spec, mesh, late_rank):
 
 def rank_main(specs, timeout_spec):
     """Every scenario of `specs` on a data mesh over this process's group,
-    then the one-rank-clock timeouts. Returns {name: result}."""
+    then the one-rank-clock timeouts, and the error of a 2-D mesh whose
+    shape does not hold the world. Returns {name: result}."""
     mesh = pmesh.make_mesh(device="cpu")
     out = {name: sweep(spec, mesh) for name, spec in specs.items()}
     for late in (0, 1):
         out[f"timeout on rank {late}'s clock"] = timeout_sweep(timeout_spec, mesh, late)
     out["stats"] = dict(mesh.stats)
+    try:
+        pmesh.make_mesh(axis=("data", "model"), shape=(2, 2), device="cpu")
+    except ValueError as e:
+        out["2-D shape error"] = str(e)
+    return out
+
+
+MODEL_LABELS = ("patches",)
+
+
+def rank_main_2d(specs, tight=(), unsplit=None):
+    """Every scenario of `specs` on a 2 x 2 data x model mesh over this
+    process's 4 ranks (the patches sharded over "model"), the collectives'
+    counts, the scenarios named in `tight` once more on a 1-D data mesh of
+    the 4 ranks, and the error of sweeping `unsplit`, whose patches do not
+    split over the model ranks. Returns {name: result}."""
+    mesh = pmesh.make_mesh(axis=("data", "model"), shape=(2, 2), device="cpu")
+    out = {name: sweep(spec, mesh, model_axis_labels=MODEL_LABELS)
+           for name, spec in specs.items()}
+    out["stats"] = {k: dict(v) for k, v in mesh.stats.items()}
+    flat = pmesh.make_mesh(device="cpu")
+    for name in tight:
+        out[f"{name}, 1-D"] = sweep(specs[name], flat)
+    if unsplit is not None:
+        try:
+            sweep(unsplit, mesh, model_axis_labels=MODEL_LABELS)
+        except ValueError as e:
+            out["unsplit error"] = str(e)
     return out
