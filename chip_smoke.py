@@ -219,6 +219,21 @@ printing its own lines:
    Gram tier with TNF_AUX_PRECISION=high (K1, K2, K3, K10); and, card
    against CPU on phase 6's conv-TT, that tier and swipes of networks built
    at precision "default" and "high".
+14. the kernel baselines — libsvm's SMO and sklearn's Gaussian processes
+   written out in torch (`models/_libsvm.py`, `models/_gp.py`; no Gram
+   kernel runs on this path): (i) `train_tabular.run(model_type="svm")` on
+   its six tables at full size (synthetic SVR over 4,914 dual variables,
+   iris, wine, breast_cancer, diabetes SVR, digits' 45 one-vs-one pairs in
+   one batch), on the card and with device="cpu": decision values within
+   KB_SVM_DEC_ATOL, labels equal; (ii) `GaussianProcessWrapper` regression
+   on diabetes and synthetic (L-BFGS-B on the log-marginal likelihood) and
+   classification on iris, wine, breast_cancer and digits (binary Laplace,
+   one-vs-rest), card against CPU (theta, lml, predictions or
+   probabilities); (iii) every val/test metric of the card's runs held to
+   sklearn's (`results/kernel_baselines.json`, written by
+   `studies/kernel_baselines_ref.py`). Each fit's seconds on the card and
+   the CPU, the SMO iterations and support vectors per pair, the L-BFGS
+   evaluations and the Newton iterations are printed.
 
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
@@ -3805,6 +3820,167 @@ def run_precisions(device, card: str, single):
     return {"flagship int8, high aux": (launches, seen)}
 
 
+# phase 14: the kernel baselines, libsvm's SMO (models/_libsvm.py) and
+# sklearn's Gaussian processes (models/_gp.py) written out in torch, on the
+# tabular CLI's six tables at their full size (experiments/kernel_baselines.py)
+# card against CPU: the SVM's iterates are libsvm's arithmetic on both (each
+# kernel entry rounded to float32, one float64 op a kernel launch, no fused
+# multiply-add), so they match unless the card's exp rounds an entry to the
+# other float32 neighbour, which would move the solution within the solver's
+# tol (1e-3); labels must be equal
+KB_SVM_DEC_ATOL = 1e-3
+# GP regression card against CPU: theta (log c, log length_scale), the
+# log-marginal likelihood relative, the predictions over max|pred|. The
+# synthetic table interpolates a noiseless polynomial (alpha 1e-10, lml
+# ~ +17,600): its Cholesky is ill-conditioned, and sklearn against the
+# port on the CPU already differ by 1e-5 in theta and 4e-6 in lml
+KB_GPR_THETA_ATOL = 1e-3
+KB_GPR_LML_RTOL = 1e-4
+KB_GPR_PRED_RTOL = 1e-4
+# GP classification card against CPU: no optimiser (the kernel is fixed);
+# B = I + W^1/2 K W^1/2 is well conditioned (eigenvalues >= 1)
+KB_GPC_PROBA_ATOL = 1e-9
+KB_GPC_LML_RTOL = 1e-10
+
+
+def _kb_timed(device, fn):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_kernel_baselines(device, card: str) -> dict:
+    """Phase 14: (i) train_tabular.run(model_type="svm") on each of its six
+    tables on the card and with device="cpu": decision values within
+    KB_SVM_DEC_ATOL, labels, SMO iterations and support vectors equal; (ii)
+    GaussianProcessWrapper regression on diabetes and synthetic and
+    classification on iris, wine, breast_cancer and digits, card against
+    CPU; (iii) every val/test metric of the card's runs held to sklearn's
+    (results/kernel_baselines.json: accuracy within one row, rmse within
+    kernel_baselines.RMSE_RTOL). Prints each fit's seconds on both, the SMO
+    iterations and support vectors per pair, the L-BFGS evaluations and the
+    Newton iterations. Returns the card's metrics."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import kernel_baselines as kb
+    from tensornetworksfork_tpu_torch.experiments import train_tabular
+    from tensornetworksfork_tpu_torch.models.baselines import GaussianProcessWrapper
+    from tensornetworksfork_tpu_torch.utils.config import RunConfig
+    cpu = torch.device("cpu")
+    with open(kb.REFERENCE) as f:
+        ref = json.load(f)
+    got = {"svm": {}, "gp": {}}
+    t14 = time.perf_counter()
+
+    # (i) the SVM through the CLI: build_model wrapped to keep the model and
+    # time its fit
+    built = []
+    build = train_tabular.build_model
+
+    def keep(cfg, input_dim):
+        m = build(cfg, input_dim)
+        fit = m.fit
+
+        def timed_fit(*a, **k):
+            out, s = _kb_timed(m.device, lambda: fit(*a, **k))
+            built.append((m, s))
+            return out
+        m.fit = timed_fit
+        return m
+    train_tabular.build_model = keep
+    try:
+        for name in kb.TABLES:
+            data, task = kb.table(name)
+            X = np.concatenate([data["X_val"], data["X_test"]])
+            runs = {}
+            for dev in (device, cpu):
+                res = train_tabular.run(RunConfig(dataset=name, model_type="svm",
+                                                  device=str(dev), verbose=0))
+                m, fit_s = built[-1]
+                dec = m.model_.decision(m._x(X)).cpu().numpy()
+                runs[dev.type] = (res, m, fit_s, dec, m.predict(X))
+            (res, m, fit_s, dec, lab), (_, mc, cpu_s, dec_c, lab_c) = runs["cuda"], runs["cpu"]
+            d = float(np.abs(dec - dec_c).max())
+            sv_pair = (m.model_.coef != 0).sum(0).tolist()
+            passes = max(m.n_iter_)
+            log(f"[kernel baselines] {card}: svm {name} ({task}, "
+                f"{len(data['X_train'])} x {data['X_train'].shape[1]} training rows, "
+                f"{len(m.n_iter_)} problem(s)): fit {fit_s:.3f} s on the card "
+                f"({1e3 * fit_s / passes:.3f} ms a pass over {passes} passes), "
+                f"{cpu_s:.3f} s on the CPU; SMO iterations {m.n_iter_}; support "
+                f"vectors {sum(m.model_.n_support) or m.model_.coef.shape[0]} "
+                f"(per pair {sv_pair}); max |d decision| card vs CPU {d:.3g} "
+                f"(bound {KB_SVM_DEC_ATOL})")
+            if not d <= KB_SVM_DEC_ATOL or not np.isfinite(dec).all() \
+                    or (task == "classification" and not np.array_equal(lab, lab_c)):
+                raise AssertionError(f"svm {name}: card and CPU part: iterations "
+                                     f"{m.n_iter_} / {mc.n_iter_}, decision {d}")
+            got["svm"][name] = {k: v for k, v in res.items()
+                                if k.startswith(("val_", "test_"))}
+    finally:
+        train_tabular.build_model = build
+
+    # (ii) the Gaussian processes on the same splits
+    for name in kb.GP_TABLES:
+        data, task = kb.table(name)
+        X = torch.as_tensor(np.concatenate([data["X_val"], data["X_test"]]), dtype=torch.float64)
+        fits = {}
+        for dev in (device, cpu):
+            w = GaussianProcessWrapper(task=task, device=str(dev))
+            _, s = _kb_timed(dev, lambda: w.fit(data["X_train"], data["y_train"]))
+            fits[dev.type] = (w, s)
+        (w, card_s), (wc, cpu_s) = fits["cuda"], fits["cpu"]
+        got["gp"][name] = kb.metrics(w, data, task)
+        lml, lml_c = w.log_marginal_likelihood_value_, wc.log_marginal_likelihood_value_
+        dl = abs(lml - lml_c) / abs(lml_c)
+        if task == "regression":
+            pred, pred_c = w.predict(X.numpy()), wc.predict(X.numpy())
+            dt = float(np.abs(w.theta_ - wc.theta_).max())
+            dp = float(np.abs(pred - pred_c).max() / np.abs(pred_c).max())
+            log(f"[kernel baselines] {card}: gp regression {name} "
+                f"({len(data['X_train'])} training rows): fit {card_s:.3f} s on the card, "
+                f"{cpu_s:.3f} s on the CPU; L-BFGS evaluations {w.fit_.n_eval} (CPU "
+                f"{wc.fit_.n_eval}); theta {w.theta_.tolist()} (CPU {wc.theta_.tolist()}, "
+                f"|d| {dt:.3g}, bound {KB_GPR_THETA_ATOL}); lml {lml!r} (CPU {lml_c!r}, "
+                f"rel {dl:.3g}, bound {KB_GPR_LML_RTOL}); predictions |d| / max|pred| "
+                f"{dp:.3g} (bound {KB_GPR_PRED_RTOL})")
+            ok = (dt <= KB_GPR_THETA_ATOL and dl <= KB_GPR_LML_RTOL
+                  and dp <= KB_GPR_PRED_RTOL and np.isfinite(pred).all())
+        else:
+            proba, proba_c = w.predict_proba(X.numpy()), wc.predict_proba(X.numpy())
+            same = np.array_equal(w.predict(X.numpy()), wc.predict(X.numpy()))
+            dp = float(np.abs(proba - proba_c).max())
+            log(f"[kernel baselines] {card}: gp classification {name} "
+                f"({len(data['X_train'])} training rows, {len(w.fit_.n_iter)} binary "
+                f"fit(s)): fit {card_s:.3f} s on the card, {cpu_s:.3f} s on the CPU; "
+                f"Newton iterations {w.fit_.n_iter} (CPU {wc.fit_.n_iter}); lml {lml!r} "
+                f"(CPU {lml_c!r}, rel {dl:.3g}, bound {KB_GPC_LML_RTOL}); max |d proba| "
+                f"{dp:.3g} (bound {KB_GPC_PROBA_ATOL}); labels equal {same}")
+            ok = (dp <= KB_GPC_PROBA_ATOL and dl <= KB_GPC_LML_RTOL and same
+                  and np.isfinite(proba).all())
+        if not ok:
+            raise AssertionError(f"gp {name}: card and CPU part")
+
+    # (iii) sklearn's metrics
+    for fam in ("svm", "gp"):
+        for name, mets in got[fam].items():
+            log(f"[kernel baselines] {card}: {fam} {name}: "
+                + ", ".join(f"{k} {v!r} (sklearn {ref[fam][name][k]!r})"
+                            for k, v in mets.items()))
+    bad = kb.compare(got, ref)
+    log(f"[kernel baselines] {card}: against {kb.REFERENCE} (sklearn {ref['sklearn']}; "
+        f"accuracy within one row, rmse within {kb.RMSE_RTOL} relative): "
+        f"{'all within' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"kernel baselines part from sklearn's: {bad}")
+    log(f"[kernel baselines] {card}: phase 14 took {time.perf_counter() - t14:.1f} s")
+    return got
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3941,6 +4117,10 @@ def main() -> int:
     log(f"[env] phase 13 took {time.perf_counter() - t13:.1f} s: the 2-D mesh "
         f"{t13d - t13:.1f} s, the precisions {t13c - t13d:.1f} s, the shape checks "
         f"{time.perf_counter() - t13c:.1f} s")
+
+    t14 = time.perf_counter()
+    run_kernel_baselines(device, smi)
+    log(f"[env] phase 14 took {time.perf_counter() - t14:.1f} s")
 
     # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6

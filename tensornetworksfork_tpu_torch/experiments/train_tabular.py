@@ -7,12 +7,15 @@ rmse and r2 (or accuracy), appending one row to `results_file`. Families:
 `TensorTrainRegressor` (model_type tt | tt_type1 | cpd | cpd_type1, with
 --cum_sum / --linear_dim), `tnml` (TNMLRegressor, min-max scaled sin-cos
 features), `tt_batch` (TensorTrainBatchRegressor, --swipe_method), `mlp`
-(MLPWrapper) and `polynomial` (degree N, Ridge with alpha = eps). xgboost
-and svm raise NotImplementedError naming the library the card's machine
-lacks.
+(MLPWrapper), `polynomial` (degree N, Ridge with alpha = eps) and `svm`
+(SVMClfWrapper / SVMRegWrapper: sklearn's SVC / SVR at their defaults, that
+is libsvm's SMO written out in torch; skipped, as in the JAX package, on a
+classification table of more than 10,000 training rows). xgboost raises
+NotImplementedError: xgboost is missing on the card's machine.
 
 Run:  python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset synthetic
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset iris --model_type tnml
+      python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset digits --model_type svm
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --model_type tt_batch --swipe_method batch_block
       python -m tensornetworksfork_tpu_torch.experiments.train_tabular --dataset path/to/name_tensor.npz
 
@@ -30,7 +33,8 @@ import torch
 from ..data.synthetic import make_regression
 from ..data.tabular import (SKLEARN_DATASETS, load_sklearn_dataset,
                             load_tabular_data, split_train_val_test)
-from ..models.baselines import MLPWrapper, PolynomialRegressionWrapper
+from ..models.baselines import (MLPWrapper, PolynomialRegressionWrapper, SVMClfWrapper,
+                                SVMRegWrapper)
 from ..models.estimators import TensorTrainRegressor
 from ..models.module import TensorTrainBatchRegressor
 from ..models.tnml import TNMLRegressor
@@ -41,7 +45,9 @@ from ..utils.metrics import accuracy, append_results_csv, r2_score, rmse
 
 # model families of the JAX package's CLI that are not ported: the library
 # each wraps is missing on the card's machine
-_NOT_PORTED = {"xgboost": "xgboost", "svm": "sklearn"}
+_NOT_PORTED = {"xgboost": "xgboost"}
+# the JAX package's CLI skips SVM classification above this many training rows
+SVM_MAX_CLASSIFICATION_ROWS = 10_000
 
 
 def build_model(cfg: RunConfig, input_dim: int):
@@ -77,6 +83,9 @@ def build_model(cfg: RunConfig, input_dim: int):
     if mt == "polynomial":
         return PolynomialRegressionWrapper(degree=cfg.N, regularization="l2",
                                            alpha=cfg.eps, device=device)
+    if mt == "svm":
+        return (SVMClfWrapper(device=device) if cfg.task == "classification"
+                else SVMRegWrapper(device=device))
     if mt not in ("tt", "tt_type1", "cpd", "cpd_type1"):
         raise ValueError(f"unknown model_type {mt!r}")
     return TensorTrainRegressor(
@@ -130,11 +139,16 @@ def run(cfg: RunConfig, overrides=None, data=None) -> dict:
                              eye[y_te.astype(int)])
         cfg.output_dim = n_cls - 1
 
+    if (cfg.task == "classification" and cfg.model_type == "svm"
+            and X_tr.shape[0] > SVM_MAX_CLASSIFICATION_ROWS):
+        return {"skipped": True, "model_type": "svm"}
+
     model = build_model(cfg, X_tr.shape[1])
     t0 = time.time()
     raised = False
     try:
-        if isinstance(model, (PolynomialRegressionWrapper, MLPWrapper)):
+        if isinstance(model, (PolynomialRegressionWrapper, MLPWrapper, SVMClfWrapper,
+                              SVMRegWrapper)):
             model.fit(X_tr, y_tr)
         else:
             model.fit(X_tr, y_tr, X_val=X_val, y_val=y_val)

@@ -24,8 +24,18 @@
   coefficient change is below tol times the largest coefficient, then a
   duality gap below tol ||y||²), max_iter 1000, tol 1e-4.
 
-Not ported: the XGBoost, SVM and Gaussian-process wrappers (the card's
-machine has neither xgboost nor sklearn).
+- `SVMClfWrapper` / `SVMRegWrapper`: sklearn's SVC / SVR, which are
+  libsvm, written out in torch (`models/_libsvm.py`): C-SVC one-vs-one over
+  the k(k-1)/2 class pairs with libsvm's vote, and ε-SVR; float64 on
+  `device`, the kernel entries rounded to float32 as libsvm's Qfloat.
+- `GaussianProcessWrapper`: sklearn's GaussianProcessRegressor (kernel
+  C(1) * RBF(1), both free, L-BFGS-B on the log-marginal likelihood) and
+  GaussianProcessClassifier (C(1) * RBF(1) fixed, binary Laplace, one-vs-
+  rest above two classes), written out in torch (`models/_gp.py`).
+
+Not ported: the XGBoost wrappers. xgboost is missing on the card's machine
+and on the machine that runs the tests, so there is no reference to hold a
+port to.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from . import _gp, _libsvm
 
 # flax's lecun_normal: a normal truncated to [-2, 2] has this standard
 # deviation; its samples are divided by it to keep the variance 1/fan_in
@@ -377,3 +388,246 @@ class PolynomialRegressionWrapper:
     def predict(self, X):
         pred = self._features(X) @ self._coef + self._intercept
         return (pred[:, 0] if self._ravel else pred).cpu().numpy()
+
+
+# sklearn's SVC / SVR parameters and their defaults; the ones the port
+# computes with, and those it accepts at their default only
+_SVM_DEFAULTS = dict(C=1.0, kernel="rbf", degree=3, gamma="scale", coef0=0.0,
+                     shrinking=True, tol=1e-3, max_iter=-1, cache_size=200)
+_SVR_DEFAULTS = dict(_SVM_DEFAULTS, epsilon=0.1)
+_SVC_DEFAULTS = dict(_SVM_DEFAULTS, decision_function_shape="ovr", random_state=None)
+# accepted at these values only: other values need what the port leaves out
+# (Platt scaling, class weights, verbose libsvm output, ovr tie breaking)
+_SVC_FIXED = dict(probability=(False, "deprecated"), class_weight=(None,),
+                  break_ties=(False,), verbose=(False,))
+_SVR_FIXED = dict(verbose=(False,))
+
+
+def _svm_settings(params, defaults, fixed) -> dict:
+    """sklearn's SVC / SVR keyword arguments, checked: a key the port does
+    not implement (or a value it does not) raises ValueError naming it."""
+    out = dict(defaults)
+    for key, value in (params or {}).items():
+        if key in fixed:
+            if not any(value is v or value == v for v in fixed[key]):
+                raise ValueError(f"svm_params[{key!r}] = {value!r} is not ported "
+                                 f"(only {fixed[key]!r})")
+        elif key not in defaults:
+            raise ValueError(f"svm_params key {key!r} is not ported")
+        else:
+            out[key] = value
+    if out["kernel"] not in _libsvm.KERNELS:
+        raise ValueError(f"svm_params['kernel'] = {out['kernel']!r} is not ported "
+                         f"(one of {_libsvm.KERNELS})")
+    if out.get("decision_function_shape", "ovr") not in ("ovr", "ovo"):
+        raise ValueError("svm_params['decision_function_shape'] must be 'ovr' or 'ovo'")
+    return out
+
+
+def _svm_gamma(gamma, X: np.ndarray) -> float:
+    """sklearn's _gamma: "scale" = 1 / (n_features X.var()) (1 where the
+    variance is 0), "auto" = 1 / n_features, or the number given."""
+    if gamma == "scale":
+        var = X.var()
+        return 1.0 / (X.shape[1] * var) if var != 0 else 1.0
+    if gamma == "auto":
+        return 1.0 / X.shape[1]
+    return float(gamma)
+
+
+class _SVMBase:
+    def __init__(self, svm_params, defaults, fixed, device):
+        self.settings = _svm_settings(svm_params, defaults, fixed)
+        self.device = resolve_device(device)
+        self.model_ = None
+
+    def _x(self, X) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+
+    def _fit_args(self, X: np.ndarray) -> dict:
+        s = self.settings
+        return dict(C=float(s["C"]), kernel=s["kernel"], gamma=_svm_gamma(s["gamma"], X),
+                    coef0=float(s["coef0"]), degree=int(s["degree"]), tol=float(s["tol"]),
+                    shrinking=bool(s["shrinking"]), max_iter=int(s["max_iter"]))
+
+    @property
+    def n_iter_(self):
+        return self.model_.n_iter
+
+
+class SVMRegWrapper(_SVMBase):
+    """sklearn's SVR(**svm_params) (ε-SVR, libsvm's solver) in torch on
+    `device`; predict = Σ coef K(x, sv) - rho."""
+
+    def __init__(self, svm_params=None, device="cuda"):
+        super().__init__(svm_params, _SVR_DEFAULTS, _SVR_FIXED, device)
+
+    def fit(self, X, y):
+        X = np.asarray(X, np.float64)
+        y = np.asarray(y, np.float64)
+        y = y.squeeze(-1) if y.ndim > 1 else y
+        self.model_ = _libsvm.fit_svr(self._x(X), torch.as_tensor(y, device=self.device),
+                                      epsilon=float(self.settings["epsilon"]),
+                                      **self._fit_args(X))
+        return self
+
+    def predict(self, X):
+        return self.model_.decision(self._x(X))[:, 0].cpu().numpy()
+
+
+class SVMClfWrapper(_SVMBase):
+    """sklearn's SVC(**svm_params) (C-SVC, libsvm's solver and one-vs-one
+    vote) in torch on `device`. Labels are re-encoded to 0..k-1 through
+    `translation_dict`, as the JAX package's wrapper does; one-hot targets
+    are argmaxed."""
+
+    def __init__(self, svm_params=None, device="cuda"):
+        super().__init__(svm_params, _SVC_DEFAULTS, _SVC_FIXED, device)
+        self.translation_dict = None
+        self.retranslation_dict = None
+
+    def fit(self, X, y):
+        X = np.asarray(X, np.float64)
+        y = np.asarray(y)
+        if y.ndim == 2:
+            y = y.argmax(-1)
+        unique = np.unique(y)
+        if unique.size < 2:
+            raise ValueError(f"SVMClfWrapper needs two or more classes; got {unique.size}")
+        self.translation_dict = {l: i for i, l in enumerate(unique)}
+        self.retranslation_dict = {i: l for i, l in enumerate(unique)}
+        self._labels = unique
+        codes = torch.as_tensor(np.searchsorted(unique, y), device=self.device)
+        self.model_ = _libsvm.fit_svc(self._x(X), codes, unique.size, **self._fit_args(X))
+        return self
+
+    @property
+    def dual_coef_(self) -> np.ndarray:
+        """sklearn's dual_coef_ (its sign flipped for two classes)."""
+        d = self.model_.dual_coef.cpu().numpy()
+        return -d if self.model_.n_class == 2 else d
+
+    @property
+    def intercept_(self) -> np.ndarray:
+        b = self.model_.intercept.cpu().numpy()
+        return -b if self.model_.n_class == 2 else b
+
+    @property
+    def n_support_(self) -> np.ndarray:
+        return np.asarray(self.model_.n_support, np.int32)
+
+    def decision_function(self, X) -> np.ndarray:
+        """sklearn's decision_function: libsvm's pair values negated to one
+        column for two classes, else (m, k(k-1)/2) for "ovo" or the votes
+        plus squashed confidences (m, k) for "ovr"."""
+        dec = self.model_.decision(self._x(X))
+        k = self.model_.n_class
+        if k == 2:
+            return (-dec[:, 0]).cpu().numpy()
+        if self.settings["decision_function_shape"] == "ovr":
+            dec = _libsvm.ovr_decision(dec, k)
+        return dec.cpu().numpy()
+
+    def predict(self, X):
+        won = self.model_.vote(self.model_.decision(self._x(X))).cpu().numpy()
+        return self._labels[won]
+
+
+# sklearn's GaussianProcessRegressor / GaussianProcessClassifier parameters
+_GPR_DEFAULTS = dict(alpha=1e-10, optimizer="fmin_l_bfgs_b", n_restarts_optimizer=0,
+                     normalize_y=False, copy_X_train=True, n_targets=None,
+                     random_state=None)
+_GPC_DEFAULTS = dict(optimizer="fmin_l_bfgs_b", n_restarts_optimizer=0,
+                     max_iter_predict=100, warm_start=False, copy_X_train=True,
+                     random_state=None, multi_class="one_vs_rest", n_jobs=None)
+
+
+class GaussianProcessWrapper:
+    """sklearn's Gaussian processes at their default kernels in torch on
+    `device` (float64): regression is GaussianProcessRegressor(**gp_params)
+    with C(1) * RBF(1), its two hyperparameters fitted by L-BFGS-B on the
+    log-marginal likelihood; classification is
+    GaussianProcessClassifier(**gp_params) with C(1) * RBF(1) fixed (so no
+    optimiser runs), the binary Laplace approximation, and one-vs-rest
+    above two classes (the class of largest P(class), the first on ties).
+    A `kernel` key raises ValueError (kernel objects need sklearn), as does
+    any key or value not ported."""
+
+    def __init__(self, gp_params=None, task="regression", device="cuda"):
+        self.task = task
+        defaults = _GPC_DEFAULTS if task == "classification" else _GPR_DEFAULTS
+        p = dict(defaults)
+        for key, value in (gp_params or {}).items():
+            if key == "kernel":
+                raise ValueError("gp_params['kernel'] is not ported: kernel objects "
+                                 "need sklearn; the port fits C(1.0) * RBF(1.0)")
+            if key not in defaults:
+                raise ValueError(f"gp_params key {key!r} is not ported")
+            p[key] = value
+        if task == "classification":
+            if p["multi_class"] != "one_vs_rest":
+                raise ValueError(f"gp_params['multi_class'] = {p['multi_class']!r} "
+                                 "is not ported (only 'one_vs_rest')")
+            if p["warm_start"]:
+                raise ValueError("gp_params['warm_start'] = True is not ported")
+        else:
+            if p["optimizer"] not in ("fmin_l_bfgs_b", None):
+                raise ValueError(f"gp_params['optimizer'] = {p['optimizer']!r} is not "
+                                 "ported (only 'fmin_l_bfgs_b' or None)")
+            if p["n_restarts_optimizer"] != 0:
+                raise ValueError("gp_params['n_restarts_optimizer'] > 0 is not ported")
+        self.params = p
+        self.device = resolve_device(device)
+        self.fit_ = None
+
+    def _x(self, X) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+
+    def fit(self, X, y):
+        y = np.asarray(y)
+        X = self._x(X)
+        p = self.params
+        if self.task == "classification":
+            if y.ndim == 2:
+                y = y.argmax(-1)
+            self.classes_ = np.unique(y)
+            if self.classes_.size < 2:
+                raise ValueError("GaussianProcessWrapper needs two or more classes")
+            # one binary problem (class 1 against class 0), or one per class
+            pos = self.classes_[1:] if self.classes_.size == 2 else self.classes_
+            targets = np.stack([y == c for c in pos]).astype(np.float64)
+            self.fit_ = _gp.laplace_mode(X, torch.as_tensor(targets, device=self.device),
+                                         max_iter=int(p["max_iter_predict"]))
+            self.log_marginal_likelihood_value_ = float(np.mean(self.fit_.lml))
+        else:
+            y = y.squeeze() if y.ndim > 1 else y
+            self.fit_ = _gp.fit_gpr(X, y, noise=float(p["alpha"]),
+                                    optimize=p["optimizer"] is not None,
+                                    normalize_y=bool(p["normalize_y"]))
+            self.log_marginal_likelihood_value_ = self.fit_.lml
+            self._ravel = y.ndim == 1
+        return self
+
+    @property
+    def theta_(self) -> np.ndarray:
+        """log of (constant, length_scale) of the fitted kernel."""
+        f = self.fit_
+        return np.log([f.constant, f.length_scale])
+
+    def predict_proba(self, X) -> np.ndarray:
+        P = self.fit_.proba(self._x(X)).cpu().numpy()
+        if self.classes_.size == 2:
+            return np.stack([1 - P[0], P[0]], axis=1)
+        P = P.T
+        sums = P.sum(axis=1, keepdims=True)
+        return np.divide(P, sums, out=P.copy(), where=sums != 0)
+
+    def predict(self, X):
+        Xs = self._x(X)
+        if self.task != "classification":
+            mean = self.fit_.predict(Xs).cpu().numpy()
+            return mean[:, 0] if self._ravel or mean.shape[1] == 1 else mean
+        if self.classes_.size == 2:
+            latent = self.fit_.latent(Xs)[0][0].cpu().numpy()
+            return np.where(latent > 0, self.classes_[1], self.classes_[0])
+        return self.classes_[self.fit_.proba(Xs).argmax(0).cpu().numpy()]

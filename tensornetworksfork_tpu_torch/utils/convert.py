@@ -1,5 +1,6 @@
 """Params crossing between the JAX package and this one (the tensor
-networks' params dicts, and the baselines' flax trees).
+networks' params dicts, the baselines' flax trees, and the fitted state of
+sklearn's SVMs and Gaussian processes, read by attribute: no sklearn import).
 
 Both packages build a model's topology with the same calls, so the params
 dicts have the same names and shapes; JAX params go in as
@@ -12,6 +13,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models import _gp, _libsvm
+from ..models.baselines import GaussianProcessWrapper, SVMClfWrapper, SVMRegWrapper
 from .device import resolve_device
 
 
@@ -60,3 +63,86 @@ def mlp_params_from_flax(params, spatial=None) -> Dict[str, torch.Tensor]:
         out[f"dense.{index(name)}.weight"] = torch.tensor(k.T.copy())
         out[f"dense.{index(name)}.bias"] = torch.tensor(np.asarray(tree[name]["bias"]))
     return out
+
+
+def svm_from_sklearn(fitted, device="cuda"):
+    """A fitted sklearn SVC or SVR -> the port's SVMClfWrapper /
+    SVMRegWrapper on `device`, predicting as `fitted` does. Reads
+    support_vectors_, dual_coef_, intercept_, n_support_, classes_ and
+    _gamma (and get_params()); for two classes sklearn's public dual_coef_
+    and intercept_ carry the flipped sign, which is undone."""
+    classifier = hasattr(fitted, "classes_")
+    wrapper = (SVMClfWrapper if classifier else SVMRegWrapper)(fitted.get_params(),
+                                                              device=device)
+    dev = wrapper.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    dual, intercept = t(fitted.dual_coef_), t(fitted.intercept_)
+    n_support = []
+    if classifier:
+        classes = np.asarray(fitted.classes_)
+        n_support = [int(c) for c in fitted.n_support_]
+        if classes.size == 2:
+            dual, intercept = -dual, -intercept
+        wrapper._labels = classes
+        wrapper.translation_dict = {l: i for i, l in enumerate(classes)}
+        wrapper.retranslation_dict = dict(enumerate(classes))
+    s = wrapper.settings
+    wrapper.model_ = _libsvm.SVMModel(
+        support_vectors=t(fitted.support_vectors_), dual_coef=dual, intercept=intercept,
+        n_support=n_support, kernel=s["kernel"], gamma=float(fitted._gamma),
+        coef0=float(s["coef0"]), degree=int(s["degree"]),
+        n_iter=np.atleast_1d(fitted.n_iter_).tolist())
+    return wrapper
+
+
+def _c_rbf(kernel):
+    """(constant, length_scale) of a fitted ConstantKernel * RBF."""
+    k1, k2 = getattr(kernel, "k1", None), getattr(kernel, "k2", None)
+    if (type(k1).__name__, type(k2).__name__) != ("ConstantKernel", "RBF") \
+            or np.ndim(k2.length_scale) != 0:
+        raise ValueError(f"the port's Gaussian processes hold C * RBF (isotropic), "
+                         f"not {kernel}")
+    return float(k1.constant_value), float(k2.length_scale)
+
+
+def gp_from_sklearn(fitted, device="cuda"):
+    """A fitted sklearn GaussianProcessRegressor or GaussianProcessClassifier
+    (kernel C * RBF) -> the port's GaussianProcessWrapper on `device`,
+    predicting as `fitted` does. The regressor's X_train_, alpha_, L_,
+    kernel_ and _y_train_mean / _y_train_std; the classifier's binary
+    estimators' (one, or one a class under one-vs-rest) X_train_, y_train_,
+    pi_, W_sr_ and L_."""
+    if hasattr(fitted, "alpha_"):
+        wrapper = GaussianProcessWrapper(task="regression", device=device)
+        dev = wrapper.device
+        c, ls = _c_rbf(fitted.kernel_)
+        alpha = np.asarray(fitted.alpha_, np.float64)
+        wrapper._ravel = alpha.ndim == 1
+        wrapper.fit_ = _gp.GPRFit(
+            theta=np.log([c, ls]), lml=float(fitted.log_marginal_likelihood_value_),
+            X=torch.as_tensor(np.asarray(fitted.X_train_, np.float64), device=dev),
+            L=torch.as_tensor(np.asarray(fitted.L_), device=dev),
+            alpha=torch.as_tensor(alpha.reshape(alpha.shape[0], -1), device=dev),
+            y_mean=np.atleast_1d(np.asarray(fitted._y_train_mean, np.float64)),
+            y_std=np.atleast_1d(np.asarray(fitted._y_train_std, np.float64)))
+        wrapper.log_marginal_likelihood_value_ = wrapper.fit_.lml
+        return wrapper
+    wrapper = GaussianProcessWrapper(task="classification", device=device)
+    dev = wrapper.device
+    base = fitted.base_estimator_
+    estimators = getattr(base, "estimators_", [base])
+    c, ls = _c_rbf(estimators[0].kernel_)
+
+    def stack(name, dtype=np.float64):
+        return torch.as_tensor(np.stack([np.asarray(getattr(e, name), dtype)
+                                         for e in estimators]), device=dev)
+    wrapper.classes_ = np.asarray(fitted.classes_)
+    wrapper.fit_ = _gp.LaplaceFit(
+        X=torch.as_tensor(np.asarray(estimators[0].X_train_, np.float64), device=dev),
+        y=stack("y_train_"), pi=stack("pi_"), W_sr=stack("W_sr_"), L=stack("L_"),
+        lml=[float(e.log_marginal_likelihood_value_) for e in estimators],
+        constant=c, length_scale=ls)
+    wrapper.log_marginal_likelihood_value_ = float(fitted.log_marginal_likelihood_value_)
+    return wrapper

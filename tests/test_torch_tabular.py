@@ -287,13 +287,15 @@ def test_prepared_npz_round_trip(tmp_path):
 @pytest.mark.parametrize("model_type", ["cpd", "cpd_type1", "tnml", "tt_batch",
                                         "mlp", "xgboost", "svm", "polynomial"])
 def test_unported_families_raise(model_type):
-    """The families not ported (xgboost, svm) raise naming the library the
-    card's machine lacks; cpd, cpd_type1, tnml, polynomial, tt_batch and
-    mlp, which raised until they were ported, now build their estimator on
-    the device asked for."""
+    """The family not ported (xgboost) raises naming the library the card's
+    machine lacks; cpd, cpd_type1, tnml, polynomial, tt_batch, mlp and svm
+    (SVMClfWrapper for classification, SVMRegWrapper for regression), which
+    raised until they were ported, now build their estimator on the device
+    asked for."""
     from tensornetworksfork_tpu_torch.experiments.train_tabular import build_model
     from tensornetworksfork_tpu_torch.models.baselines import (MLPWrapper,
-                                                               PolynomialRegressionWrapper)
+                                                               PolynomialRegressionWrapper,
+                                                               SVMClfWrapper, SVMRegWrapper)
     from tensornetworksfork_tpu_torch.models.estimators import TensorTrainRegressor
     from tensornetworksfork_tpu_torch.models.module import TensorTrainBatchRegressor
     from tensornetworksfork_tpu_torch.models.tnml import TNMLRegressor
@@ -307,8 +309,12 @@ def test_unported_families_raise(model_type):
         if model_type.startswith("cpd"):
             assert m.model_type == model_type
         return
-    with pytest.raises(NotImplementedError,
-                       match="xgboost" if model_type == "xgboost" else "sklearn"):
+    if model_type == "svm":
+        for task, cls in (("classification", SVMClfWrapper), ("regression", SVMRegWrapper)):
+            m = build_model(RunConfig(model_type="svm", task=task, device="cpu"), 4)
+            assert type(m) is cls and m.device.type == "cpu"
+        return
+    with pytest.raises(NotImplementedError, match="xgboost"):
         build_model(RunConfig(model_type=model_type), 4)
 
 
