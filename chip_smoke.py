@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 1-10    # these two runs together
+    python3 chip_smoke.py --phases 11-14   # cover every phase
+
+`--phases` takes ranges and numbers ("3,14"); phases 1-5 run every time
+(the build, the kernel checks and the main path, whose launches the kernels
+line reports), and a phase runs the phases whose outputs it takes (11: 4, 5
+and 7; 12 and 13: 4). Phase 14 launches no Gram kernel, so where it runs it
+runs first, beside the build.
 
 Drives the port (`tensornetworksfork_tpu_torch`, never the JAX package) through
 its two main paths — the conv-TT classifier's sweep and the tabular
@@ -16,9 +24,10 @@ printing its own lines:
    plain version's and (where one PyTorch call computes the same function)
    that library call's times (CUDA events around back-to-back calls, median
    of 5; K8's, shorter than a launch from the host, as CUDA graphs of 20
-   calls), beside the kernel's bound: the larger of its operations over the
-   card's peak for their type and its bytes over the memory rate (PEAK, HBM
-   below). K1 (bf16 and f32, with the rhs it sums), K2, K3, K6 (bf16 and
+   calls; a plain version that runs 10x its kernel or more, one timed
+   call after a warm-up), beside the kernel's bound: the larger of its
+   operations over the card's peak for their type and its bytes over the
+   memory rate (PEAK, HBM below). K1 (bf16 and f32, with the rhs it sums), K2, K3, K6 (bf16 and
    f32) and K10 (bf16 and f32) at the conv-TT flagship's shapes, K1 also at
    small shapes for C in 1, 3, 9, 16 on both its paths, K6 and K10 in f32
    on full-mantissa operands held to float64, with bf16- and TF32-rounded
@@ -231,9 +240,19 @@ printing its own lines:
    one-vs-rest), card against CPU (theta, lml, predictions or
    probabilities); (iii) every val/test metric of the card's runs held to
    sklearn's (`results/kernel_baselines.json`, written by
-   `studies/kernel_baselines_ref.py`). Each fit's seconds on the card and
-   the CPU, the SMO iterations and support vectors per pair, the L-BFGS
-   evaluations and the Newton iterations are printed.
+   `studies/kernel_baselines_ref.py`); (iv) the sklearn options the
+   wrappers port (SVC class_weight="balanced" and break_ties on wine,
+   digits and iris; GPR with 3 restarts from random_state=0 on diabetes;
+   GPC one_vs_one and warm_start on iris, wine and digits), card against
+   CPU at the same bounds and every val/test metric against sklearn's in
+   `results/kernel_baselines_options.json`
+   (`studies/kernel_baselines_options_ref.py`). Each fit's seconds on the
+   card and the CPU, the SMO iterations and support vectors per pair, the
+   L-BFGS evaluations and the Newton iterations are printed.
+
+The kernels' operands at the paths' shapes are drawn on the card from
+seeded generators. Each kernel is held once at a shape, whichever phase
+gives it first, except where a later path times it there.
 
 Each path resets the launch counters just before it runs and reads them just
 after. The line before last is a JSON object of the kernels' results; the
@@ -320,11 +339,13 @@ def env(**values):
                 os.environ[k] = v
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 5, once_over: float = float("inf")) -> float:
     """fn's device time: the median over `reps` runs of CUDA events around n
     back-to-back calls, divided by n. A warm-up call picks n so that a run
     lasts about 2 ms (at most 100 calls; 1 for calls of 2 ms or more), so a
-    short kernel is timed over many launches, not one."""
+    short kernel is timed over many launches, not one. Where the warm-up
+    call takes `once_over` ms or more, one more call timed alone is the
+    time (plain_time_ms)."""
     import torch
 
     def run(n):
@@ -337,8 +358,23 @@ def time_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
-    n = int(min(100, max(1, np.ceil(2.0 / max(run(1), 1e-3)))))
+    first = run(1)
+    if first >= once_over:
+        return float(run(1))
+    n = int(min(100, max(1, np.ceil(2.0 / max(first, 1e-3)))))
     return float(np.median([run(n) for _ in range(reps)]))
+
+
+# a plain version that runs this many times its kernel's time or more is
+# timed by one call: its time is a record beside the kernel's, no yardstick
+PLAIN_ONCE_RATIO = 10
+
+
+def plain_time_ms(fn, kernel_ms: float) -> float:
+    """A plain version's time beside its kernel's `kernel_ms`: one timed call
+    after the warm-up where it runs PLAIN_ONCE_RATIO x the kernel's time or
+    more, else time_ms's median of 5."""
+    return time_ms(fn, once_over=PLAIN_ONCE_RATIO * kernel_ms)
 
 
 def graph_ms(fn, calls: int = 20) -> float:
@@ -567,7 +603,7 @@ def int8_gram_entry(where, Q1, s1, Q2, s2, acc, timed=True):
         f"{l2 / ms / 1e9:.2f} TB/s; {mm_note}")
     return dict(
         name="gram_pair_q", dtype="int8", err=0.0, ms=ms,
-        plain_ms=time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc)),
+        plain_ms=plain_time_ms(lambda: kg.gram_pair_q_plain(Q1, s1, Q2, s2, acc), ms),
         library_ms=None,
         # the upper 512-slab pairs, diagonal slabs whole; their tiles of the
         # carry read and written once
@@ -656,7 +692,8 @@ def check_retile_hmix(device, S, C, D, dtype, shift=0, timed=False):
     runs, rps = kg.hmix_plan(S, C, Dp, J3.element_size(), kg.sm_count(J3.device))
     entry = dict(
         name="retile_hmix", dtype=kind, err=float(dK.max()), ms=ms,
-        plain_ms=time_ms(lambda: kg.retile_hmix_plain(J3, H, Dp, gvec)), library_ms=None,
+        plain_ms=plain_time_ms(lambda: kg.retile_hmix_plain(J3, H, Dp, gvec), ms),
+        library_ms=None,
         # the class mix and the rhs: a multiply and an add per term, in f32
         bound=bound(2.0 * S * C * (C + 1) * D, nbytes(J3, H, gvec, Jt, Kt, b), "f32"),
         note=f"A2/A3 chunk (S={S}, C={C}, D={D}, Dp={Dp}), Jt bit-equal, Kt max "
@@ -683,10 +720,10 @@ def quantize_entry(where, Jt, Kt, block, timed):
     if not timed:
         return q, None
     Q2, s2 = q[2:]
+    ms = time_ms(lambda: kg.quantize_tiled(Kt, block))
     return q, dict(
-        name="quantize_tiled", dtype="bf16", err=0.0,
-        ms=time_ms(lambda: kg.quantize_tiled(Kt, block)),
-        plain_ms=time_ms(lambda: kg.quantize_tiled_plain(Kt, block)),
+        name="quantize_tiled", dtype="bf16", err=0.0, ms=ms,
+        plain_ms=plain_time_ms(lambda: kg.quantize_tiled_plain(Kt, block), ms),
         library_ms=None,
         # |x|, max, x * (1/s), round: 4 operations an element
         bound=bound(4.0 * Kt.numel(), nbytes(Kt, Q2, s2), "f32"),
@@ -730,10 +767,10 @@ def k6_bf16_entry(where, Jt, Kt, D, timed):
     Jf, Kf = Jt.float(), Kt.float()
     up = time_ms(lambda: acc.addmm_(Jf.T, Kf))
     del Jf, Kf
+    ms = time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc, D=D))
     return dict(
-        name="gram_pair_tiled", dtype="bf16", err=err,
-        ms=time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc, D=D)),
-        plain_ms=time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc)),
+        name="gram_pair_tiled", dtype="bf16", err=err, ms=ms,
+        plain_ms=plain_time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc), ms),
         library_ms=lib,
         bound=bound(gram_ops(rows, D), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
         note=f"{where} with carry ({rows}x{Dp}, D {D}, bf16 from K1), tol {tol:.3g}; "
@@ -764,10 +801,10 @@ def k6_f32_entry(device, where, rows, D, timed):
     fma = time_ms(lambda: kg._launch_wgram_split(J6, None, 0, None, acc, D, True, 1,
                                                  "gram_pair", Y=K6, has_acc=True))
     u = 2.0 ** -24
+    ms = time_ms(lambda: kg.gram_pair(J6, K6, acc=acc, D=D))
     return dict(
-        name="gram_pair_tiled", dtype="f32", err=err,
-        ms=time_ms(lambda: kg.gram_pair(J6, K6, acc=acc, D=D)),
-        plain_ms=time_ms(lambda: kg.gram_pair_plain(J6, K6, acc=acc)),
+        name="gram_pair_tiled", dtype="f32", err=err, ms=ms,
+        plain_ms=plain_time_ms(lambda: kg.gram_pair_plain(J6, K6, acc=acc), ms),
         library_ms=time_ms(lambda: acc.addmm_(J6.T, K6)),
         # three TF32 products a multiply-add
         bound=bound(3 * gram_ops(rows, D), nbytes(J6, K6) + 2 * nbytes(acc), "tf32"),
@@ -784,14 +821,14 @@ def k10_entry(device, where, rows, D4, kind, timed, seed=0):
     operands. With `timed`, its kernels entry (else None)."""
     import torch
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
-    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch.bfloat16 if kind == "bf16" else torch.float32
     sms = kg.sm_count(device)
     _, splits, rps = kg.wgram_plan(rows, D4, 1, True, sms)
     log(f"[kernels] gram_pair plan at {rows}x{D4} ({where}): {splits} row splits of "
         f"{rps} rows on {sms} SMs")
-    X, Y = (torch.tensor(rng.standard_normal((rows, D4), np.float32) * 0.05,
-                         device=device).to(dt) for _ in range(2))
+    X, Y = ((torch.randn((rows, D4), generator=gen, device=device) * 0.05).to(dt)
+            for _ in range(2))
     A = kg.mirror_gram(kg.gram_pair(X, Y))
     A_p = kg.mirror_gram(kg.gram_pair_plain(X, Y))
     torch.cuda.synchronize()
@@ -832,7 +869,7 @@ def k10_entry(device, where, rows, D4, kind, timed, seed=0):
         lib = time_ms(lambda: torch.mm(X.T, Y))
         note += "library: torch.mm on the f32 operands"
     return dict(name="gram_pair", dtype=kind, err=err, ms=ms,
-                plain_ms=time_ms(lambda: kg.gram_pair_plain(X, Y)), library_ms=lib,
+                plain_ms=plain_time_ms(lambda: kg.gram_pair_plain(X, Y), ms), library_ms=lib,
                 bound=bound(gram_ops(rows, D4), nbytes(X, Y) + 4 * D4 * D4, kind),
                 note=note)
 
@@ -1053,7 +1090,7 @@ def check_weighted_kernels(device, small=False):
     import torch
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
 
-    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=device).manual_seed(2)
     if small:
         rows2, D2, rows3, D3 = 64, 300, 333, 137
         own = [(100, 1, 137, torch.float32), (48, 3, 150, torch.bfloat16)]
@@ -1067,8 +1104,10 @@ def check_weighted_kernels(device, small=False):
     Dp2 = kg.plan_tiles(D2)[3]
 
     def randn(*shape, dtype=torch.float32):
-        return torch.tensor(rng.standard_normal(shape, np.float32),
-                            device=device).to(dtype)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def h_of(rows):
+        return torch.rand(rows, generator=gen, device=device) * 1.5 + 0.5
 
     def within(name, A, A_p, rows):
         err = float((A - A_p).abs().max())
@@ -1079,7 +1118,7 @@ def check_weighted_kernels(device, small=False):
 
     results = []
     # K8: bit-equal in both dtypes, with and without the fused Kt
-    h2 = torch.tensor(rng.uniform(0.5, 2.0, rows2).astype(np.float32), device=device)
+    h2 = h_of(rows2)
     for dt in (torch.float32, torch.bfloat16):
         X = randn(rows2, D2, dtype=dt)
         for h in (None, h2):
@@ -1112,8 +1151,7 @@ def check_weighted_kernels(device, small=False):
         acc_p = torch.zeros_like(acc)
         for _ in range(2):
             Xt, _ = kg.retile_rows(randn(rows2, D2, dtype=dt), Dp2)
-            h = torch.tensor(rng.uniform(0.5, 2.0, rows2).astype(np.float32),
-                             device=device)
+            h = h_of(rows2)
             kg.weighted_gram_tiled(Xt, h, acc, D2)
             kg.weighted_gram_tiled_plain(Xt, h, acc_p)
         if acc[D2:].any() or acc[:, D2:].any():
@@ -1127,7 +1165,7 @@ def check_weighted_kernels(device, small=False):
             full = time_ms(lambda: acc.addmm_(Xw.T, Xt))
             # over the node's D, as the kernel computes it
             accD, XwD, XtD = acc[:D2, :D2], Xw[:, :D2], Xt[:, :D2]
-            times = (ms, time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)),
+            times = (ms, plain_time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc), ms),
                      time_ms(lambda: accD.addmm_(XwD.T, XtD)), full,
                      bound(gram_ops(rows2, D2) + rows2 * D2,
                            rows2 * D2 * 4 + nbytes(h) + 2 * 4 * D2 * D2, "f32"))
@@ -1146,7 +1184,7 @@ def check_weighted_kernels(device, small=False):
     # K9: the flat weighted Gram of the merged A3, f32, held entry by entry
     # to a float64 plain version; a bf16-rounded result must fail the check
     X3 = randn(rows3, D3)
-    h3 = torch.tensor(rng.uniform(0.5, 2.0, rows3).astype(np.float32), device=device)
+    h3 = h_of(rows3)
     sms = kg.sm_count(device)
     _, splits9, rps9 = kg.wgram_plan(rows3, D3, 1, True, sms)
     log(f"[kernels] weighted_gram plan at {rows3}x{D3}: {splits9} row splits of "
@@ -1175,7 +1213,7 @@ def check_weighted_kernels(device, small=False):
     err_b, tol_b = within("weighted_gram (bf16)", kg.mirror_gram(kg.weighted_gram(Xb, h3)),
                           kg.mirror_gram(kg.weighted_gram_plain(Xb, h3)), rows3)
     ms_b = time_ms(lambda: kg.weighted_gram(Xb, h3))
-    plain_b = time_ms(lambda: kg.weighted_gram_plain(Xb, h3))
+    plain_b = plain_time_ms(lambda: kg.weighted_gram_plain(Xb, h3), ms_b)
     Xwb = kg._weighted_operand(Xb, h3).to(torch.bfloat16)
     with bf16_f32_reduction():
         lib_b = time_ms(lambda: torch.mm(Xwb.T, Xb))
@@ -1188,8 +1226,8 @@ def check_weighted_kernels(device, small=False):
     Xw = kg._weighted_operand(X3, h3)  # the library call's operand
     results.append(dict(
         name="weighted_gram", dtype="f32", err=float((A.double() - A64).abs().max()),
-        ms=time_ms(lambda: kg.weighted_gram(X3, h3)),
-        plain_ms=time_ms(lambda: kg.weighted_gram_plain(X3, h3)),
+        ms=(ms3 := time_ms(lambda: kg.weighted_gram(X3, h3))),
+        plain_ms=plain_time_ms(lambda: kg.weighted_gram_plain(X3, h3), ms3),
         library_ms=time_ms(lambda: torch.mm(Xw.T, X3)),
         bound=bound(gram_ops(rows3, D3) + rows3 * D3, nbytes(X3, h3) + 4 * D3 * D3,
                     "f32"),
@@ -1221,7 +1259,7 @@ def check_weighted_kernels(device, small=False):
         errs.append(err)
         del A, A_p
         ms = time_ms(lambda: kg.own_out_gram(Jt, H, C_, DJ))
-        plain = time_ms(lambda: kg.own_out_gram_plain(Jt, H, C_, DJ))
+        plain = plain_time_ms(lambda: kg.own_out_gram_plain(Jt, H, C_, DJ), ms)
         # the library call: one batched product over the pre-weighted pairs
         J = Jt[:, :DJ]
         W = torch.stack([(J.float() * H[:, p, q, None]).to(dt)
@@ -2313,16 +2351,14 @@ def check_zoo_shapes(device, path, seen, done):
     import torch
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
     log(f"[zoo] {path}: shapes {sorted(str(s) for s in seen)}")
-    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=device).manual_seed(11)
     results = []
 
     def randn(*shape, dtype=torch.float32):
-        return torch.tensor(rng.standard_normal(shape, np.float32),
-                            device=device).to(dtype)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
 
     def h_of(rows):
-        return torch.tensor(rng.uniform(0.5, 2.0, rows).astype(np.float32),
-                            device=device)
+        return torch.rand(rows, generator=gen, device=device) * 1.5 + 0.5
 
     def label(entry):
         return dict(entry, dtype=f"f32, {path}")
@@ -2371,8 +2407,9 @@ def check_zoo_shapes(device, path, seen, done):
                 accD, XwD, XtD = acc[:D, :D], Xw[:, :D], Xt[:, :D]
                 results.append(label(dict(
                     name="weighted_gram_tiled", err=err,
-                    ms=time_ms(lambda: kg.weighted_gram_tiled(Xt, h, acc, D)),
-                    plain_ms=time_ms(lambda: kg.weighted_gram_tiled_plain(Xt, h, acc)),
+                    ms=(ms := time_ms(lambda: kg.weighted_gram_tiled(Xt, h, acc, D))),
+                    plain_ms=plain_time_ms(
+                        lambda: kg.weighted_gram_tiled_plain(Xt, h, acc), ms),
                     library_ms=time_ms(lambda: accD.addmm_(XwD.T, XtD)),
                     bound=bound(gram_ops(rows, D) + rows * D,
                                 rows * D * 4 + nbytes(h) + 2 * 4 * D * D, "f32"),
@@ -2396,8 +2433,8 @@ def check_zoo_shapes(device, path, seen, done):
                 Xw = kg._weighted_operand(X, h)
                 results.append(label(dict(
                     name="weighted_gram", err=err,
-                    ms=time_ms(lambda: kg.weighted_gram(X, h)),
-                    plain_ms=time_ms(lambda: kg.weighted_gram_plain(X, h)),
+                    ms=(ms := time_ms(lambda: kg.weighted_gram(X, h))),
+                    plain_ms=plain_time_ms(lambda: kg.weighted_gram_plain(X, h), ms),
                     library_ms=time_ms(lambda: torch.mm(Xw.T, X)),
                     bound=bound(gram_ops(rows, D) + rows * D, nbytes(X, h) + 4 * D * D,
                                 "f32"),
@@ -3862,9 +3899,10 @@ def run_kernel_baselines(device, card: str) -> dict:
     classification on iris, wine, breast_cancer and digits, card against
     CPU; (iii) every val/test metric of the card's runs held to sklearn's
     (results/kernel_baselines.json: accuracy within one row, rmse within
-    kernel_baselines.RMSE_RTOL). Prints each fit's seconds on both, the SMO
-    iterations and support vectors per pair, the L-BFGS evaluations and the
-    Newton iterations. Returns the card's metrics."""
+    kernel_baselines.RMSE_RTOL); (iv) run_kernel_baseline_options. Prints
+    each fit's seconds on both, the SMO iterations and support vectors per
+    pair, the L-BFGS evaluations and the Newton iterations. Returns the
+    card's metrics."""
     import torch
     from tensornetworksfork_tpu_torch.experiments import kernel_baselines as kb
     from tensornetworksfork_tpu_torch.experiments import train_tabular
@@ -3977,12 +4015,160 @@ def run_kernel_baselines(device, card: str) -> dict:
         f"{'all within' if not bad else bad}")
     if bad:
         raise AssertionError(f"kernel baselines part from sklearn's: {bad}")
+    got["options"] = run_kernel_baseline_options(device, card)
     log(f"[kernel baselines] {card}: phase 14 took {time.perf_counter() - t14:.1f} s")
     return got
 
 
-def main() -> int:
+def run_kernel_baseline_options(device, card: str) -> dict:
+    """Phase 14 (iv): each of the wrappers' sklearn options
+    (kernel_baselines.OPTIONS: SVC class_weight="balanced" and break_ties on
+    wine, digits and iris; GPR with 3 restarts from random_state=0 on
+    diabetes; GPC one_vs_one and warm_start on iris, wine and digits)
+    fitted on the card and on the CPU and held card against CPU at phase
+    14's bounds: the SVM's pair decision values within KB_SVM_DEC_ATOL and
+    its labels equal; GPR theta, lml and predictions within the KB_GPR
+    bounds (each run's -lml and the run kept printed); GPC's pairs' (or
+    classes') P(class 1), one_vs_one's decision values and warm_start's
+    probabilities within KB_GPC_PROBA_ATOL, the lml within KB_GPC_LML_RTOL,
+    labels equal. Every val/test metric of the card's fits held to
+    sklearn's (results/kernel_baselines_options.json). Prints each fit's
+    seconds on both, SMO iterations, L-BFGS evaluations and Newton
+    iterations. Returns the card's metrics."""
     import torch
+    from tensornetworksfork_tpu_torch.experiments import kernel_baselines as kb
+    cpu = torch.device("cpu")
+    with open(kb.OPTIONS_REFERENCE) as f:
+        ref = json.load(f)
+    got = {}
+    for option, (fam, params, tables) in kb.OPTIONS.items():
+        got[option] = {}
+        for name in tables:
+            data, task = kb.table(name)
+            X = np.concatenate([data["X_val"], data["X_test"]])
+            fits = {}
+            for dev in (device, cpu):
+                w = kb.option_model(option, task, str(dev))
+                _, sec = _kb_timed(dev, lambda: w.fit(data["X_train"], data["y_train"]))
+                fits[dev.type] = (w, sec)
+            (w, card_s), (wc, cpu_s) = fits["cuda"], fits["cpu"]
+            got[option][name] = kb.metrics(w, data, task)
+            what = (f"[kernel baselines] {card}: {option} {name} ({task}, "
+                    f"{len(data['X_train'])} training rows): fit {card_s:.3f} s on the "
+                    f"card, {cpu_s:.3f} s on the CPU")
+            if fam == "svm":
+                dec = w.model_.decision(w._x(X)).cpu().numpy()
+                dec_c = wc.model_.decision(wc._x(X)).cpu().numpy()
+                d = float(np.abs(dec - dec_c).max())
+                same = np.array_equal(w.predict(X), wc.predict(X))
+                log(f"{what}; class weights {w.class_weight_.tolist()}; SMO iterations "
+                    f"{w.n_iter_} (CPU {wc.n_iter_}); support vectors "
+                    f"{w.model_.n_support}; max |d decision| card vs CPU {d:.3g} (bound "
+                    f"{KB_SVM_DEC_ATOL}); labels equal {same}")
+                ok = d <= KB_SVM_DEC_ATOL and np.isfinite(dec).all() and same
+            elif task == "regression":
+                f, fc = w.fit_, wc.fit_
+                lml, lml_c = w.log_marginal_likelihood_value_, wc.log_marginal_likelihood_value_
+                dl = abs(lml - lml_c) / abs(lml_c)
+                pred, pred_c = w.predict(X), wc.predict(X)
+                dt = float(np.abs(w.theta_ - wc.theta_).max())
+                dp = float(np.abs(pred - pred_c).max() / np.abs(pred_c).max())
+                log(f"{what}; L-BFGS evaluations {f.n_eval} (CPU {fc.n_eval}) over "
+                    f"{len(f.optima)} runs, -lml of each "
+                    f"{[float(v) for _, v in f.optima]} (CPU "
+                    f"{[float(v) for _, v in fc.optima]}), run kept {f.chosen} (CPU "
+                    f"{fc.chosen}); theta {w.theta_.tolist()} (|d| {dt:.3g}, bound "
+                    f"{KB_GPR_THETA_ATOL}); lml {lml!r} (CPU {lml_c!r}, rel {dl:.3g}, bound "
+                    f"{KB_GPR_LML_RTOL}); predictions |d| / max|pred| {dp:.3g} (bound "
+                    f"{KB_GPR_PRED_RTOL})")
+                ok = (dt <= KB_GPR_THETA_ATOL and dl <= KB_GPR_LML_RTOL
+                      and dp <= KB_GPR_PRED_RTOL and np.isfinite(pred).all())
+            else:
+                Xs = w._x(X)
+                p1, p1_c = w.fit_.proba(Xs).cpu().numpy(), wc.fit_.proba(wc._x(X)).numpy()
+                lml, lml_c = w.log_marginal_likelihood_value_, wc.log_marginal_likelihood_value_
+                dl = abs(lml - lml_c) / abs(lml_c)
+                if w._one_vs_one:
+                    out, out_c = w.decision_function(X), wc.decision_function(X)
+                    held = "decision values"
+                else:
+                    out, out_c = w.predict_proba(X), wc.predict_proba(X)
+                    held = "probabilities"
+                dp = float(max(np.abs(p1 - p1_c).max(), np.abs(out - out_c).max()))
+                same = np.array_equal(w.predict(X), wc.predict(X))
+                newton = (f"{w.first_fit_.n_iter}, then from its f {w.fit_.n_iter}"
+                          if params.get("warm_start") else f"{w.fit_.n_iter}")
+                log(f"{what}; {len(w.fit_.n_iter)} binary fit(s); Newton iterations "
+                    f"{newton}; lml {lml!r} (CPU "
+                    f"{lml_c!r}, rel {dl:.3g}, bound {KB_GPC_LML_RTOL}); max |d| of the "
+                    f"binary fits' P(class 1) and the {held} {dp:.3g} (bound "
+                    f"{KB_GPC_PROBA_ATOL}); labels equal {same}")
+                ok = (dp <= KB_GPC_PROBA_ATOL and dl <= KB_GPC_LML_RTOL and same
+                      and np.isfinite(out).all())
+            if not ok:
+                raise AssertionError(f"{option} {name}: card and CPU part")
+    for option, tables in got.items():
+        for name, mets in tables.items():
+            log(f"[kernel baselines] {card}: {option} {name}: "
+                + ", ".join(f"{k} {v!r} (sklearn {ref['options'][option][name][k]!r})"
+                            for k, v in mets.items()))
+    bad = kb.compare_options(got, ref)
+    log(f"[kernel baselines] {card}: options against {kb.OPTIONS_REFERENCE} (sklearn "
+        f"{ref['sklearn']}; accuracy within one row, rmse within {kb.RMSE_RTOL} "
+        f"relative): {'all within' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"kernel baseline options part from sklearn's: {bad}")
+    return got
+
+
+# phases every run takes: the environment, the build, the kernel checks and
+# the main path (phase 4's flagship swipes and phase 5's regression fit),
+# whose launches the kernels line gives phase 3's entries
+ALWAYS = (1, 2, 3, 4, 5)
+# the phases whose outputs a phase takes: phase 4's params and walls, phase
+# 5's estimator, phase 7's headline model and config
+NEEDS = {11: (4, 5, 7), 12: (4,), 13: (4,)}
+N_PHASES = 14
+
+
+def parse_phases(spec):
+    """The phases that a --phases value asks for ("1-10", "11-14", "3,7,14";
+    None: all), with ALWAYS and, transitively, the phases each of them
+    needs (NEEDS), in order."""
+    if spec is None:
+        want = set(range(1, N_PHASES + 1))
+    else:
+        want = set()
+        for part in spec.split(","):
+            lo, _, hi = part.strip().partition("-")
+            a, b = int(lo), int(hi or lo)
+            if not 1 <= a <= b <= N_PHASES:
+                raise ValueError(f"--phases {spec!r}: {part!r} is not a range within "
+                                 f"1-{N_PHASES}")
+            want.update(range(a, b + 1))
+    want.update(ALWAYS)
+    todo = sorted(want)
+    while todo:
+        for p in NEEDS.get(todo.pop(), ()):
+            if p not in want:
+                want.add(p)
+                todo.append(p)
+    return sorted(want)
+
+
+def main(argv=None) -> int:
+    import argparse
+    import threading
+
+    import torch
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch + CUDA port "
+                                 "on one NVIDIA GPU.")
+    ap.add_argument("--phases", default=None,
+                    help="the phases to run, e.g. 1-10 or 11-14 or 3,14 (default: all); "
+                         f"phases {ALWAYS} always run, and a phase runs the phases "
+                         "whose outputs it takes")
+    args = ap.parse_args(argv)
+    phases = parse_phases(args.phases)
     start = time.perf_counter()
 
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -3996,26 +4182,62 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     log("[env] nvidia-smi --query-gpu=name,power.limit --format=csv,noheader:")
     log(smi)
+    log(f"[env] phases {phases}" + ("" if args.phases is None else
+                                    f" (--phases {args.phases}, with phases {ALWAYS} "
+                                    "and the phases they take outputs from)"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
+    # the build: nvcc runs in subprocesses, beside phase 14 where that runs
+    # (no Gram kernel runs there), else alone
     from tensornetworksfork_tpu_torch.ops.cuda import _build
-    t0 = time.perf_counter()
-    path = _build.lib()._name
+    built = {}
+
+    def build():
+        t = time.perf_counter()
+        try:
+            built["path"] = _build.lib()._name
+        except BaseException as err:  # raised in the main thread below
+            built["error"] = err
+        built["seconds"] = time.perf_counter() - t
+
+    if 14 in phases:
+        builder = threading.Thread(target=build, name="nvcc build")
+        builder.start()
+        t14 = time.perf_counter()
+        run_kernel_baselines(device, smi)
+        log(f"[env] phase 14 took {time.perf_counter() - t14:.1f} s, beside the build")
+        builder.join()
+    else:
+        build()
+    if "error" in built:
+        raise built["error"]
     # per kernel: its name, registers, spills, and ptxas's warnings (C7517:
     # a wgmma serialised by an injected warpgroup.wait)
     ptxas = [ln for ln in _build.BUILD_INFO["log"].splitlines()
              if any(w in ln for w in ("Compiling entry", "registers", "spill", "arning"))]
-    log(f"[build] {path}: {time.perf_counter() - t0:.2f} s "
+    log(f"[build] {built['path']}: {built['seconds']:.2f} s "
         f"(nvcc {_build.BUILD_INFO['seconds']})")
     for ln in ptxas:
         log(f"[build] {ln.strip()}")
 
+    t3 = time.perf_counter()
     kernels = check_kernels(device) + check_weighted_kernels(device)
+    log(f"[env] phase 3 took {time.perf_counter() - t3:.1f} s")
+    # each entry's launches: phase 3's from the main path's runs (below),
+    # every later phase's from the run of the path its dtype names
+    base, by_path = {}, {}
+    # the paths' launches beside the kernels of the operand type each gives
+    # them: bf16 J (int8 codes) in the fastest tier, f32 J in the others
+    low, full = ("bf16", "int8"), ("f32",)
+    paths = {}
+    # every kernel is held once at a shape (K6 in f32 and K10 against
+    # float64 too), unless a path times it there
+    done = set()
+
+    t4 = time.perf_counter()
     int8 = run_slice(device, "int8")
-    flagship = int8["launches"]
     slice32, slice16 = run_slice(device, "f32"), run_slice(device, "bf16")
-    flagship32, flagship16 = slice32["launches"], slice16["launches"]
     fastest = run_slice(device, "fastest")
     drift = abs(fastest["loss1"] - int8["loss1"]) / int8["loss1"]
     log(f"[slice] {smi}: fastest (bench.py's tier) {fastest['wall']:.3f} s, loss "
@@ -4023,159 +4245,148 @@ def main() -> int:
         f"{int8['loss1']:.6f}; |d loss| / loss {drift:.3g} (bound {AUX_LOSS_RTOL})")
     if not drift <= AUX_LOSS_RTOL:
         raise AssertionError(f"the bf16 aux tier moved the swipe's loss by {drift:.3g}")
-    fit, own, fit8, reg = run_regression(device)
-    check_reference(device)
-    t7 = time.perf_counter()
-    image, image_seen, headline, headline_config = run_image_trainer(device)
-    digits, digits_seen = {}, {}
-    for tier in ("reference", "fastest"):
-        digits[tier], digits_seen[tier] = run_digits_gate(device, tier)
-    # the kernels at every shape phase 7's paths gave them
-    done = set()
-    path_runs = {"train_image fastest": (image, image_seen),
-                 "digits reference": (digits["reference"], digits_seen["reference"]),
-                 "digits fastest": (digits["fastest"], digits_seen["fastest"])}
-    for path, (_, seen) in path_runs.items():
-        kernels += check_path_shapes(device, path, seen, done)
-    log(f"[env] phase 7 took {time.perf_counter() - t7:.1f} s, its shape checks included")
-
-    t8 = time.perf_counter()
-    check_f64_ladder(device)
-    f64_solve_times(device, smi)
-    fit64 = run_regression_f64(device, smi)
-    check_krylov(device, card=smi)
-    check_iterative_sweeps(device)
-    t8d = time.perf_counter()
-    cifar, _ = run_cifar_minres(device, smi)
-    log(f"[env] phase 8 took {time.perf_counter() - t8:.1f} s, its headline "
-        f"{time.perf_counter() - t8d:.1f} s")
-
-    t9 = time.perf_counter()
-    check_zoo_reference(device)
-    zoo_width = run_zoo_width(device, smi)
-    done9 = set()
-    for path, (_, seen) in zoo_width.items():
-        kernels += check_zoo_shapes(device, f"zoo width {path}", seen, done9)
-    zoo_table = run_zoo_table(device, smi)
-    log(f"[env] phase 9 took {time.perf_counter() - t9:.1f} s, its table "
-        f"{zoo_table['wall']:.1f} s")
-
-    t10 = time.perf_counter()
-    grow = {f"grow_cart {tier}": run_grow_cart_path(device, tier, smi)
-            for tier in ("fastest", "f32")}
-    grow.update(run_dmrg_path(device, smi))
-    grow.update(run_batch_paths(device, smi))
-    grow.update(check_phase10_rest(device, smi))
-    t10c = time.perf_counter()
-    done10 = set()
-    for path, (_, seen) in grow.items():
-        kernels += check_growth_shapes(device, path, seen, done10)
-    log(f"[env] phase 10 took {time.perf_counter() - t10:.1f} s, its shape checks "
-        f"{time.perf_counter() - t10c:.1f} s")
-
-    t11 = time.perf_counter()
-    test_split, phase11 = run_serving(device, smi, headline, headline_config, reg)
-    phase11.update(run_native_stream(device, smi))
-    check_checkpoint(device, headline, headline_config, test_split)
-    record_flops(device, smi, {"int8": int8["wall"], "bf16": slice16["wall"],
-                               "f32": slice32["wall"], "fastest": fastest["wall"]})
-    phase11.update(check_trace(device))
-    phase11.update(run_digits_flat_gate(device, smi))
-    t11c = time.perf_counter()
-    # every kernel at every shape phase 11's paths gave it
-    for path, (_, seen) in phase11.items():
-        kernels += check_growth_shapes(device, path, seen, done10)
-    grow.update(phase11)
-    log(f"[env] phase 11 took {time.perf_counter() - t11:.1f} s, its shape checks "
-        f"{time.perf_counter() - t11c:.1f} s")
-
-    t12 = time.perf_counter()
-    phase12 = run_mesh(device, smi, {"flagship int8": int8["params"],
-                                     "flagship f32": slice32["params"]})
-    t12d = time.perf_counter()
-    phase12.update(run_drivers(device, smi))
-    t12c = time.perf_counter()
-    # every kernel at every shape a rank or a driver gave it
-    for path, (_, seen) in phase12.items():
-        kernels += check_growth_shapes(device, path, seen, done10)
-    grow.update(phase12)
-    log(f"[env] phase 12 took {time.perf_counter() - t12:.1f} s: the mesh "
-        f"{t12d - t12:.1f} s, the drivers {t12c - t12d:.1f} s, the shape checks "
-        f"{time.perf_counter() - t12c:.1f} s")
-
-    t13 = time.perf_counter()
-    single = {"flagship int8": int8["params"], "flagship f32": slice32["params"]}
-    phase13 = run_mesh2d(device, smi, single)
-    t13d = time.perf_counter()
-    check_high_products(device, smi)
-    phase13.update(run_precisions(device, smi, single))
-    t13c = time.perf_counter()
-    # every kernel at every shape a rank or the high-aux swipe gave it
-    for path, (_, seen) in phase13.items():
-        kernels += check_growth_shapes(device, path, seen, done10)
-    grow.update(phase13)
-    log(f"[env] phase 13 took {time.perf_counter() - t13:.1f} s: the 2-D mesh "
-        f"{t13d - t13:.1f} s, the precisions {t13c - t13d:.1f} s, the shape checks "
-        f"{time.perf_counter() - t13c:.1f} s")
-
-    t14 = time.perf_counter()
-    run_kernel_baselines(device, smi)
-    log(f"[env] phase 14 took {time.perf_counter() - t14:.1f} s")
-
-    # each kernel's launches come from the run of the path that drives it:
     # the flagship's int8 swipe (K10 on bf16 operands), its f32 swipe (K6
-    # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands), the
-    # regression fit, its own-out swipe (K11) and its int8 swipe (K3 at
+    # and K10 on f32 operands), its bf16 swipe (K6 on bf16 operands)
+    flagship, flagship32 = int8["launches"], slice32["launches"]
+    base.update({("retile_hmix", "bf16"): flagship["retile_hmix"],
+                 ("retile_hmix", "f32"): flagship32["retile_hmix"],
+                 ("quantize_tiled", "bf16"): flagship["quantize_tiled"],
+                 ("gram_pair_q", "int8"): flagship["gram_pair_q"],
+                 ("gram_pair", "bf16"): flagship["gram_pair"],
+                 ("gram_pair_tiled", "f32"): flagship32["gram_pair_tiled"],
+                 ("gram_pair_tiled", "bf16"): slice16["launches"]["gram_pair_tiled"],
+                 ("gram_pair", "f32"): flagship32["gram_pair"]})
+    paths["flagship fastest"] = (fastest["launches"], low)
+    log(f"[env] phase 4 took {time.perf_counter() - t4:.1f} s")
+
+    t5 = time.perf_counter()
+    fit, own, fit8, reg = run_regression(device)
+    # the regression fit, its own-out swipe (K11) and its int8 swipe (K3 at
     # the regression's chunk)
-    launches = {("retile_hmix", "bf16"): flagship["retile_hmix"],
-                ("retile_hmix", "f32"): flagship32["retile_hmix"],
-                ("quantize_tiled", "bf16"): flagship["quantize_tiled"],
-                ("gram_pair_q", "int8"): flagship["gram_pair_q"],
-                ("gram_pair_q", "int8, regression chunk"): fit8["gram_pair_q"],
-                ("gram_pair", "bf16"): flagship["gram_pair"],
-                ("gram_pair_tiled", "f32"): flagship32["gram_pair_tiled"],
-                ("gram_pair_tiled", "bf16"): flagship16["gram_pair_tiled"],
-                ("gram_pair", "f32"): flagship32["gram_pair"],
-                **{(k, "f32"): fit[k] for k in REGRESSION_KERNELS},
-                ("own_out_gram", "f32"): own["own_out_gram"],
-                # phase 7's kernels at its paths' shapes: that path's launches
-                **{(k["name"], k["dtype"]): path_runs[k["dtype"].split(", ", 1)[1]][0][k["name"]]
-                   for k in kernels if k["dtype"].split(", ", 1)[-1] in path_runs},
-                # phase 9's kernels at its width paths' shapes: that path's launches
-                **{(k["name"], k["dtype"]): zoo_width[k["dtype"].split(", zoo width ", 1)[1]][0][
-                    k["name"]] for k in kernels if ", zoo width " in k["dtype"]},
-                # phase 10's and 11's kernels at their paths' shapes: that path's launches
-                **{(k["name"], k["dtype"]): grow[k["dtype"].split(", ", 1)[1]][0][k["name"]]
-                   for k in kernels if k["dtype"].split(", ", 1)[-1] in grow}}
-    # this slice's paths: bf16 J (int8 codes) in the fastest tier, f32 J in
-    # the reference tier
-    low, full = ("bf16", "int8"), ("f32",)
-    paths = {"flagship fastest": (fastest["launches"], low),
-             "train_image fastest": (image, low),
-             "digits reference": (digits["reference"], full),
-             "digits fastest": (digits["fastest"], low),
-             # phase 8: the float64 fit (f32 operands), and the matrix-free
-             # CIFAR_minres swipe, which launches none of the kernels
-             "regression float64": (fit64, full),
-             "train_image cifar_minres": (cifar, low + full),
-             # phase 9: the zoo's width paths and its table, all in f32
-             **{f"zoo width {p}": (runs, full) for p, (runs, _) in zoo_width.items()},
-             "zoo table": (zoo_table["launches"], full),
-             # phase 10: grow_cart in the fastest tier (bf16 J, int8 codes)
-             # and in f32; the other growth and estimator paths in f32, as
-             # are phase 11's (in grow): the TNML serving fit, the native
-             # stream's fits, the traced swipe and digits_flat; and phase
-             # 12's: the mesh's flagship in int8 and f32 (both ranks'
-             # launches), its tabular fit and minres swipe, the drivers'
-             # fits; and phase 13's: the 2-D mesh's flagship in int8 and f32
-             # and the 4-rank int8 swipe (every rank's launches), its minres
-             # swipe, the flagship int8 swipe with the high aux tier
-             **{p: (runs, low if p in ("grow_cart fastest", "mesh flagship int8 (2 ranks)",
-                                       "mesh2d flagship int8 (2 x 2)",
-                                       "mesh2d flagship int8, 1-D (4 ranks)",
-                                       "flagship int8, high aux")
-                    else full)
-                for p, (runs, _) in grow.items()}}
+    base.update({**{(k, "f32"): fit[k] for k in REGRESSION_KERNELS},
+                 ("own_out_gram", "f32"): own["own_out_gram"],
+                 ("gram_pair_q", "int8, regression chunk"): fit8["gram_pair_q"]})
+    log(f"[env] phase 5 took {time.perf_counter() - t5:.1f} s")
+
+    if 6 in phases:
+        t6 = time.perf_counter()
+        check_reference(device)
+        log(f"[env] phase 6 took {time.perf_counter() - t6:.1f} s")
+
+    if 7 in phases:
+        t7 = time.perf_counter()
+        image, image_seen, headline, headline_config = run_image_trainer(device)
+        digits, digits_seen = {}, {}
+        for tier in ("reference", "fastest"):
+            digits[tier], digits_seen[tier] = run_digits_gate(device, tier)
+        # the kernels at every shape phase 7's paths gave them
+        path_runs = {"train_image fastest": (image, image_seen, low),
+                     "digits reference": (digits["reference"], digits_seen["reference"], full),
+                     "digits fastest": (digits["fastest"], digits_seen["fastest"], low)}
+        for path, (runs, seen, kind) in path_runs.items():
+            kernels += check_path_shapes(device, path, seen, done)
+            by_path[path] = runs
+            paths[path] = (runs, kind)
+        log(f"[env] phase 7 took {time.perf_counter() - t7:.1f} s, its shape checks "
+            "included")
+
+    if 8 in phases:
+        t8 = time.perf_counter()
+        check_f64_ladder(device)
+        f64_solve_times(device, smi)
+        fit64 = run_regression_f64(device, smi)
+        check_krylov(device, card=smi)
+        check_iterative_sweeps(device)
+        t8d = time.perf_counter()
+        cifar, _ = run_cifar_minres(device, smi)
+        # the float64 fit (f32 operands), and the matrix-free CIFAR_minres
+        # swipe, which launches none of the kernels
+        paths["regression float64"] = (fit64, full)
+        paths["train_image cifar_minres"] = (cifar, low + full)
+        log(f"[env] phase 8 took {time.perf_counter() - t8:.1f} s, its headline "
+            f"{time.perf_counter() - t8d:.1f} s")
+
+    if 9 in phases:
+        t9 = time.perf_counter()
+        check_zoo_reference(device)
+        zoo_width = run_zoo_width(device, smi)
+        for path, (runs, seen) in zoo_width.items():
+            kernels += check_zoo_shapes(device, f"zoo width {path}", seen, done)
+            by_path[f"zoo width {path}"] = runs
+            paths[f"zoo width {path}"] = (runs, full)
+        zoo_table = run_zoo_table(device, smi)
+        paths["zoo table"] = (zoo_table["launches"], full)
+        log(f"[env] phase 9 took {time.perf_counter() - t9:.1f} s, its table "
+            f"{zoo_table['wall']:.1f} s")
+
+    def check_shapes(grow):
+        """Every kernel at every shape each of these paths gave it; their
+        launches beside the kernels of their operand type: grow_cart in the
+        fastest tier, the meshes' int8 swipes and the high aux tier's swipe
+        in bf16 J (int8 codes), every other path of phases 10-13 in f32."""
+        nonlocal kernels
+        for path, (runs, seen) in grow.items():
+            kernels += check_growth_shapes(device, path, seen, done)
+            by_path[path] = runs
+            paths[path] = (runs, low if path in (
+                "grow_cart fastest", "mesh flagship int8 (2 ranks)",
+                "mesh2d flagship int8 (2 x 2)", "mesh2d flagship int8, 1-D (4 ranks)",
+                "flagship int8, high aux") else full)
+
+    if 10 in phases:
+        t10 = time.perf_counter()
+        grow = {f"grow_cart {tier}": run_grow_cart_path(device, tier, smi)
+                for tier in ("fastest", "f32")}
+        grow.update(run_dmrg_path(device, smi))
+        grow.update(run_batch_paths(device, smi))
+        grow.update(check_phase10_rest(device, smi))
+        t10c = time.perf_counter()
+        check_shapes(grow)
+        log(f"[env] phase 10 took {time.perf_counter() - t10:.1f} s, its shape checks "
+            f"{time.perf_counter() - t10c:.1f} s")
+
+    if 11 in phases:
+        t11 = time.perf_counter()
+        test_split, phase11 = run_serving(device, smi, headline, headline_config, reg)
+        phase11.update(run_native_stream(device, smi))
+        check_checkpoint(device, headline, headline_config, test_split)
+        record_flops(device, smi, {"int8": int8["wall"], "bf16": slice16["wall"],
+                                   "f32": slice32["wall"], "fastest": fastest["wall"]})
+        phase11.update(check_trace(device))
+        phase11.update(run_digits_flat_gate(device, smi))
+        t11c = time.perf_counter()
+        check_shapes(phase11)
+        log(f"[env] phase 11 took {time.perf_counter() - t11:.1f} s, its shape checks "
+            f"{time.perf_counter() - t11c:.1f} s")
+
+    single = {"flagship int8": int8["params"], "flagship f32": slice32["params"]}
+    if 12 in phases:
+        t12 = time.perf_counter()
+        phase12 = run_mesh(device, smi, single)
+        t12d = time.perf_counter()
+        phase12.update(run_drivers(device, smi))
+        t12c = time.perf_counter()
+        check_shapes(phase12)
+        log(f"[env] phase 12 took {time.perf_counter() - t12:.1f} s: the mesh "
+            f"{t12d - t12:.1f} s, the drivers {t12c - t12d:.1f} s, the shape checks "
+            f"{time.perf_counter() - t12c:.1f} s")
+
+    if 13 in phases:
+        t13 = time.perf_counter()
+        phase13 = run_mesh2d(device, smi, single)
+        t13d = time.perf_counter()
+        check_high_products(device, smi)
+        phase13.update(run_precisions(device, smi, single))
+        t13c = time.perf_counter()
+        check_shapes(phase13)
+        log(f"[env] phase 13 took {time.perf_counter() - t13:.1f} s: the 2-D mesh "
+            f"{t13d - t13:.1f} s, the precisions {t13c - t13d:.1f} s, the shape checks "
+            f"{time.perf_counter() - t13c:.1f} s")
+
+    def entry_launches(k):
+        path = k["dtype"].split(", ", 1)[-1]
+        return by_path[path][k["name"]] if path in by_path else base[k["name"], k["dtype"]]
+
     pallas = "tensornetworksfork_tpu/ops/pallas/gram.py"
     csrc = "tensornetworksfork_tpu_torch/csrc"
     sources = {"retile_hmix": 726, "quantize_tiled": 971, "gram_pair_q": 1254,
@@ -4188,12 +4399,13 @@ def main() -> int:
     def source_file(name):
         return ("wgram.cu" if name in float_gram else
                 "qgram.cu" if name == "gram_pair_q" else "gram.cu")
-    log(f"[env] chip_smoke.py took {time.perf_counter() - start:.1f} s, the build included")
+    log(f"[env] chip_smoke.py took {time.perf_counter() - start:.1f} s, the build included "
+        f"(phases {phases})")
     print(json.dumps({"kernels": [
         {"name": k["name"], "dtype": k["dtype"], "route": "cuda",
          "source": f"{csrc}/{source_file(k['name'])}",
          "replaces": f"{pallas}:{sources[k['name']]}",
-         "launches": launches[k["name"], k["dtype"]],
+         "launches": entry_launches(k),
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
          "bound_type": k["bound"][2] + (", 3 products a multiply-add" if k["bound"][2] == "tf32" else ""),

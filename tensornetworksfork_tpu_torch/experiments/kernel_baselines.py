@@ -12,8 +12,15 @@ written by `studies/kernel_baselines_ref.py` on a machine with the JAX
 package and sklearn; `compare` holds a run to it: accuracy within one row
 of its split, rmse within `RMSE_RTOL` of sklearn's.
 
+The wrappers' sklearn options (`OPTIONS`: SVC class_weight="balanced" and
+break_ties, GPR restarts, GPC one_vs_one and warm_start) run on the tables
+each applies to, through the wrappers on the same splits;
+`results/kernel_baselines_options.json` holds sklearn's metrics for them,
+written by `studies/kernel_baselines_options_ref.py`.
+
 Run:  python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --device cpu
       python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --compare results/kernel_baselines.json
+      python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --options --compare results/kernel_baselines_options.json
 
 It runs on the card; `--device cpu` runs it on the CPU.
 """
@@ -40,6 +47,22 @@ REFERENCE = "results/kernel_baselines.json"
 # lml ~ +17,600): its rmse, ~2.3e-5, is rounding in an ill-conditioned
 # solve, and moves by ~4e-4 of itself between sklearn's LAPACK and torch's
 RMSE_RTOL = {"svm": 1e-3, "gp": 1e-2}
+# the options: (family, the wrapper's parameters, the tables it runs on).
+# GPR restarts run on diabetes alone: on synthetic (a noiseless polynomial
+# at alpha 1e-10) a restart climbs to θ ≈ (6.7, 1.9), where K's Cholesky is
+# rounding: there the card and the CPU stop L-BFGS 4.3e-3 apart in θ and
+# 3.2e-4 in lml (NVIDIA H100 80GB HBM3, 700 W), and sklearn's own answer
+# moves with its BLAS thread count (θ (2.77, 1.50) by default, (6.71,
+# 1.92) on one thread), so no reference holds there
+OPTIONS = {
+    "class_weight balanced": ("svm", {"class_weight": "balanced"}, ("wine", "digits", "iris")),
+    "break_ties": ("svm", {"break_ties": True}, ("wine", "digits", "iris")),
+    "n_restarts_optimizer 3": ("gp", {"n_restarts_optimizer": 3, "random_state": 0},
+                               ("diabetes",)),
+    "one_vs_one": ("gp", {"multi_class": "one_vs_one"}, ("iris", "wine", "digits")),
+    "warm_start": ("gp", {"warm_start": True}, ("iris", "wine", "digits")),
+}
+OPTIONS_REFERENCE = "results/kernel_baselines_options.json"
 
 
 def table(name: str, seed: int = 42):
@@ -85,6 +108,39 @@ def gp_scores(name: str, device="cuda") -> Dict[str, float]:
     return scores(GaussianProcessWrapper(task=task, device=device), data, task)
 
 
+def option_model(option: str, task: str, device="cuda"):
+    """The port's wrapper of `option`'s family with its parameters."""
+    from ..models.baselines import GaussianProcessWrapper, SVMClfWrapper, SVMRegWrapper
+    fam, params = OPTIONS[option][:2]
+    if fam == "gp":
+        return GaussianProcessWrapper(dict(params), task=task, device=device)
+    wrapper = SVMClfWrapper if task == "classification" else SVMRegWrapper
+    return wrapper(dict(params), device=device)
+
+
+def option_scores(option: str, name: str, device="cuda") -> Dict[str, float]:
+    data, task = table(name)
+    return scores(option_model(option, task, device), data, task)
+
+
+def run_options(device="cuda") -> dict:
+    """{option: {table: metrics}} over OPTIONS."""
+    return {o: {t: option_scores(o, t, device) for t in tables}
+            for o, (_, _, tables) in OPTIONS.items()}
+
+
+def compare_options(got: dict, want: dict) -> list:
+    """compare() for {option: {table: metrics}} against the options
+    reference, each option at its family's bounds. Returns (option, table,
+    metric, got, want)."""
+    bad = []
+    for option, tables in got.items():
+        fam = OPTIONS[option][0]
+        bad += [(option,) + b[1:] for b in compare(
+            {fam: tables}, {fam: want["options"][option], "rows": want["rows"]})]
+    return bad
+
+
 def rows(name: str) -> Dict[str, int]:
     data, _ = table(name)
     return {s: int(len(data[f"y_{s}"])) for s in ("val", "test")}
@@ -120,14 +176,17 @@ def compare(got: dict, want: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--options", action="store_true",
+                    help="run the wrappers' options (OPTIONS) instead of the defaults")
     ap.add_argument("--compare", default=None,
-                    help=f"a reference file to hold the run to (e.g. {REFERENCE})")
+                    help=f"a reference file to hold the run to (e.g. {REFERENCE}, or "
+                         f"{OPTIONS_REFERENCE} with --options)")
     args = ap.parse_args(argv)
-    got = run(args.device)
+    got = run_options(args.device) if args.options else run(args.device)
     print(json.dumps(got, indent=1))
     if args.compare:
         with open(args.compare) as f:
-            bad = compare(got, json.load(f))
+            bad = (compare_options if args.options else compare)(got, json.load(f))
         for b in bad:
             print("differs:", *b)
         return 1 if bad else 0

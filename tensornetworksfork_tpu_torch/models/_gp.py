@@ -8,17 +8,26 @@ differences as scipy's pdist / cdist sum them. θ = (log c, log ℓ).
 - Regression (`GaussianProcessRegressor`, _gpr.py): the log-marginal
   likelihood of θ and its gradient in θ (`lml`) on the device in float64:
   L = chol(K + αI), a = L⁻ᵀL⁻¹y, -½ yᵀa - Σ log L_ii - n/2 log 2π, and
-  ½ tr((aaᵀ - K⁻¹) ∂K/∂θ); scipy's L-BFGS-B maximises it on the host from
-  θ = 0 within the log bounds (`fit_gpr`), then the final Cholesky and
-  a give the predictive mean K* a.
+  ½ tr((aaᵀ - K⁻¹) ∂K/∂θ); scipy's L-BFGS-B (or a callable optimizer)
+  maximises it on the host from θ = 0 and from each restart's θ₀, drawn
+  uniform within the log bounds from a numpy RandomState as sklearn draws
+  it, keeping the optimum of least -lml (`fit_gpr`); then the final
+  Cholesky and a give the predictive mean K* a.
 - Classification (`_BinaryGaussianProcessClassifierLaplace`, _gpc.py): the
   Laplace approximation's Newton iteration for the posterior mode
-  (`laplace_mode`, GPML Algorithm 3.1, stop when the approximate log
-  marginal likelihood rises by less than 1e-10), the latent mean and
-  variance at new points and predict_proba's five-erf approximation of
-  the logistic-Gaussian integral. Several binary problems that share one K
-  (one-vs-rest) iterate as one batch; each keeps the state of the pass it
-  stopped at, so its result is the one it would reach alone.
+  (`laplace_mode`, GPML Algorithm 3.1, from f = 0 or a warm start, stop
+  when the approximate log marginal likelihood rises by less than 1e-10),
+  the latent mean and variance at new points and predict_proba's five-erf
+  approximation of the logistic-Gaussian integral. Several binary problems
+  iterate as one batch: over one K (one-vs-rest), or over row subsets of
+  X (one-vs-one's class pairs) padded to one length with rows whose K
+  entries are zero. A padded row decouples: its row and column of
+  B = I + W^½ K W^½ are the identity's, so L is block-diagonal with an
+  identity block there, its f stays 0, it adds exact zeros to every other
+  row's products, and its term of the log-likelihood is masked out; each
+  problem's iterates are therefore those of its rows alone. Each keeps the
+  state of the pass it stopped at, so its result is the one it would
+  reach alone.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ from ._libsvm import sq_dists
 # predict_proba's erf mixture (sklearn/gaussian_process/_gpc.py)
 LAMBDAS = (0.41, 0.4, 0.37, 0.44, 0.39)
 COEFS = (-1854.8214151, 3516.89893646, 221.29346712, 128.12323805, -2010.49422654)
-LOG_BOUNDS = (math.log(1e-5), math.log(1e5))
+# sklearn's kernel_.bounds of C(1) * RBF(1): log of (1e-5, 1e5) for each
+LOG_BOUNDS = np.log(np.array([[1e-5, 1e5], [1e-5, 1e5]]))
 
 
 def rbf_parts(A: torch.Tensor, B: Optional[torch.Tensor], length_scale: float):
@@ -84,6 +94,9 @@ class GPRFit:
     y_mean: np.ndarray
     y_std: np.ndarray
     n_eval: int = 0
+    # each optimiser run's (theta, -lml), θ = 0's first, and the one kept
+    optima: list = field(default_factory=list)
+    chosen: int = 0
 
     @property
     def constant(self) -> float:
@@ -102,10 +115,15 @@ class GPRFit:
 
 
 def fit_gpr(X: torch.Tensor, y: np.ndarray, noise: float = 1e-10,
-            optimize: bool = True, normalize_y: bool = False) -> GPRFit:
+            optimizer="fmin_l_bfgs_b", normalize_y: bool = False,
+            n_restarts: int = 0, rng: np.random.RandomState = None) -> GPRFit:
     """GaussianProcessRegressor.fit at the default kernel C(1) * RBF(1):
-    targets normalised on the host as sklearn does, θ by L-BFGS-B (jac=True)
-    from θ = 0 within the log bounds (1e-5, 1e5), no restarts."""
+    targets normalised on the host as sklearn does; θ by L-BFGS-B (jac=True)
+    or by `optimizer(obj_func, initial_theta, bounds=...) -> (theta, -lml)`
+    (sklearn's contract: obj_func(theta, eval_gradient=True) gives -lml and
+    its gradient as numpy, or -lml alone), from θ = 0 and then from
+    `n_restarts` θ₀ drawn by `rng.uniform` within the log bounds; the run of
+    least -lml is kept (the first on ties). optimizer=None keeps θ = 0."""
     y = np.asarray(y, np.float64)
     Y2 = y[:, None] if y.ndim == 1 else y
     if normalize_y:
@@ -117,19 +135,29 @@ def fit_gpr(X: torch.Tensor, y: np.ndarray, noise: float = 1e-10,
         y_mean, y_std = np.zeros(Y2.shape[1]), np.ones(Y2.shape[1])
     Y = torch.as_tensor(Y2, device=X.device)
     theta = np.zeros(2)
-    n_eval = 0
-    if optimize:
-        def obj(t):
+    n_eval, optima, chosen = 0, [], 0
+    if optimizer is not None:
+        def obj(t, eval_gradient=True):
             nonlocal n_eval
             n_eval += 1
-            v, g = lml(t, X, Y, noise)
-            return -v, -g
-        res = scipy.optimize.minimize(obj, theta, method="L-BFGS-B", jac=True,
-                                      bounds=(LOG_BOUNDS, LOG_BOUNDS))
-        if res.status != 0:             # sklearn's _check_optimize_result
-            warnings.warn(f"lbfgs failed to converge (status={res.status}): "
-                          f"{res.message}", RuntimeWarning)
-        theta, value = res.x, -float(res.fun)
+            v, g = lml(t, X, Y, noise, eval_gradient)
+            return (-v, -g) if eval_gradient else -v
+
+        def run(theta0):
+            if optimizer == "fmin_l_bfgs_b":
+                res = scipy.optimize.minimize(obj, theta0, method="L-BFGS-B", jac=True,
+                                              bounds=LOG_BOUNDS)
+                if res.status != 0:             # sklearn's _check_optimize_result
+                    warnings.warn(f"lbfgs failed to converge (status={res.status}): "
+                                  f"{res.message}", RuntimeWarning)
+                return res.x, res.fun
+            return optimizer(obj, theta0, bounds=LOG_BOUNDS)
+        optima = [run(theta)]
+        for _ in range(n_restarts):
+            optima.append(run(rng.uniform(LOG_BOUNDS[:, 0], LOG_BOUNDS[:, 1])))
+        values = [v for _, v in optima]
+        chosen = int(np.argmin(values))
+        theta, value = np.asarray(optima[chosen][0]), -float(np.min(values))
     else:
         value = lml(theta, X, Y, noise, eval_gradient=False)[0]
     K = kernel(X, None, math.exp(theta[0]), math.exp(theta[1]))
@@ -137,13 +165,14 @@ def fit_gpr(X: torch.Tensor, y: np.ndarray, noise: float = 1e-10,
     L = torch.linalg.cholesky(K)
     return GPRFit(theta=np.asarray(theta), lml=value, X=X, L=L,
                   alpha=torch.cholesky_solve(Y, L), y_mean=y_mean, y_std=y_std,
-                  n_eval=n_eval)
+                  n_eval=n_eval, optima=optima, chosen=chosen)
 
 
 @dataclass
 class LaplaceFit:
-    """B binary Laplace fits on one X: targets (B, n) in {0, 1} and the
-    state of the Newton pass each stopped at."""
+    """B binary Laplace fits: targets (B, n) in {0, 1} over X's rows, or,
+    with `rows`, over the rows rows[b] of X where `valid` (padding after);
+    the state of the Newton pass each stopped at, and its last f."""
     X: torch.Tensor
     y: torch.Tensor             # (B, n) float64
     pi: torch.Tensor            # (B, n)
@@ -153,11 +182,18 @@ class LaplaceFit:
     n_iter: List[int] = field(default_factory=list)
     constant: float = 1.0
     length_scale: float = 1.0
+    f: Optional[torch.Tensor] = None        # (B, n): sklearn's f_cached
+    rows: Optional[torch.Tensor] = None     # (B, n) long
+    valid: Optional[torch.Tensor] = None    # (B, n) bool
 
     def latent(self, Xs: torch.Tensor):
         """latent_mean_and_variance: (B, m) each."""
         Ks = kernel(self.X, Xs, self.constant, self.length_scale)      # (n, m)
-        mean = (self.y - self.pi) @ Ks
+        if self.rows is None:
+            mean = (self.y - self.pi) @ Ks
+        else:
+            Ks = Ks[self.rows] * self.valid[:, :, None]                # (B, n, m)
+            mean = ((self.y - self.pi)[:, None, :] @ Ks)[:, 0]
         v = torch.linalg.solve_triangular(self.L, self.W_sr[:, :, None] * Ks,
                                           upper=False)
         var = self.constant - (v * v).sum(1)
@@ -177,15 +213,23 @@ class LaplaceFit:
 
 
 def laplace_mode(X: torch.Tensor, y: torch.Tensor, max_iter: int = 100,
-                 constant: float = 1.0, length_scale: float = 1.0) -> LaplaceFit:
-    """_posterior_mode for the binary targets y (B, n) in {0, 1}, from f = 0,
-    all B at once over the one K; a problem stops at the first pass whose
-    approximate lml rises by less than 1e-10 and keeps that pass's pi, W_sr
-    and L (and the lml before it), as sklearn's loop breaks."""
+                 constant: float = 1.0, length_scale: float = 1.0,
+                 rows: Optional[torch.Tensor] = None, valid: Optional[torch.Tensor] = None,
+                 f0: Optional[torch.Tensor] = None) -> LaplaceFit:
+    """_posterior_mode for the binary targets y (B, n) in {0, 1}, from f0
+    (sklearn's warm start from f_cached) or f = 0, all B at once: over the
+    one K of X, or with `rows` over K[rows[b]][:, rows[b]], zero where not
+    `valid` (padding, see the module note). A problem stops at the first
+    pass whose approximate lml rises by less than 1e-10 and keeps that
+    pass's pi, W_sr and L (and the lml before it) and its f, as sklearn's
+    loop breaks."""
     K = kernel(X, None, constant, length_scale)
+    if rows is not None:
+        K = K[rows[:, :, None], rows[:, None, :]] * (valid[:, :, None] & valid[:, None, :])
     Bn, n = y.shape
     dev = X.device
-    f = torch.zeros((Bn, n), dtype=torch.float64, device=dev)
+    f = (torch.zeros((Bn, n), dtype=torch.float64, device=dev) if f0 is None
+         else f0.clone())
     eye = torch.eye(n, dtype=torch.float64, device=dev)
     prev = torch.full((Bn,), -math.inf, dtype=torch.float64, device=dev)
     live = torch.ones(Bn, dtype=torch.bool, device=dev)
@@ -200,9 +244,11 @@ def laplace_mode(X: torch.Tensor, y: torch.Tensor, max_iter: int = 100,
         L = torch.linalg.cholesky(Bm)
         b = W * f + (y - pi)
         a = b - W_sr * torch.cholesky_solve((W_sr_K @ b[:, :, None]), L)[:, :, 0]
-        f_new = a @ K
-        value = (-0.5 * (a * f_new).sum(1)
-                 - torch.log1p(torch.exp(-(y * 2 - 1) * f_new)).sum(1)
+        f_new = a @ K if rows is None else (a[:, None, :] @ K)[:, 0]
+        lik = torch.log1p(torch.exp(-(y * 2 - 1) * f_new))
+        if valid is not None:
+            lik = torch.where(valid, lik, 0.0)
+        value = (-0.5 * (a * f_new).sum(1) - lik.sum(1)
                  - torch.log(L.diagonal(dim1=1, dim2=2)).sum(1))
         stop = live & (value - prev < 1e-10)
         n_iter += live
@@ -216,4 +262,4 @@ def laplace_mode(X: torch.Tensor, y: torch.Tensor, max_iter: int = 100,
             break
     return LaplaceFit(X=X, y=y, pi=keep["pi"], W_sr=keep["W_sr"], L=keep["L"],
                       lml=prev.tolist(), n_iter=n_iter.tolist(), constant=constant,
-                      length_scale=length_scale)
+                      length_scale=length_scale, f=f, rows=rows, valid=valid)

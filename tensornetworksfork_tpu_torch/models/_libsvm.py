@@ -515,11 +515,16 @@ def _kernel_problems(X: torch.Tensor, kernel, gamma, coef0, degree):
 
 def fit_svc(X: torch.Tensor, labels: torch.Tensor, n_class: int, C: float,
             kernel: str, gamma: float, coef0: float, degree: int, tol: float,
-            shrinking: bool, max_iter: int) -> SVMModel:
+            shrinking: bool, max_iter: int, class_weight=None) -> SVMModel:
     """svm_train for C_SVC: one problem per class pair (a, b), a < b, over
     class a's rows (y = +1) then class b's (y = -1), each in data order;
-    labels are 0..n_class-1. All pairs solve as one batch."""
+    labels are 0..n_class-1. All pairs solve as one batch. `class_weight`
+    (one factor a class) gives libsvm's weighted_C[c] = C * w[c]: class a's
+    rows of pair (a, b) are bounded by weighted_C[a], class b's by
+    weighted_C[b]."""
     dev = X.device
+    weights = [1.0] * n_class if class_weight is None else [float(w) for w in class_weight]
+    weighted_C = [float(C) * w for w in weights]
     K32, kd = _kernel_problems(X, kernel, gamma, coef0, degree)
     rows = [torch.nonzero(labels == c).flatten() for c in range(n_class)]
     a, b = pair_classes(n_class)
@@ -529,15 +534,16 @@ def fit_svc(X: torch.Tensor, labels: torch.Tensor, n_class: int, C: float,
     idx = torch.zeros((P, L), dtype=torch.long, device=dev)
     y = torch.ones((P, L), dtype=torch.float64, device=dev)
     valid = torch.zeros((P, L), dtype=torch.bool, device=dev)
+    Cb = torch.full((P, L), float(C), dtype=torch.float64, device=dev)
     for p, (i, j) in enumerate(pairs):
         ni, nj = rows[i].numel(), rows[j].numel()
         idx[p, :ni + nj] = torch.cat([rows[i], rows[j]])
         y[p, ni:ni + nj] = -1.0
         valid[p, :ni + nj] = True
+        Cb[p, :ni] = weighted_C[i]
+        Cb[p, ni:ni + nj] = weighted_C[j]
     pr = Problems(K32=K32, QD=kd[idx], idx=idx, y=y,
-                  p=torch.where(valid, -1.0, 0.0).double(),
-                  C=torch.full((P, L), float(C), dtype=torch.float64, device=dev),
-                  valid=valid)
+                  p=torch.where(valid, -1.0, 0.0).double(), C=Cb, valid=valid)
     sol = _solve_warned(pr, tol, shrinking, max_iter)
     # α_i y_i on each row of the data, one line per pair
     n = X.shape[0]
@@ -594,15 +600,23 @@ def fit_svr(X: torch.Tensor, target: torch.Tensor, C: float, epsilon: float,
 
 
 def ovr_decision(dec: torch.Tensor, k: int) -> torch.Tensor:
-    """sklearn's `_ovr_decision_function(dec < 0, -dec, k)`: votes plus
+    """sklearn's `_ovr_decision_function(dec < 0, -dec, k)` of libsvm's
+    pair decision values."""
+    return ovo_to_ovr(dec < 0, -dec, k)
+
+
+def ovo_to_ovr(won: torch.Tensor, confidence: torch.Tensor, k: int) -> torch.Tensor:
+    """sklearn's `_ovr_decision_function(won, confidence, k)`: pair (a, b),
+    a < b, votes for b where `won` (its binary prediction is 1), else for a,
+    and its confidence counts for b and against a; votes plus the summed
     confidences squashed into (-1/3, 1/3)."""
-    a, b = pair_classes(k, dec.device)
-    m = dec.shape[0]
-    votes = torch.zeros((m, k), dtype=dec.dtype, device=dec.device)
+    a, b = pair_classes(k, confidence.device)
+    m = confidence.shape[0]
+    votes = torch.zeros((m, k), dtype=confidence.dtype, device=confidence.device)
     conf = torch.zeros_like(votes)
     for p, (ca, cb) in enumerate(zip(a.tolist(), b.tolist())):
-        conf[:, ca] -= -dec[:, p]
-        conf[:, cb] += -dec[:, p]
-        votes[:, ca] += (dec[:, p] >= 0).to(dec.dtype)
-        votes[:, cb] += (dec[:, p] < 0).to(dec.dtype)
+        conf[:, ca] -= confidence[:, p]
+        conf[:, cb] += confidence[:, p]
+        votes[:, ca] += (~won[:, p]).to(votes.dtype)
+        votes[:, cb] += won[:, p].to(votes.dtype)
     return votes + conf / (3 * (conf.abs() + 1))

@@ -26,12 +26,18 @@
 
 - `SVMClfWrapper` / `SVMRegWrapper`: sklearn's SVC / SVR, which are
   libsvm, written out in torch (`models/_libsvm.py`): C-SVC one-vs-one over
-  the k(k-1)/2 class pairs with libsvm's vote, and ε-SVR; float64 on
-  `device`, the kernel entries rounded to float32 as libsvm's Qfloat.
+  the k(k-1)/2 class pairs with libsvm's vote (class_weight and break_ties
+  as sklearn's), and ε-SVR; float64 on `device`, the kernel entries rounded
+  to float32 as libsvm's Qfloat.
 - `GaussianProcessWrapper`: sklearn's GaussianProcessRegressor (kernel
-  C(1) * RBF(1), both free, L-BFGS-B on the log-marginal likelihood) and
-  GaussianProcessClassifier (C(1) * RBF(1) fixed, binary Laplace, one-vs-
-  rest above two classes), written out in torch (`models/_gp.py`).
+  C(1) * RBF(1), both free, L-BFGS-B or a callable optimizer on the
+  log-marginal likelihood, with restarts) and GaussianProcessClassifier
+  (C(1) * RBF(1) fixed, binary Laplace, one-vs-rest or one-vs-one above two
+  classes, warm_start), written out in torch (`models/_gp.py`).
+
+Refused with a ValueError naming them, as no reference can be reproduced
+without sklearn: SVC probability=True (Platt scaling on libsvm's internal
+random folds) and GP kernel objects (sklearn's kernel algebra).
 
 Not ported: the XGBoost wrappers. xgboost is missing on the card's machine
 and on the machine that runs the tests, so there is no reference to hold a
@@ -395,11 +401,11 @@ class PolynomialRegressionWrapper:
 _SVM_DEFAULTS = dict(C=1.0, kernel="rbf", degree=3, gamma="scale", coef0=0.0,
                      shrinking=True, tol=1e-3, max_iter=-1, cache_size=200)
 _SVR_DEFAULTS = dict(_SVM_DEFAULTS, epsilon=0.1)
-_SVC_DEFAULTS = dict(_SVM_DEFAULTS, decision_function_shape="ovr", random_state=None)
+_SVC_DEFAULTS = dict(_SVM_DEFAULTS, decision_function_shape="ovr", random_state=None,
+                     class_weight=None, break_ties=False)
 # accepted at these values only: other values need what the port leaves out
-# (Platt scaling, class weights, verbose libsvm output, ovr tie breaking)
-_SVC_FIXED = dict(probability=(False, "deprecated"), class_weight=(None,),
-                  break_ties=(False,), verbose=(False,))
+# (Platt scaling on libsvm's random folds, verbose libsvm output)
+_SVC_FIXED = dict(probability=(False, "deprecated"), verbose=(False,))
 _SVR_FIXED = dict(verbose=(False,))
 
 
@@ -421,7 +427,32 @@ def _svm_settings(params, defaults, fixed) -> dict:
                          f"(one of {_libsvm.KERNELS})")
     if out.get("decision_function_shape", "ovr") not in ("ovr", "ovo"):
         raise ValueError("svm_params['decision_function_shape'] must be 'ovr' or 'ovo'")
+    cw = out.get("class_weight")
+    if not (cw is None or cw == "balanced" or isinstance(cw, dict)):
+        raise ValueError(f"svm_params['class_weight'] must be None, 'balanced' or a "
+                         f"dict, not {cw!r}")
     return out
+
+
+def class_weights(class_weight, codes: np.ndarray, k: int) -> np.ndarray:
+    """sklearn's compute_class_weight over the codes 0..k-1 that the wrapper
+    hands SVC: ones for None, n / (k bincount) for "balanced", else the
+    dict's value of each code it holds (1 for the others); a dict with a key
+    that is no class raises ValueError where it also misses a class."""
+    if class_weight is None or len(class_weight) == 0:
+        return np.ones(k)
+    if isinstance(class_weight, str):
+        return len(codes) / (k * np.bincount(codes, minlength=k))
+    weight = np.ones(k)
+    missing = []
+    for c in range(k):
+        if c in class_weight:
+            weight[c] = class_weight[c]
+        else:
+            missing.append(c)
+    if missing and k - len(missing) != len(class_weight):
+        raise ValueError(f"The classes, {missing}, are not in class_weight")
+    return weight
 
 
 def _svm_gamma(gamma, X: np.ndarray) -> float:
@@ -478,8 +509,9 @@ class SVMRegWrapper(_SVMBase):
 class SVMClfWrapper(_SVMBase):
     """sklearn's SVC(**svm_params) (C-SVC, libsvm's solver and one-vs-one
     vote) in torch on `device`. Labels are re-encoded to 0..k-1 through
-    `translation_dict`, as the JAX package's wrapper does; one-hot targets
-    are argmaxed."""
+    `translation_dict`, as the JAX package's wrapper does, so a class_weight
+    dict is keyed by those codes, as sklearn sees them; one-hot targets are
+    argmaxed."""
 
     def __init__(self, svm_params=None, device="cuda"):
         super().__init__(svm_params, _SVC_DEFAULTS, _SVC_FIXED, device)
@@ -497,8 +529,11 @@ class SVMClfWrapper(_SVMBase):
         self.translation_dict = {l: i for i, l in enumerate(unique)}
         self.retranslation_dict = {i: l for i, l in enumerate(unique)}
         self._labels = unique
-        codes = torch.as_tensor(np.searchsorted(unique, y), device=self.device)
-        self.model_ = _libsvm.fit_svc(self._x(X), codes, unique.size, **self._fit_args(X))
+        codes = np.searchsorted(unique, y)
+        self.class_weight_ = class_weights(self.settings["class_weight"], codes, unique.size)
+        self.model_ = _libsvm.fit_svc(self._x(X), torch.as_tensor(codes, device=self.device),
+                                      unique.size, class_weight=self.class_weight_,
+                                      **self._fit_args(X))
         return self
 
     @property
@@ -529,8 +564,19 @@ class SVMClfWrapper(_SVMBase):
         return dec.cpu().numpy()
 
     def predict(self, X):
-        won = self.model_.vote(self.model_.decision(self._x(X))).cpu().numpy()
-        return self._labels[won]
+        """libsvm's one-vs-one vote; with break_ties (and "ovr", k > 2) the
+        argmax of the "ovr" decision function, as sklearn's SVC.predict."""
+        s = self.settings
+        if s["break_ties"] and s["decision_function_shape"] == "ovo":
+            raise ValueError("break_ties must be False when decision_function_shape "
+                             "is 'ovo'")
+        dec = self.model_.decision(self._x(X))
+        k = self.model_.n_class
+        if s["break_ties"] and k > 2:
+            won = _libsvm.ovr_decision(dec, k).argmax(1)
+        else:
+            won = self.model_.vote(dec)
+        return self._labels[won.cpu().numpy()]
 
 
 # sklearn's GaussianProcessRegressor / GaussianProcessClassifier parameters
@@ -542,16 +588,33 @@ _GPC_DEFAULTS = dict(optimizer="fmin_l_bfgs_b", n_restarts_optimizer=0,
                      random_state=None, multi_class="one_vs_rest", n_jobs=None)
 
 
+def check_random_state(seed):
+    """sklearn's check_random_state: numpy's global RandomState for None, a
+    new RandomState(seed) for an int, a RandomState as it is."""
+    if seed is None or seed is np.random:
+        return np.random.mtrand._rand
+    if isinstance(seed, (int, np.integer)) and not isinstance(seed, bool):
+        return np.random.RandomState(seed)
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    raise ValueError(f"{seed!r} cannot be used to seed a numpy.random.RandomState "
+                     "instance")
+
+
 class GaussianProcessWrapper:
     """sklearn's Gaussian processes at their default kernels in torch on
     `device` (float64): regression is GaussianProcessRegressor(**gp_params)
-    with C(1) * RBF(1), its two hyperparameters fitted by L-BFGS-B on the
-    log-marginal likelihood; classification is
+    with C(1) * RBF(1), its two hyperparameters fitted by L-BFGS-B (or a
+    callable `optimizer`) on the log-marginal likelihood, from θ = 0 and
+    `n_restarts_optimizer` θ₀ drawn from `random_state`; classification is
     GaussianProcessClassifier(**gp_params) with C(1) * RBF(1) fixed (so no
-    optimiser runs), the binary Laplace approximation, and one-vs-rest
-    above two classes (the class of largest P(class), the first on ties).
-    A `kernel` key raises ValueError (kernel objects need sklearn), as does
-    any key or value not ported."""
+    optimiser runs), the binary Laplace approximation, and above two classes
+    one-vs-rest (the class of largest P(class), the first on ties) or
+    one-vs-one (sklearn's OneVsOneClassifier: the pairs' votes and
+    P(class 1) through `_ovr_decision_function`, no predict_proba);
+    `warm_start` starts the fit's second mode search from the first's f.
+    A `kernel` key raises ValueError (kernel objects need sklearn's kernel
+    algebra), as does any key or value not ported."""
 
     def __init__(self, gp_params=None, task="regression", device="cuda"):
         self.task = task
@@ -564,24 +627,25 @@ class GaussianProcessWrapper:
             if key not in defaults:
                 raise ValueError(f"gp_params key {key!r} is not ported")
             p[key] = value
-        if task == "classification":
-            if p["multi_class"] != "one_vs_rest":
-                raise ValueError(f"gp_params['multi_class'] = {p['multi_class']!r} "
-                                 "is not ported (only 'one_vs_rest')")
-            if p["warm_start"]:
-                raise ValueError("gp_params['warm_start'] = True is not ported")
-        else:
-            if p["optimizer"] not in ("fmin_l_bfgs_b", None):
-                raise ValueError(f"gp_params['optimizer'] = {p['optimizer']!r} is not "
-                                 "ported (only 'fmin_l_bfgs_b' or None)")
-            if p["n_restarts_optimizer"] != 0:
-                raise ValueError("gp_params['n_restarts_optimizer'] > 0 is not ported")
+        opt = p["optimizer"]
+        if not (opt is None or opt == "fmin_l_bfgs_b" or callable(opt)):
+            raise ValueError(f"gp_params['optimizer'] = {opt!r} is not ported (only "
+                             "'fmin_l_bfgs_b', a callable or None)")
+        if task == "classification" and p["multi_class"] not in ("one_vs_rest",
+                                                                  "one_vs_one"):
+            raise ValueError(f"gp_params['multi_class'] = {p['multi_class']!r}: "
+                             "'one_vs_rest' or 'one_vs_one'")
         self.params = p
         self.device = resolve_device(device)
         self.fit_ = None
 
     def _x(self, X) -> torch.Tensor:
         return torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+
+    @property
+    def _one_vs_one(self) -> bool:
+        return (self.task == "classification" and self.params["multi_class"] == "one_vs_one"
+                and self.classes_.size > 2)
 
     def fit(self, X, y):
         y = np.asarray(y)
@@ -591,19 +655,44 @@ class GaussianProcessWrapper:
             if y.ndim == 2:
                 y = y.argmax(-1)
             self.classes_ = np.unique(y)
-            if self.classes_.size < 2:
+            k = self.classes_.size
+            if k < 2:
                 raise ValueError("GaussianProcessWrapper needs two or more classes")
-            # one binary problem (class 1 against class 0), or one per class
-            pos = self.classes_[1:] if self.classes_.size == 2 else self.classes_
-            targets = np.stack([y == c for c in pos]).astype(np.float64)
-            self.fit_ = _gp.laplace_mode(X, torch.as_tensor(targets, device=self.device),
-                                         max_iter=int(p["max_iter_predict"]))
-            self.log_marginal_likelihood_value_ = float(np.mean(self.fit_.lml))
+            codes = np.searchsorted(self.classes_, y)
+            rows = valid = None
+            if k == 2:                  # one binary problem: class 1 against 0
+                targets = (codes == 1)[None]
+            elif not self._one_vs_one:  # one problem per class against the rest
+                targets = np.stack([codes == c for c in range(k)])
+            else:
+                # pair (i, j), i < j: the rows of classes i and j in data
+                # order, j -> 1, padded to the longest pair
+                pairs = list(itertools.combinations(range(k), 2))
+                members = [np.flatnonzero((codes == i) | (codes == j)) for i, j in pairs]
+                n = max(r.size for r in members)
+                rows = np.zeros((len(pairs), n), np.int64)
+                valid = np.zeros((len(pairs), n), bool)
+                targets = np.zeros((len(pairs), n), bool)
+                for b, ((_, j), r) in enumerate(zip(pairs, members)):
+                    rows[b, :r.size], valid[b, :r.size] = r, True
+                    targets[b, :r.size] = codes[r] == j
+                rows = torch.as_tensor(rows, device=self.device)
+                valid = torch.as_tensor(valid, device=self.device)
+            targets = torch.as_tensor(targets.astype(np.float64), device=self.device)
+            mode = dict(max_iter=int(p["max_iter_predict"]), rows=rows, valid=valid)
+            self.fit_ = _gp.laplace_mode(X, targets, **mode)
+            # sklearn's fit: the lml's mode search, then a second one for the
+            # predictions, from the first's f under warm_start (else the same)
+            self.first_fit_ = self.fit_
+            if p["warm_start"]:
+                self.fit_ = _gp.laplace_mode(X, targets, f0=self.first_fit_.f, **mode)
+            self.log_marginal_likelihood_value_ = float(np.mean(self.first_fit_.lml))
         else:
             y = y.squeeze() if y.ndim > 1 else y
-            self.fit_ = _gp.fit_gpr(X, y, noise=float(p["alpha"]),
-                                    optimize=p["optimizer"] is not None,
-                                    normalize_y=bool(p["normalize_y"]))
+            self.fit_ = _gp.fit_gpr(X, y, noise=float(p["alpha"]), optimizer=p["optimizer"],
+                                    normalize_y=bool(p["normalize_y"]),
+                                    n_restarts=int(p["n_restarts_optimizer"]),
+                                    rng=check_random_state(p["random_state"]))
             self.log_marginal_likelihood_value_ = self.fit_.lml
             self._ravel = y.ndim == 1
         return self
@@ -614,7 +703,22 @@ class GaussianProcessWrapper:
         f = self.fit_
         return np.log([f.constant, f.length_scale])
 
+    def decision_function(self, X) -> np.ndarray:
+        """One-vs-one above two classes only: sklearn's
+        OneVsOneClassifier.decision_function, each pair's prediction (latent
+        mean > 0) and P(class 1) through `_ovr_decision_function`: (m, k)."""
+        if not self._one_vs_one:
+            raise ValueError("decision_function needs multi_class='one_vs_one' and "
+                             "more than two classes")
+        Xs = self._x(X)
+        won = (self.fit_.latent(Xs)[0] > 0).T
+        dec = _libsvm.ovo_to_ovr(won, self.fit_.proba(Xs).T, self.classes_.size)
+        return dec.cpu().numpy()
+
     def predict_proba(self, X) -> np.ndarray:
+        if self._one_vs_one:
+            raise ValueError("one_vs_one multi-class mode does not support predicting "
+                             "probability estimates. Use one_vs_rest mode instead.")
         P = self.fit_.proba(self._x(X)).cpu().numpy()
         if self.classes_.size == 2:
             return np.stack([1 - P[0], P[0]], axis=1)
@@ -630,4 +734,6 @@ class GaussianProcessWrapper:
         if self.classes_.size == 2:
             latent = self.fit_.latent(Xs)[0][0].cpu().numpy()
             return np.where(latent > 0, self.classes_[1], self.classes_[0])
+        if self._one_vs_one:
+            return self.classes_[self.decision_function(X).argmax(1)]
         return self.classes_[self.fit_.proba(Xs).argmax(0).cpu().numpy()]

@@ -49,6 +49,20 @@ GPC_PROBA_ATOL = 1e-10
 CONVERT_ATOL = 1e-11
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Every fit here is small: torch and BLAS on one thread each, so the
+    file does not oversubscribe the cores that other test processes use."""
+    from threadpoolctl import threadpool_limits  # a dependency of sklearn
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _table(name, rows=None):
     d = load_sklearn_dataset(name, seed=42)
     task = d.pop("task")
@@ -271,18 +285,36 @@ def test_converters_predict_as_sklearn():
                                    gp.predict(Xt), rtol=0, atol=CONVERT_ATOL)
 
 
+def _three_classes():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(30, 2))
+    return X, np.arange(30) % 3
+
+
+def _fit_three(wrapper):
+    X, y = _three_classes()
+    return wrapper.fit(X, y), X
+
+
 @pytest.mark.parametrize("make", [
     lambda: tbl.SVMClfWrapper({"nu": 0.5}, device="cpu"),
     lambda: tbl.SVMClfWrapper({"kernel": "precomputed"}, device="cpu"),
-    lambda: tbl.SVMClfWrapper({"class_weight": "balanced"}, device="cpu"),
-    lambda: tbl.SVMClfWrapper({"break_ties": True}, device="cpu"),
+    # sklearn's compute_class_weight: a key that is no class, a class missing
+    lambda: _fit_three(tbl.SVMClfWrapper({"class_weight": {0: 2.0, 7: 1.0}}, device="cpu")),
+    # SVC.predict refuses break_ties under "ovo"
+    lambda: (lambda m, X: m.predict(X))(*_fit_three(tbl.SVMClfWrapper(
+        {"break_ties": True, "decision_function_shape": "ovo"}, device="cpu"))),
     lambda: tbl.SVMRegWrapper({"decision_function_shape": "ovo"}, device="cpu"),
+    # Platt scaling on libsvm's internal random folds: no reference to hold
+    lambda: tbl.SVMClfWrapper({"probability": True}, device="cpu"),
     lambda: tbl.GaussianProcessWrapper({"kernel": object()}, device="cpu"),
     lambda: tbl.GaussianProcessWrapper({"kernel": None}, task="classification", device="cpu"),
-    lambda: tbl.GaussianProcessWrapper({"multi_class": "one_vs_one"}, task="classification",
-                                       device="cpu"),
+    # GaussianProcessClassifier refuses predict_proba under one_vs_one
+    lambda: (lambda m, X: m.predict_proba(X))(*_fit_three(tbl.GaussianProcessWrapper(
+        {"multi_class": "one_vs_one"}, task="classification", device="cpu"))),
     lambda: tbl.GaussianProcessWrapper({"optimizer": "adam"}, device="cpu"),
-    lambda: tbl.GaussianProcessWrapper({"n_restarts_optimizer": 2}, device="cpu"),
+    lambda: tbl.GaussianProcessWrapper({"optimizer": "fmin_cobyla", "n_restarts_optimizer": 2},
+                                       device="cpu"),
     lambda: tbl.GaussianProcessWrapper({"length_scale": 2.0}, device="cpu"),
 ])
 def test_unported_keys_raise(make):
