@@ -246,7 +246,18 @@ printing its own lines:
    GPC one_vs_one and warm_start on iris, wine and digits), card against
    CPU at the same bounds and every val/test metric against sklearn's in
    `results/kernel_baselines_options.json`
-   (`studies/kernel_baselines_options_ref.py`). Each fit's seconds on the
+   (`studies/kernel_baselines_options_ref.py`); (v) sklearn's kernel
+   objects (`models/_gp_kernels.py`): every kernel class, sum, product and
+   power at diabetes's and breast_cancer's training rows, K, ∂K/∂θ and
+   diag card against CPU within KB_KERNEL_RTOL; every
+   `kernel_baselines.KERNEL_OPTIONS` fit (Matern + white and rational
+   quadratic regression on diabetes, C * RBF classification with free
+   hyperparameters on iris and wine one-vs-rest and iris one-vs-one,
+   Matern 1.5 on breast_cancer) card against CPU at the KB_* bounds, each
+   binary problem's θ too, and held to sklearn's metrics in
+   `results/gp_kernels.json` (`studies/gp_kernels_ref.py`); SVC
+   probability=True on iris, wine and digits, its labels, decision values
+   and SMO iterations equal to the default fit's. Each fit's seconds on the
    card and the CPU, the SMO iterations and support vectors per pair, the
    L-BFGS evaluations and the Newton iterations are printed.
 
@@ -3878,6 +3889,20 @@ KB_GPR_PRED_RTOL = 1e-4
 # B = I + W^1/2 K W^1/2 is well conditioned (eigenvalues >= 1)
 KB_GPC_PROBA_ATOL = 1e-9
 KB_GPC_LML_RTOL = 1e-10
+# a GP classifier with free hyperparameters (phase 14 (v)) card against
+# CPU: its P(class 1) as both fit it, and at one θ (the CPU's mode search
+# rerun at the card's θ: the devices' arithmetic alone), each within
+# KB_GPC_PROBA_ATOL but where a cell has its own bound here. breast_cancer's
+# Matern 1.5 fit reaches k(x, x) = 4,445 and cond(B) = 2.7e4, and the
+# latent mean K*ᵀ(y - π) carries the devices' rounding of π at K's scale:
+# on an NVIDIA H100 80GB HBM3 at 700 W the card and the CPU part by 5.3e-9
+# at one θ, and L-BFGS-B's two paths (θ 1.41e-9 apart) add 6.65e-9 of the
+# other sign, 1.35e-9 in all (studies/gpc_card_cpu_study.py). Its bound is
+# the two parts added in one sign, 1.2e-8, with a margin of 1.7
+KB_GPC_FITTED_PROBA_ATOL = {("matern 1.5", "breast_cancer"): 2e-8}
+# sklearn's kernel objects card against CPU: K, ∂K/∂θ and diag over their
+# max (float64 elementwise functions, a few ulp apart between the devices)
+KB_KERNEL_RTOL = 1e-12
 
 
 def _kb_timed(device, fn):
@@ -3899,7 +3924,8 @@ def run_kernel_baselines(device, card: str) -> dict:
     classification on iris, wine, breast_cancer and digits, card against
     CPU; (iii) every val/test metric of the card's runs held to sklearn's
     (results/kernel_baselines.json: accuracy within one row, rmse within
-    kernel_baselines.RMSE_RTOL); (iv) run_kernel_baseline_options. Prints
+    kernel_baselines.RMSE_RTOL); (iv) run_kernel_baseline_options; (v)
+    run_gp_kernel_objects. Prints
     each fit's seconds on both, the SMO iterations and support vectors per
     pair, the L-BFGS evaluations and the Newton iterations. Returns the
     card's metrics."""
@@ -4016,6 +4042,7 @@ def run_kernel_baselines(device, card: str) -> dict:
     if bad:
         raise AssertionError(f"kernel baselines part from sklearn's: {bad}")
     got["options"] = run_kernel_baseline_options(device, card)
+    got["kernels"] = run_gp_kernel_objects(device, card)
     log(f"[kernel baselines] {card}: phase 14 took {time.perf_counter() - t14:.1f} s")
     return got
 
@@ -4118,6 +4145,158 @@ def run_kernel_baseline_options(device, card: str) -> dict:
         f"relative): {'all within' if not bad else bad}")
     if bad:
         raise AssertionError(f"kernel baseline options part from sklearn's: {bad}")
+    return got
+
+
+# the kernel expressions phase 14 (v) holds card against CPU at the tables'
+# sizes: each class, anisotropic length scales, "fixed" bounds, and the
+# operators
+KB_KERNEL_EXPRESSIONS = (
+    "C(2.0) * RBF(1.5)", "RBF({ramp})", "Matern(0.7, nu=0.5)", "Matern(1.3, nu=1.5)",
+    "Matern({ones}, nu=2.5)", "Matern(2.0, nu=inf)",
+    "RationalQuadratic(length_scale=0.8, alpha=2.0)",
+    "ExpSineSquared(length_scale=1.2, periodicity=3.0)",
+    "DotProduct(sigma_0=1.0) ** 2 + WhiteKernel(1.0)",
+    "C(1.0, 'fixed') * RBF(1.0) + WhiteKernel(0.5, 'fixed')",
+)
+
+
+def run_gp_kernel_objects(device, card: str) -> dict:
+    """Phase 14 (v): sklearn's GP kernel objects on the card. (a) each of
+    KB_KERNEL_EXPRESSIONS at diabetes's and breast_cancer's training rows,
+    K, ∂K/∂θ and diag card against CPU within KB_KERNEL_RTOL ({ramp} and
+    {ones} are per-feature length scales 1, 2, ... and 1, 1, ...); (b) every
+    kernel_baselines.KERNEL_OPTIONS fit on the card and on the CPU: GPR θ,
+    lml and predictions within the KB_GPR bounds, GPC each binary problem's
+    θ within KB_GPR_THETA_ATOL, the lml within KB_GPC_LML_RTOL, labels
+    equal, its P(class 1) (one-vs-one: the decision values too, else the
+    probabilities) and its P(class 1) against the CPU's mode search at the
+    card's θ within KB_GPC_PROBA_ATOL (KB_GPC_FITTED_PROBA_ATOL where a cell
+    has its own); every val/test metric of the
+    card's fits held to sklearn's (results/gp_kernels.json); (c) SVC
+    probability=True on iris, wine and digits on the card: labels, decision
+    values and SMO iterations equal to the default fit's. Prints each fit's
+    seconds on both, L-BFGS evaluations and Newton passes. Returns the
+    card's records."""
+    import dataclasses
+
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import kernel_baselines as kb
+    from tensornetworksfork_tpu_torch.models import _gp
+    from tensornetworksfork_tpu_torch.models.baselines import SVMClfWrapper
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    with open(kb.KERNELS_REFERENCE) as f:
+        ref = json.load(f)
+    # (a) the kernels themselves
+    worst = 0.0
+    for name in ("diabetes", "breast_cancer"):
+        X = np.asarray(kb.table(name)[0]["X_train"], np.float64)
+        n = X.shape[1]
+        for expression in KB_KERNEL_EXPRESSIONS:
+            k = kb.kernel_from_expression(expression.format(
+                ramp=[float(i + 1) for i in range(n)], ones=[1.0] * n))
+            out = []
+            for dev in (device, cpu):
+                Xd = torch.as_tensor(X, device=dev)
+                K, G = k(Xd, eval_gradient=True)
+                out.append((K, G, k(Xd[:50], Xd), k.diag(Xd)))
+            for a, b in zip(*out):
+                diff = float((a.cpu() - b).abs().max()) if b.numel() else 0.0
+                scale = float(b.abs().max()) if b.numel() else 0.0
+                err = diff / scale if scale > 0 else diff
+                worst = max(worst, err)
+                if not (err <= KB_KERNEL_RTOL and bool(torch.isfinite(a).all())):
+                    raise AssertionError(f"kernel {expression} on {name}: card and CPU "
+                                         f"differ by {err:.3g} of the max")
+    log(f"[kernel baselines] {card}: GP kernel objects: {len(KB_KERNEL_EXPRESSIONS)} "
+        f"kernels at diabetes's and breast_cancer's training rows, K, dK/dtheta and diag "
+        f"card vs CPU within {worst:.3g} of their max (bound {KB_KERNEL_RTOL})")
+    # (b) the fits
+    got = {}
+    for option, (expression, params, tables) in kb.KERNEL_OPTIONS.items():
+        got[option] = {}
+        for name in tables:
+            data, task = kb.table(name)
+            X = np.concatenate([data["X_val"], data["X_test"]])
+            fits = []
+            for dev in (device, cpu):
+                w = kb.kernel_model(option, task, str(dev))
+                _, sec = _kb_timed(dev, lambda: w.fit(data["X_train"], data["y_train"]))
+                fits.append((w, sec))
+            (w, card_s), (wc, cpu_s) = fits
+            got[option][name] = kb.kernel_fit_record(w, data, task)
+            lml, lml_c = w.log_marginal_likelihood_value_, wc.log_marginal_likelihood_value_
+            dl = abs(lml - lml_c) / abs(lml_c)
+            dt = float(np.abs(w.theta_ - wc.theta_).max())
+            what = (f"[kernel baselines] {card}: kernel {expression}"
+                    f"{' ' + str(params) if params else ''} on {name} "
+                    f"({task}, {len(data['X_train'])} training rows): fit {card_s:.3f} s on "
+                    f"the card, {cpu_s:.3f} s on the CPU")
+            if task == "regression":
+                pred, pred_c = w.predict(X), wc.predict(X)
+                dp = float(np.abs(pred - pred_c).max() / np.abs(pred_c).max())
+                log(f"{what}; L-BFGS evaluations {w.fit_.n_eval} (CPU {wc.fit_.n_eval}); "
+                    f"theta {w.theta_.tolist()} (|d| {dt:.3g}, bound {KB_GPR_THETA_ATOL}); "
+                    f"lml {lml!r} (CPU {lml_c!r}, rel {dl:.3g}, bound {KB_GPR_LML_RTOL}); "
+                    f"predictions |d| / max|pred| {dp:.3g} (bound {KB_GPR_PRED_RTOL})")
+                ok = (dt <= KB_GPR_THETA_ATOL and dl <= KB_GPR_LML_RTOL
+                      and dp <= KB_GPR_PRED_RTOL and np.isfinite(pred).all())
+            else:
+                p1, p1_c = w.fit_.proba(w._x(X)).cpu().numpy(), wc.fit_.proba(wc._x(X)).numpy()
+                if w._one_vs_one:
+                    out, out_c = w.decision_function(X), wc.decision_function(X)
+                    held = "decision values"
+                else:
+                    out, out_c = w.predict_proba(X), wc.predict_proba(X)
+                    held = "probabilities"
+                dp = float(max(np.abs(p1 - p1_c).max(), np.abs(out - out_c).max()))
+                at_card = dataclasses.replace(w.fit_, fits=[
+                    _gp.laplace_mode(f.X.cpu(), f.y.cpu(), f.kernel,
+                                     int(wc.params["max_iter_predict"]))
+                    for f in w.fit_.fits])
+                da = float(np.abs(p1 - at_card.proba(wc._x(X)).numpy()).max())
+                bound = KB_GPC_FITTED_PROBA_ATOL.get((option, name), KB_GPC_PROBA_ATOL)
+                same = np.array_equal(w.predict(X), wc.predict(X))
+                log(f"{what}; {len(w.kernels_)} binary problem(s), L-BFGS evaluations "
+                    f"{w.fit_.n_eval} (CPU {wc.fit_.n_eval}), final Newton passes "
+                    f"{w.fit_.n_iter} (CPU {wc.fit_.n_iter}); theta {w.theta_.tolist()} "
+                    f"(|d| {dt:.3g}, bound {KB_GPR_THETA_ATOL}); lml {lml!r} (CPU {lml_c!r}, "
+                    f"rel {dl:.3g}, bound {KB_GPC_LML_RTOL}); max |d| of the binary fits' "
+                    f"P(class 1) and the {held} {dp:.3g}, P(class 1) against the CPU's "
+                    f"at the card's theta {da:.3g} (bound {bound}); labels equal {same}")
+                ok = (dt <= KB_GPR_THETA_ATOL and dp <= bound and da <= bound
+                      and dl <= KB_GPC_LML_RTOL and same and np.isfinite(out).all())
+            if not ok:
+                raise AssertionError(f"kernel {option} {name}: card and CPU part")
+    for option, tables in got.items():
+        for name, rec in tables.items():
+            want = ref["kernels"][option][name]
+            log(f"[kernel baselines] {card}: kernel {option} {name}: "
+                + ", ".join(f"{k} {v!r} (sklearn {want[k]!r})" for k, v in rec.items()))
+    bad = kb.compare_kernels(got, ref)
+    log(f"[kernel baselines] {card}: kernels against {kb.KERNELS_REFERENCE} (sklearn "
+        f"{ref['sklearn']}; accuracy within one row, rmse within {kb.RMSE_RTOL['gp']} "
+        f"relative): {'all within' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"GP kernel fits part from sklearn's: {bad}")
+    # (c) SVC probability=True fits the default model
+    for name in ("iris", "wine", "digits"):
+        data, _ = kb.table(name)
+        X = np.concatenate([data["X_val"], data["X_test"]])
+        fits = []
+        for params in ({"probability": True, "random_state": 0}, {}):
+            w = SVMClfWrapper(params, device=str(device))
+            _, sec = _kb_timed(device, lambda: w.fit(data["X_train"], data["y_train"]))
+            fits.append((w, sec, w.model_.decision(w._x(X)).cpu().numpy(), w.predict(X)))
+        (w, s1, d1, l1), (w0, s0, d0, l0) = fits
+        d = float(np.abs(d1 - d0).max())
+        log(f"[kernel baselines] {card}: svm probability=True {name}: fit {s1:.3f} s on the "
+            f"card (default {s0:.3f} s); SMO iterations {w.n_iter_} (default {w0.n_iter_}); "
+            f"max |d decision| {d!r}; labels equal {np.array_equal(l1, l0)}")
+        if not (w.n_iter_ == w0.n_iter_ and d == 0.0 and np.array_equal(l1, l0)):
+            raise AssertionError(f"svm probability=True {name} is not the default fit")
+    log(f"[kernel baselines] {card}: phase 14 (v) took {time.perf_counter() - t0:.1f} s")
     return got
 
 

@@ -18,9 +18,16 @@ each applies to, through the wrappers on the same splits;
 `results/kernel_baselines_options.json` holds sklearn's metrics for them,
 written by `studies/kernel_baselines_options_ref.py`.
 
+The GP kernel objects (`KERNEL_OPTIONS`: Matern, RationalQuadratic and RBF
+kernels with free hyperparameters, in sums and products) run the same way
+(`run_gp_kernels`); `results/gp_kernels.json` holds sklearn's metrics,
+fitted θ and log-marginal likelihoods for them, written by
+`studies/gp_kernels_ref.py`.
+
 Run:  python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --device cpu
       python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --compare results/kernel_baselines.json
       python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --options --compare results/kernel_baselines_options.json
+      python -m tensornetworksfork_tpu_torch.experiments.kernel_baselines --kernels --compare results/gp_kernels.json
 
 It runs on the card; `--device cpu` runs it on the CPU.
 """
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 from typing import Dict
 
@@ -63,6 +71,38 @@ OPTIONS = {
     "warm_start": ("gp", {"warm_start": True}, ("iris", "wine", "digits")),
 }
 OPTIONS_REFERENCE = "results/kernel_baselines_options.json"
+# the GP kernel objects: (the kernel as one expression, the wrapper's other
+# parameters, the tables it runs on). The expression is evaluated in
+# sklearn's namespace by studies/gp_kernels_ref.py and in the port's
+# (`kernel_from_expression`) here, so both sides build the same kernel
+# from one text. Every kernel has free hyperparameters, so the optimiser
+# runs: for the classifiers on each binary problem's own θ. Two diabetes
+# cells have no reference and stay out (the kernels themselves are held to
+# sklearn in tests/test_torch_gp_kernels.py):
+# - C(1) * RBF([1.0] * 10): one length scale runs off to ~e^7.4 (a feature
+#   the fit ignores), along which the lml is flat; sklearn's own θ moves
+#   by 5.4e-5 between one BLAS thread and eight, and by 6.4e-2 between the
+#   float32 table and its float64 copy (its gradient takes the feature
+#   differences in X's dtype);
+# - DotProduct(1) ** 2 + WhiteKernel(1): on the float32 table sklearn
+#   forms X Xᵀ in float32, its first L-BFGS step's Cholesky fails there,
+#   and it stops at θ = (0, 0) (lml -443.69); the port, in float64, and
+#   sklearn on the table's float64 copy both reach θ = (-1.973, -0.784)
+#   (lml -405.81).
+# digits under C(1) * RBF(1) free stays out: sklearn's one-thread fit of
+# its ten binary problems takes 53.7 s (one core of an AMD EPYC), past
+# the 40 s that chip_smoke.py's phase 14 (v) may take. The readings come
+# from `python studies/port_repairs_study.py cells --digits`
+KERNEL_OPTIONS = {
+    "matern 2.5 + white": ("C(1.0) * Matern(length_scale=1.0, nu=2.5) + WhiteKernel(1.0)",
+                           {}, ("diabetes",)),
+    "rational quadratic": ("C(1.0) * RationalQuadratic(length_scale=1.0, alpha=1.0)",
+                           {}, ("diabetes",)),
+    "rbf free": ("C(1.0) * RBF(1.0)", {}, ("iris", "wine")),
+    "rbf free one_vs_one": ("C(1.0) * RBF(1.0)", {"multi_class": "one_vs_one"}, ("iris",)),
+    "matern 1.5": ("C(1.0) * Matern(length_scale=1.0, nu=1.5)", {}, ("breast_cancer",)),
+}
+KERNELS_REFERENCE = "results/gp_kernels.json"
 
 
 def table(name: str, seed: int = 42):
@@ -116,6 +156,56 @@ def option_model(option: str, task: str, device="cuda"):
         return GaussianProcessWrapper(dict(params), task=task, device=device)
     wrapper = SVMClfWrapper if task == "classification" else SVMRegWrapper
     return wrapper(dict(params), device=device)
+
+
+def kernel_from_expression(expression: str, namespace=None):
+    """A kernel expression of KERNEL_OPTIONS evaluated with the names of
+    `namespace` (default: the port's kernels, `_gp_kernels.NAMESPACE`) and
+    `inf`, nothing else."""
+    if namespace is None:
+        from ..models._gp_kernels import NAMESPACE as namespace
+    return eval(expression, {"__builtins__": {}, "inf": math.inf}, dict(namespace))
+
+
+def kernel_model(option: str, task: str, device="cuda"):
+    """The port's GaussianProcessWrapper of a KERNEL_OPTIONS entry."""
+    from ..models.baselines import GaussianProcessWrapper
+    expression, params = KERNEL_OPTIONS[option][:2]
+    return GaussianProcessWrapper(dict(params, kernel=kernel_from_expression(expression)),
+                                  task=task, device=device)
+
+
+def kernel_fit_record(model, data, task) -> dict:
+    """A fitted kernel model's val/test metrics, its θ (each binary
+    problem's in turn) and its log-marginal likelihood."""
+    return dict(metrics(model, data, task), theta=[float(v) for v in model.theta_],
+                lml=float(model.log_marginal_likelihood_value_))
+
+
+def run_gp_kernels(device="cuda") -> dict:
+    """{option: {table: kernel_fit_record}} over KERNEL_OPTIONS."""
+    out = {}
+    for option, (_, _, names) in KERNEL_OPTIONS.items():
+        out[option] = {}
+        for name in names:
+            data, task = table(name)
+            model = kernel_model(option, task, device)
+            model.fit(data["X_train"], data["y_train"])
+            out[option][name] = kernel_fit_record(model, data, task)
+    return out
+
+
+def compare_kernels(got: dict, want: dict) -> list:
+    """compare() for {option: {table: record}} against the kernels'
+    reference at the GP's bounds (the metrics only). Returns (option,
+    table, metric, got, want)."""
+    bad = []
+    for option, tables in got.items():
+        mets = {t: {k: v for k, v in r.items() if k not in ("theta", "lml")}
+                for t, r in tables.items()}
+        bad += [(option,) + b[1:] for b in compare(
+            {"gp": mets}, {"gp": want["kernels"][option], "rows": want["rows"]})]
+    return bad
 
 
 def option_scores(option: str, name: str, device="cuda") -> Dict[str, float]:
@@ -176,17 +266,23 @@ def compare(got: dict, want: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--options", action="store_true",
-                    help="run the wrappers' options (OPTIONS) instead of the defaults")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--options", action="store_true",
+                      help="run the wrappers' options (OPTIONS) instead of the defaults")
+    what.add_argument("--kernels", action="store_true",
+                      help="run the GP kernel objects (KERNEL_OPTIONS) instead of the defaults")
     ap.add_argument("--compare", default=None,
-                    help=f"a reference file to hold the run to (e.g. {REFERENCE}, or "
-                         f"{OPTIONS_REFERENCE} with --options)")
+                    help=f"a reference file to hold the run to (e.g. {REFERENCE}, "
+                         f"{OPTIONS_REFERENCE} with --options, {KERNELS_REFERENCE} with "
+                         "--kernels)")
     args = ap.parse_args(argv)
-    got = run_options(args.device) if args.options else run(args.device)
+    run_fn, compare_fn = ((run_options, compare_options) if args.options else
+                          (run_gp_kernels, compare_kernels) if args.kernels else (run, compare))
+    got = run_fn(args.device)
     print(json.dumps(got, indent=1))
     if args.compare:
         with open(args.compare) as f:
-            bad = (compare_options if args.options else compare)(got, json.load(f))
+            bad = compare_fn(got, json.load(f))
         for b in bad:
             print("differs:", *b)
         return 1 if bad else 0

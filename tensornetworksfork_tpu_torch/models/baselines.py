@@ -15,9 +15,10 @@
   monomials of degree 0..degree come in sklearn's column order (each built
   as its first feature times the lower-degree column of the rest, as
   sklearn builds it, so the features are bit-equal). Ridge(alpha) has its
-  centred, unpenalised intercept and is solved in the inputs' dtype by a
-  Cholesky solve of the primal system, or of the kernel system X Xᵀ where
-  there are more features than rows, as sklearn's "cholesky" solver does.
+  centred, unpenalised intercept and is solved by a Cholesky solve of the
+  primal system, or of the kernel system X Xᵀ where there are more
+  features than rows, as sklearn's "cholesky" solver does, in float64 (as
+  the pseudo-inverse is), its coefficients returned in the inputs' dtype.
   Lasso(alpha) is sklearn's cyclic coordinate descent (`lasso_cd`): the
   objective 1/(2n) ||y - Xw - b||² + alpha ||w||₁ on centred data, gap
   safe screening, and its stopping rule (a full pass whose largest
@@ -28,16 +29,19 @@
   libsvm, written out in torch (`models/_libsvm.py`): C-SVC one-vs-one over
   the k(k-1)/2 class pairs with libsvm's vote (class_weight and break_ties
   as sklearn's), and ε-SVR; float64 on `device`, the kernel entries rounded
-  to float32 as libsvm's Qfloat.
-- `GaussianProcessWrapper`: sklearn's GaussianProcessRegressor (kernel
-  C(1) * RBF(1), both free, L-BFGS-B or a callable optimizer on the
-  log-marginal likelihood, with restarts) and GaussianProcessClassifier
-  (C(1) * RBF(1) fixed, binary Laplace, one-vs-rest or one-vs-one above two
-  classes, warm_start), written out in torch (`models/_gp.py`).
-
-Refused with a ValueError naming them, as no reference can be reproduced
-without sklearn: SVC probability=True (Platt scaling on libsvm's internal
-random folds) and GP kernel objects (sklearn's kernel algebra).
+  to float32 as libsvm's Qfloat. probability=True fits the same model
+  (libsvm trains it apart from Platt scaling's folds), and nothing here
+  reads probabilities.
+- `GaussianProcessWrapper`: sklearn's GaussianProcessRegressor and
+  GaussianProcessClassifier over sklearn's kernel objects (the port's
+  `models/_gp_kernels.py`, or sklearn's own converted by class name;
+  defaults C(1) * RBF(1), free for regression and fixed for
+  classification): L-BFGS-B or a callable optimizer on the log-marginal
+  likelihood with restarts, binary Laplace, one-vs-rest or one-vs-one
+  above two classes, warm_start, written out in torch (`models/_gp.py`).
+  Refused with a ValueError naming them: PairwiseKernel, a CompoundKernel
+  as input, Matern at ν other than 0.5, 1.5, 2.5 or ∞, and input that is
+  not rows of numbers.
 
 Not ported: the XGBoost wrappers. xgboost is missing on the card's machine
 and on the machine that runs the tests, so there is no reference to hold a
@@ -45,6 +49,7 @@ port to.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 from typing import Optional, Sequence
@@ -54,7 +59,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from . import _gp, _libsvm
+from . import _gp, _gp_kernels, _libsvm
 
 # flax's lecun_normal: a normal truncated to [-2, 2] has this standard
 # deviation; its samples are divided by it to keep the variance 1/fan_in
@@ -361,23 +366,34 @@ class PolynomialRegressionWrapper:
         return polynomial_features(X, self.degree)
 
     def fit(self, X, y):
-        Xp = self._features(X)
+        X = np.asarray(X)
+        dtype = torch.as_tensor(X[:0]).dtype   # the features' and the answer's
         y = torch.as_tensor(np.asarray(y), device=self.device)
         one_d = y.ndim == 1
-        y2 = (y[:, None] if one_d else y).to(Xp.dtype)
-        if self.regularization is None:
-            self._coef = torch.linalg.pinv(Xp) @ y2
-            self._intercept = torch.zeros(y2.shape[1], dtype=Xp.dtype,
-                                          device=self.device)
-        else:
+        y2 = (y[:, None] if one_d else y).to(dtype)
+        if self.regularization == "l1":
+            Xp = self._features(X)
             x_off, y_off = Xp.mean(dim=0), y2.mean(dim=0)
             Xc, yc = Xp - x_off, y2 - y_off
+            coef = torch.stack([lasso_cd(Xc, yc[:, k].contiguous(),
+                                         self.alpha * Xc.shape[0])
+                                for k in range(yc.shape[1])], dim=1)
+            self._coef = coef
+            self._intercept = y_off - x_off @ coef
+            return self._finish(one_d, y2)
+        # pinv and the ridge are solved in float64 (ridge systems of
+        # condition up to ~3e7 here, where a float32 Cholesky's answer
+        # moves with the thread count), the coefficients cast back to X's
+        # dtype, which sklearn keeps
+        Xd, yd = self._features(X.astype(np.float64)), y2.double()
+        if self.regularization is None:
+            self._coef = (torch.linalg.pinv(Xd) @ yd).to(dtype)
+            self._intercept = torch.zeros(y2.shape[1], dtype=dtype, device=self.device)
+        else:
+            x_off, y_off = Xd.mean(dim=0), yd.mean(dim=0)
+            Xc, yc = Xd - x_off, yd - y_off
             n, p = Xc.shape
-            if self.regularization == "l1":
-                coef = torch.stack([lasso_cd(Xc, yc[:, k].contiguous(),
-                                             self.alpha * n)
-                                    for k in range(yc.shape[1])], dim=1)
-            elif p > n:  # the kernel form: dual = (X Xᵀ + alpha I)⁻¹ y
+            if p > n:  # the kernel form: dual = (X Xᵀ + alpha I)⁻¹ y
                 K = Xc @ Xc.T
                 K.diagonal().add_(self.alpha)
                 coef = Xc.T @ torch.cholesky_solve(yc, torch.linalg.cholesky(K))
@@ -385,8 +401,11 @@ class PolynomialRegressionWrapper:
                 A = Xc.T @ Xc
                 A.diagonal().add_(self.alpha)
                 coef = torch.cholesky_solve(Xc.T @ yc, torch.linalg.cholesky(A))
-            self._coef = coef
-            self._intercept = y_off - x_off @ coef
+            self._coef = coef.to(dtype)
+            self._intercept = (y_off - x_off @ coef).to(dtype)
+        return self._finish(one_d, y2)
+
+    def _finish(self, one_d, y2):
         # sklearn's Ridge and Lasso return a single target as a 1-D prediction
         self._ravel = one_d or (self.regularization is not None and y2.shape[1] == 1)
         return self
@@ -403,9 +422,11 @@ _SVM_DEFAULTS = dict(C=1.0, kernel="rbf", degree=3, gamma="scale", coef0=0.0,
 _SVR_DEFAULTS = dict(_SVM_DEFAULTS, epsilon=0.1)
 _SVC_DEFAULTS = dict(_SVM_DEFAULTS, decision_function_shape="ovr", random_state=None,
                      class_weight=None, break_ties=False)
-# accepted at these values only: other values need what the port leaves out
-# (Platt scaling on libsvm's random folds, verbose libsvm output)
-_SVC_FIXED = dict(probability=(False, "deprecated"), verbose=(False,))
+# accepted at these values only: verbose libsvm output is not ported;
+# probability=True trains the same model (libsvm fits it apart from Platt
+# scaling's random folds) and only Platt's sigmoid, which nothing here
+# reads, would need those folds
+_SVC_FIXED = dict(probability=(False, True, "deprecated"), verbose=(False,))
 _SVR_FIXED = dict(verbose=(False,))
 
 
@@ -580,10 +601,10 @@ class SVMClfWrapper(_SVMBase):
 
 
 # sklearn's GaussianProcessRegressor / GaussianProcessClassifier parameters
-_GPR_DEFAULTS = dict(alpha=1e-10, optimizer="fmin_l_bfgs_b", n_restarts_optimizer=0,
-                     normalize_y=False, copy_X_train=True, n_targets=None,
-                     random_state=None)
-_GPC_DEFAULTS = dict(optimizer="fmin_l_bfgs_b", n_restarts_optimizer=0,
+_GPR_DEFAULTS = dict(kernel=None, alpha=1e-10, optimizer="fmin_l_bfgs_b",
+                     n_restarts_optimizer=0, normalize_y=False, copy_X_train=True,
+                     n_targets=None, random_state=None)
+_GPC_DEFAULTS = dict(kernel=None, optimizer="fmin_l_bfgs_b", n_restarts_optimizer=0,
                      max_iter_predict=100, warm_start=False, copy_X_train=True,
                      random_state=None, multi_class="one_vs_rest", n_jobs=None)
 
@@ -601,32 +622,47 @@ def check_random_state(seed):
                      "instance")
 
 
+def default_gp_kernel(task: str) -> _gp_kernels.Kernel:
+    """sklearn's default kernels: C(1) * RBF(1), free for the regressor,
+    fixed for the classifier."""
+    C, RBF = _gp_kernels.ConstantKernel, _gp_kernels.RBF
+    if task == "classification":
+        return C(1.0, constant_value_bounds="fixed") * RBF(1.0, length_scale_bounds="fixed")
+    return C(1.0) * RBF(1.0)
+
+
 class GaussianProcessWrapper:
-    """sklearn's Gaussian processes at their default kernels in torch on
-    `device` (float64): regression is GaussianProcessRegressor(**gp_params)
-    with C(1) * RBF(1), its two hyperparameters fitted by L-BFGS-B (or a
-    callable `optimizer`) on the log-marginal likelihood, from θ = 0 and
-    `n_restarts_optimizer` θ₀ drawn from `random_state`; classification is
-    GaussianProcessClassifier(**gp_params) with C(1) * RBF(1) fixed (so no
-    optimiser runs), the binary Laplace approximation, and above two classes
-    one-vs-rest (the class of largest P(class), the first on ties) or
-    one-vs-one (sklearn's OneVsOneClassifier: the pairs' votes and
-    P(class 1) through `_ovr_decision_function`, no predict_proba);
-    `warm_start` starts the fit's second mode search from the first's f.
-    A `kernel` key raises ValueError (kernel objects need sklearn's kernel
-    algebra), as does any key or value not ported."""
+    """sklearn's Gaussian processes in torch on `device` (float64), over
+    `gp_params["kernel"]`: None (sklearn's defaults, `default_gp_kernel`), a
+    kernel of `models/_gp_kernels.py`, or an sklearn kernel object,
+    converted by its class name without importing sklearn. Regression is
+    GaussianProcessRegressor(**gp_params): a kernel with free
+    hyperparameters fitted by L-BFGS-B (or a callable `optimizer`) on the
+    log-marginal likelihood, from its θ and `n_restarts_optimizer` θ₀ drawn
+    from `random_state`. Classification is
+    GaussianProcessClassifier(**gp_params): the binary Laplace
+    approximation and above two classes one-vs-rest (the class of largest
+    P(class), the first on ties) or one-vs-one (sklearn's
+    OneVsOneClassifier: the pairs' votes and P(class 1) through
+    `_ovr_decision_function`, no predict_proba). Where the kernel has free
+    hyperparameters each binary problem fits its own θ on the Laplace
+    log-marginal likelihood (`_gp.fit_gpc_binary`); otherwise the problems
+    run as one batch at the kernel's θ, and `warm_start` starts the fit's
+    second mode search from the first's f. After `fit`: `kernel_` (the
+    fitted kernel; above two classes a list, one a binary problem),
+    `theta_` and `log_marginal_likelihood_value_`. A key or value not
+    ported raises ValueError."""
 
     def __init__(self, gp_params=None, task="regression", device="cuda"):
         self.task = task
         defaults = _GPC_DEFAULTS if task == "classification" else _GPR_DEFAULTS
         p = dict(defaults)
         for key, value in (gp_params or {}).items():
-            if key == "kernel":
-                raise ValueError("gp_params['kernel'] is not ported: kernel objects "
-                                 "need sklearn; the port fits C(1.0) * RBF(1.0)")
             if key not in defaults:
                 raise ValueError(f"gp_params key {key!r} is not ported")
             p[key] = value
+        if p["kernel"] is not None:
+            p["kernel"] = _gp_kernels.from_sklearn(p["kernel"])
         opt = p["optimizer"]
         if not (opt is None or opt == "fmin_l_bfgs_b" or callable(opt)):
             raise ValueError(f"gp_params['optimizer'] = {opt!r} is not ported (only "
@@ -639,8 +675,19 @@ class GaussianProcessWrapper:
         self.device = resolve_device(device)
         self.fit_ = None
 
+    def _kernel(self) -> _gp_kernels.Kernel:
+        """A clone of the kernel to fit (sklearn's kernel_ before fit)."""
+        k = self.params["kernel"]
+        return default_gp_kernel(self.task) if k is None else copy.deepcopy(k)
+
     def _x(self, X) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+        """X as float64 rows on the device; input that is not a 2-D array of
+        numbers (sklearn's kernels on generic objects) raises ValueError."""
+        A = np.asarray(X)
+        if A.ndim != 2 or not (np.issubdtype(A.dtype, np.number) or A.dtype == bool):
+            raise ValueError("GaussianProcessWrapper takes rows of numbers (n, features): "
+                             "kernels on non-vector input are not ported")
+        return torch.as_tensor(A.astype(np.float64), device=self.device)
 
     @property
     def _one_vs_one(self) -> bool:
@@ -651,6 +698,7 @@ class GaussianProcessWrapper:
         y = np.asarray(y)
         X = self._x(X)
         p = self.params
+        kernel = self._kernel()
         if self.task == "classification":
             if y.ndim == 2:
                 y = y.argmax(-1)
@@ -659,37 +707,23 @@ class GaussianProcessWrapper:
             if k < 2:
                 raise ValueError("GaussianProcessWrapper needs two or more classes")
             codes = np.searchsorted(self.classes_, y)
-            rows = valid = None
             if k == 2:                  # one binary problem: class 1 against 0
-                targets = (codes == 1)[None]
+                problems = [(None, codes == 1)]
             elif not self._one_vs_one:  # one problem per class against the rest
-                targets = np.stack([codes == c for c in range(k)])
+                problems = [(None, codes == c) for c in range(k)]
+            else:                       # pair (i, j), i < j: its rows, j -> 1
+                problems = []
+                for i, j in itertools.combinations(range(k), 2):
+                    r = np.flatnonzero((codes == i) | (codes == j))
+                    problems.append((r, codes[r] == j))
+            if p["optimizer"] is not None and kernel.n_dims > 0:
+                self._fit_each(X, kernel, problems)
             else:
-                # pair (i, j), i < j: the rows of classes i and j in data
-                # order, j -> 1, padded to the longest pair
-                pairs = list(itertools.combinations(range(k), 2))
-                members = [np.flatnonzero((codes == i) | (codes == j)) for i, j in pairs]
-                n = max(r.size for r in members)
-                rows = np.zeros((len(pairs), n), np.int64)
-                valid = np.zeros((len(pairs), n), bool)
-                targets = np.zeros((len(pairs), n), bool)
-                for b, ((_, j), r) in enumerate(zip(pairs, members)):
-                    rows[b, :r.size], valid[b, :r.size] = r, True
-                    targets[b, :r.size] = codes[r] == j
-                rows = torch.as_tensor(rows, device=self.device)
-                valid = torch.as_tensor(valid, device=self.device)
-            targets = torch.as_tensor(targets.astype(np.float64), device=self.device)
-            mode = dict(max_iter=int(p["max_iter_predict"]), rows=rows, valid=valid)
-            self.fit_ = _gp.laplace_mode(X, targets, **mode)
-            # sklearn's fit: the lml's mode search, then a second one for the
-            # predictions, from the first's f under warm_start (else the same)
-            self.first_fit_ = self.fit_
-            if p["warm_start"]:
-                self.fit_ = _gp.laplace_mode(X, targets, f0=self.first_fit_.f, **mode)
-            self.log_marginal_likelihood_value_ = float(np.mean(self.first_fit_.lml))
+                self._fit_batch(X, kernel, problems)
         else:
             y = y.squeeze() if y.ndim > 1 else y
-            self.fit_ = _gp.fit_gpr(X, y, noise=float(p["alpha"]), optimizer=p["optimizer"],
+            self.fit_ = _gp.fit_gpr(X, y, kernel, noise=float(p["alpha"]),
+                                    optimizer=p["optimizer"],
                                     normalize_y=bool(p["normalize_y"]),
                                     n_restarts=int(p["n_restarts_optimizer"]),
                                     rng=check_random_state(p["random_state"]))
@@ -697,11 +731,74 @@ class GaussianProcessWrapper:
             self._ravel = y.ndim == 1
         return self
 
+    def _fit_batch(self, X, kernel, problems):
+        """Every binary problem at the kernel's θ, as one batch (rows of a
+        one-vs-one pair padded to the longest pair, see `_gp`)."""
+        p = self.params
+        rows = valid = None
+        if problems[0][0] is None:
+            targets = np.stack([t for _, t in problems])
+        else:
+            n = max(r.size for r, _ in problems)
+            rows = np.zeros((len(problems), n), np.int64)
+            valid = np.zeros((len(problems), n), bool)
+            targets = np.zeros((len(problems), n), bool)
+            for b, (r, t) in enumerate(problems):
+                rows[b, :r.size], valid[b, :r.size], targets[b, :r.size] = r, True, t
+            rows = torch.as_tensor(rows, device=self.device)
+            valid = torch.as_tensor(valid, device=self.device)
+        targets = torch.as_tensor(targets.astype(np.float64), device=self.device)
+        mode = dict(max_iter=int(p["max_iter_predict"]), rows=rows, valid=valid)
+        self.fit_ = _gp.laplace_mode(X, targets, kernel, **mode)
+        # sklearn's fit: the lml's mode search, then a second one for the
+        # predictions, from the first's f under warm_start (else the same)
+        self.first_fit_ = self.fit_
+        if p["warm_start"]:
+            self.fit_ = _gp.laplace_mode(X, targets, kernel, f0=self.first_fit_.f, **mode)
+        self.log_marginal_likelihood_value_ = float(np.mean(self.first_fit_.lml))
+
+    def _fit_each(self, X, kernel, problems):
+        """Each binary problem on its own θ (`_gp.fit_gpc_binary`), in
+        sklearn's order, each drawing its restarts from the random state as
+        sklearn's clone of the binary estimator does: a new RandomState for
+        an int, numpy's global one for None, the one given (a copy of it
+        for each problem above two classes)."""
+        p = self.params
+        rs = p["random_state"]
+        out = []
+        for r, t in problems:
+            rng = (copy.deepcopy(rs) if isinstance(rs, np.random.RandomState)
+                   and len(problems) > 1 else check_random_state(rs))
+            Xb = X if r is None else X[torch.as_tensor(r, device=self.device)]
+            yb = torch.as_tensor(t.astype(np.float64), device=self.device)
+            out.append(_gp.fit_gpc_binary(
+                Xb, yb, kernel, optimizer=p["optimizer"],
+                n_restarts=int(p["n_restarts_optimizer"]), rng=rng,
+                max_iter=int(p["max_iter_predict"]), warm_start=bool(p["warm_start"])))
+        self.fit_ = _gp.BinaryFits(*(list(v) for v in zip(*out)))
+        self.first_fit_ = None
+        self.log_marginal_likelihood_value_ = float(np.mean(self.fit_.lml))
+
+    @property
+    def kernels_(self) -> list:
+        """The fitted kernel of each binary problem (one for regression)."""
+        f = self.fit_
+        if isinstance(f, _gp.BinaryFits):
+            return f.kernels
+        return [f.kernel] * (1 if self.task != "classification" else len(f.lml))
+
+    @property
+    def kernel_(self):
+        """sklearn's kernel_: the fitted kernel, or above two classes a list
+        of each binary problem's (sklearn's CompoundKernel of them)."""
+        ks = self.kernels_
+        return ks[0] if len(ks) == 1 else ks
+
     @property
     def theta_(self) -> np.ndarray:
-        """log of (constant, length_scale) of the fitted kernel."""
-        f = self.fit_
-        return np.log([f.constant, f.length_scale])
+        """The fitted θ (log hyperparameters); above two classes each binary
+        problem's in turn, as sklearn's CompoundKernel gives them."""
+        return np.hstack([k.theta for k in self.kernels_])
 
     def decision_function(self, X) -> np.ndarray:
         """One-vs-one above two classes only: sklearn's

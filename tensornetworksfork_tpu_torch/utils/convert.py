@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models import _gp, _libsvm
+from ..models import _gp, _gp_kernels, _libsvm
 from ..models.baselines import GaussianProcessWrapper, SVMClfWrapper, SVMRegWrapper
 from .device import resolve_device
 
@@ -97,31 +97,32 @@ def svm_from_sklearn(fitted, device="cuda"):
     return wrapper
 
 
-def _c_rbf(kernel):
-    """(constant, length_scale) of a fitted ConstantKernel * RBF."""
-    k1, k2 = getattr(kernel, "k1", None), getattr(kernel, "k2", None)
-    if (type(k1).__name__, type(k2).__name__) != ("ConstantKernel", "RBF") \
-            or np.ndim(k2.length_scale) != 0:
-        raise ValueError(f"the port's Gaussian processes hold C * RBF (isotropic), "
-                         f"not {kernel}")
-    return float(k1.constant_value), float(k2.length_scale)
+def gp_kernel_from_sklearn(kernel):
+    """An sklearn Gaussian-process kernel object (sklearn.gaussian_process.
+    kernels: ConstantKernel, WhiteKernel, RBF, Matern at ν 0.5, 1.5, 2.5 or
+    ∞, RationalQuadratic, ExpSineSquared, DotProduct, and their sums,
+    products and powers) -> the port's kernel with the same parameters
+    (`models/_gp_kernels.py`), read by class name and get_params(); a kernel
+    the port lacks raises ValueError naming it."""
+    return _gp_kernels.from_sklearn(kernel)
 
 
 def gp_from_sklearn(fitted, device="cuda"):
     """A fitted sklearn GaussianProcessRegressor or GaussianProcessClassifier
-    (kernel C * RBF) -> the port's GaussianProcessWrapper on `device`,
-    predicting as `fitted` does. The regressor's X_train_, alpha_, L_,
-    kernel_ and _y_train_mean / _y_train_std; the classifier's binary
-    estimators' (one, or one a class under one-vs-rest) X_train_, y_train_,
-    pi_, W_sr_ and L_."""
+    (any kernel `gp_kernel_from_sklearn` takes) -> the port's
+    GaussianProcessWrapper on `device`, predicting as `fitted` does. The
+    regressor's X_train_, alpha_, L_, kernel_ and _y_train_mean /
+    _y_train_std; the classifier's binary estimators' (one, one a class
+    under one-vs-rest, one a pair under one-vs-one) X_train_, y_train_, pi_,
+    W_sr_, L_ and kernel_."""
     if hasattr(fitted, "alpha_"):
         wrapper = GaussianProcessWrapper(task="regression", device=device)
         dev = wrapper.device
-        c, ls = _c_rbf(fitted.kernel_)
         alpha = np.asarray(fitted.alpha_, np.float64)
         wrapper._ravel = alpha.ndim == 1
         wrapper.fit_ = _gp.GPRFit(
-            theta=np.log([c, ls]), lml=float(fitted.log_marginal_likelihood_value_),
+            kernel=gp_kernel_from_sklearn(fitted.kernel_),
+            lml=float(fitted.log_marginal_likelihood_value_),
             X=torch.as_tensor(np.asarray(fitted.X_train_, np.float64), device=dev),
             L=torch.as_tensor(np.asarray(fitted.L_), device=dev),
             alpha=torch.as_tensor(alpha.reshape(alpha.shape[0], -1), device=dev),
@@ -129,20 +130,22 @@ def gp_from_sklearn(fitted, device="cuda"):
             y_std=np.atleast_1d(np.asarray(fitted._y_train_std, np.float64)))
         wrapper.log_marginal_likelihood_value_ = wrapper.fit_.lml
         return wrapper
-    wrapper = GaussianProcessWrapper(task="classification", device=device)
+    wrapper = GaussianProcessWrapper({"multi_class": fitted.multi_class},
+                                     task="classification", device=device)
     dev = wrapper.device
     base = fitted.base_estimator_
     estimators = getattr(base, "estimators_", [base])
-    c, ls = _c_rbf(estimators[0].kernel_)
 
-    def stack(name, dtype=np.float64):
-        return torch.as_tensor(np.stack([np.asarray(getattr(e, name), dtype)
-                                         for e in estimators]), device=dev)
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    fits = [_gp.LaplaceFit(X=t(e.X_train_), y=t(e.y_train_)[None], pi=t(e.pi_)[None],
+                           W_sr=t(e.W_sr_)[None], L=t(e.L_)[None],
+                           kernel=gp_kernel_from_sklearn(e.kernel_),
+                           lml=[float(e.log_marginal_likelihood_value_)], n_iter=[0])
+            for e in estimators]
+    n = len(fits)
     wrapper.classes_ = np.asarray(fitted.classes_)
-    wrapper.fit_ = _gp.LaplaceFit(
-        X=torch.as_tensor(np.asarray(estimators[0].X_train_, np.float64), device=dev),
-        y=stack("y_train_"), pi=stack("pi_"), W_sr=stack("W_sr_"), L=stack("L_"),
-        lml=[float(e.log_marginal_likelihood_value_) for e in estimators],
-        constant=c, length_scale=ls)
+    wrapper.fit_ = _gp.BinaryFits(fits=fits, lml=[f.lml[0] for f in fits], n_eval=[0] * n,
+                                  optima=[[] for _ in fits], chosen=[0] * n)
     wrapper.log_marginal_likelihood_value_ = float(fitted.log_marginal_likelihood_value_)
     return wrapper

@@ -15,6 +15,8 @@ Tolerances:
   GPR_PRED_RTOL x max|pred| (the optimiser stops where its gradient
   tolerance lets it; the gradients differ by rounding); with optimizer=None
   all to float64 rounding (GP_EXACT).
+- SVC probability=True: the default fit's model (libsvm trains it apart
+  from Platt scaling's folds), labels equal to the JAX wrapper's.
 - GPC (fixed kernel, Laplace): labels equal, probabilities within
   GPC_PROBA_ATOL (predict_proba's erf mixture cancels terms of ~3,500),
   log-marginal likelihood within GP_EXACT relative.
@@ -305,10 +307,7 @@ def _fit_three(wrapper):
     lambda: (lambda m, X: m.predict(X))(*_fit_three(tbl.SVMClfWrapper(
         {"break_ties": True, "decision_function_shape": "ovo"}, device="cpu"))),
     lambda: tbl.SVMRegWrapper({"decision_function_shape": "ovo"}, device="cpu"),
-    # Platt scaling on libsvm's internal random folds: no reference to hold
-    lambda: tbl.SVMClfWrapper({"probability": True}, device="cpu"),
     lambda: tbl.GaussianProcessWrapper({"kernel": object()}, device="cpu"),
-    lambda: tbl.GaussianProcessWrapper({"kernel": None}, task="classification", device="cpu"),
     # GaussianProcessClassifier refuses predict_proba under one_vs_one
     lambda: (lambda m, X: m.predict_proba(X))(*_fit_three(tbl.GaussianProcessWrapper(
         {"multi_class": "one_vs_one"}, task="classification", device="cpu"))),
@@ -320,6 +319,53 @@ def _fit_three(wrapper):
 def test_unported_keys_raise(make):
     with pytest.raises(ValueError):
         make()
+
+
+@pytest.mark.parametrize("name", ["iris", "wine"])
+def test_svc_probability_true_fits_the_default_model(name):
+    """probability=True (Platt scaling, which the wrappers never read)
+    leaves libsvm's model as it is: the port's labels equal the JAX
+    wrapper's under probability=True, and its decision values, SMO
+    iterations and support vectors equal its own default fit's."""
+    d, _ = _table(name)
+    j = jbl.SVMClfWrapper({"probability": True, "random_state": 0})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # sklearn deprecates probability
+        j.fit(d["X_train"], d["y_train"])
+    p = tbl.SVMClfWrapper({"probability": True, "random_state": 0}, device="cpu").fit(
+        d["X_train"], d["y_train"])
+    q = tbl.SVMClfWrapper(device="cpu").fit(d["X_train"], d["y_train"])
+    assert p.n_iter_ == q.n_iter_ == j.svm_object.n_iter_.tolist()
+    np.testing.assert_array_equal(p.n_support_, j.svm_object.n_support_)
+    for split in ("val", "test"):
+        X = d[f"X_{split}"]
+        np.testing.assert_array_equal(p.predict(X), j.predict(X))
+        np.testing.assert_array_equal(p.decision_function(X), q.decision_function(X))
+
+
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_kernel_none_is_the_default(task):
+    """gp_params={"kernel": None} is sklearn's default: C(1) * RBF(1), free
+    for regression and fixed for classification; the fit equals the one
+    without the key, and the JAX wrapper's."""
+    d, _ = _table("iris" if task == "classification" else "diabetes")
+    fits = [tbl.GaussianProcessWrapper(params, task=task, device="cpu").fit(
+        d["X_train"], d["y_train"]) for params in ({"kernel": None}, {})]
+    j = jbl.GaussianProcessWrapper({"kernel": None}, task=task).fit(d["X_train"], d["y_train"])
+    assert fits[0].kernel_ == fits[1].kernel_
+    assert fits[0].log_marginal_likelihood_value_ == fits[1].log_marginal_likelihood_value_
+    X = d["X_test"]
+    np.testing.assert_array_equal(fits[0].predict(X), fits[1].predict(X))
+    if task == "classification":
+        assert fits[0].theta_.size == 0
+        assert ([repr(k) for k in fits[0].kernels_]
+                == [repr(e.kernel_) for e in j.model.base_estimator_.estimators_])
+        np.testing.assert_array_equal(fits[0].predict(X), j.predict(X))
+    else:
+        np.testing.assert_allclose(fits[0].theta_, j.model.kernel_.theta, rtol=0,
+                                   atol=GPR_THETA_ATOL)
+        np.testing.assert_allclose(fits[0].predict(X), j.predict(X), rtol=0,
+                                   atol=GPR_PRED_RTOL * np.abs(j.predict(X)).max())
 
 
 def test_wrappers_need_no_sklearn(monkeypatch):
@@ -339,6 +385,16 @@ def test_wrappers_need_no_sklearn(monkeypatch):
     assert gpr.predict(X).shape == (40,)
     gpc = tbl.GaussianProcessWrapper(task="classification", device="cpu").fit(X, labels)
     assert gpc.predict(X).shape == (40,)
+    from tensornetworksfork_tpu_torch.models._gp_kernels import (RBF, ConstantKernel,
+                                                                 Matern, WhiteKernel)
+    kernel = ConstantKernel(1.0) * Matern(length_scale=1.0, nu=2.5) + WhiteKernel(0.1)
+    gpr = tbl.GaussianProcessWrapper({"kernel": kernel}, device="cpu").fit(X, target)
+    assert gpr.predict(X).shape == (40,) and gpr.kernel_.n_dims == 3
+    gpc = tbl.GaussianProcessWrapper({"kernel": ConstantKernel() * RBF()},
+                                     task="classification", device="cpu").fit(X, labels)
+    assert gpc.predict(X).shape == (40,) and len(gpc.kernels_) == 3
+    svc = tbl.SVMClfWrapper({"probability": True}, device="cpu").fit(X, labels)
+    assert svc.predict(X).shape == (40,)
 
 
 @pytest.mark.parametrize("dataset", ["iris", "diabetes"])
