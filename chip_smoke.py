@@ -257,9 +257,20 @@ printing its own lines:
    binary problem's θ too, and held to sklearn's metrics in
    `results/gp_kernels.json` (`studies/gp_kernels_ref.py`); SVC
    probability=True on iris, wine and digits, its labels, decision values
-   and SMO iterations equal to the default fit's. Each fit's seconds on the
-   card and the CPU, the SMO iterations and support vectors per pair, the
-   L-BFGS evaluations and the Newton iterations are printed.
+   and SMO iterations equal to the default fit's; (vi) the last kernel
+   options: the Bessel function kv (`models/_special.py`) on the card
+   against scipy.special.kv and the committed reference at its grid, each
+   pairwise kernel function (`models/_pairwise.py`) and PairwiseKernel's and
+   general-ν Matern's K, ∂K/∂θ (a finite difference) and diag card against
+   CPU at diabetes's training rows, and every
+   `kernel_baselines.MORE_KERNEL_OPTIONS` fit (Matern at ν 1 and 0.75,
+   PairwiseKernel rbf and laplacian, SVC / SVR with a precomputed or a
+   callable kernel, a user's string kernel through `HostKernel`) card
+   against CPU (the SVM's SMO iterations and support vectors equal) and
+   against sklearn's in `results/gp_kernels_more.json`
+   (`studies/gp_kernels_more_ref.py`). Each fit's seconds on the card and
+   the CPU, the SMO iterations and support vectors per pair, the L-BFGS
+   evaluations and the Newton iterations are printed.
 
 The kernels' operands at the paths' shapes are drawn on the card from
 seeded generators. Each kernel is held once at a shape, whichever phase
@@ -3925,7 +3936,7 @@ def run_kernel_baselines(device, card: str) -> dict:
     CPU; (iii) every val/test metric of the card's runs held to sklearn's
     (results/kernel_baselines.json: accuracy within one row, rmse within
     kernel_baselines.RMSE_RTOL); (iv) run_kernel_baseline_options; (v)
-    run_gp_kernel_objects. Prints
+    run_gp_kernel_objects; (vi) run_kernel_options_more. Prints
     each fit's seconds on both, the SMO iterations and support vectors per
     pair, the L-BFGS evaluations and the Newton iterations. Returns the
     card's metrics."""
@@ -4043,6 +4054,7 @@ def run_kernel_baselines(device, card: str) -> dict:
         raise AssertionError(f"kernel baselines part from sklearn's: {bad}")
     got["options"] = run_kernel_baseline_options(device, card)
     got["kernels"] = run_gp_kernel_objects(device, card)
+    got["more"] = run_kernel_options_more(device, card)
     log(f"[kernel baselines] {card}: phase 14 took {time.perf_counter() - t14:.1f} s")
     return got
 
@@ -4297,6 +4309,188 @@ def run_gp_kernel_objects(device, card: str) -> dict:
         if not (w.n_iter_ == w0.n_iter_ and d == 0.0 and np.array_equal(l1, l0)):
             raise AssertionError(f"svm probability=True {name} is not the default fit")
     log(f"[kernel baselines] {card}: phase 14 (v) took {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+# phase 14 (vi): the last kernel options card against CPU. kv against
+# scipy's within KB_KV_RTOL relative (0 where scipy's underflows to 0); K
+# within KB_KERNEL_RTOL of its max; a finite-difference gradient (ε = 1e-10
+# over K's rounding, a few ulp apart between the devices) within
+# KB_FD_GRAD_RTOL of its max; a fit through one (general-ν Matern,
+# PairwiseKernel) at the CPU tests' bounds: θ within kb.FD_THETA_ATOL, the
+# lml within kb.FD_LML_RTOL, predictions within KB_FD_PRED_RTOL x
+# max|pred|, probabilities within KB_FD_PROBA_ATOL; the string kernel's
+# (a user's numpy K, the same on both) at the KB_GPR / KB_GPC bounds; the
+# SVM's Gram matrices are computed on the host, so its float32 entries are
+# the same on both devices and the iterates must be equal
+KB_KV_RTOL = 1e-13
+KB_FD_GRAD_RTOL = 1e-4
+KB_FD_PRED_RTOL = 1e-3
+KB_FD_PROBA_ATOL = 1e-4
+# the kernels (vi) holds card against CPU at diabetes's training rows
+# (shifted to be non-negative for chi2). PairwiseKernel's sigmoid
+# saturates there (K up to 1, max|∂K/∂θ| 0.011), so one ulp of K parts its
+# finite difference by 2e-4 of that max: its reading sits at the bound
+# (9.89e-5 on an NVIDIA H100 80GB HBM3 at 700 W)
+KB_MORE_EXPRESSIONS = tuple(
+    f"PairwiseKernel(gamma=0.3, metric='{m}')" for m in (
+        "linear", "poly", "rbf", "laplacian", "sigmoid", "cosine", "chi2", "additive_chi2")) + (
+    "Matern(1.1, nu=1.0)", "Matern({ones}, nu=0.75)", "Matern(1.6, nu=3.7)")
+
+
+def _more_kernels(device, cpu):
+    """(vi)(b): each pairwise function and each KB_MORE_EXPRESSIONS kernel
+    card against CPU; the worst K and gradient gaps over their max, and the
+    number of pairwise functions."""
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import kernel_baselines as kb
+    from tensornetworksfork_tpu_torch.models import _pairwise
+    X = np.asarray(kb.table("diabetes")[0]["X_train"], np.float64)
+    X = X - X.min(0)
+    worst = {"K": 0.0, "grad": 0.0}
+
+    def held(what, a, b, bound, key):
+        diff = float((a.cpu() - b).abs().max()) if b.numel() else 0.0
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = diff / scale if scale > 0 else diff
+        worst[key] = max(worst[key], err)
+        if not (err <= bound and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{what}: card and CPU differ by {err:.3g} of the max")
+    for metric in _pairwise.PAIRWISE_KERNEL_FUNCTIONS:
+        a, b = (_pairwise.pairwise_kernels(torch.as_tensor(X, device=d), None, metric=metric)
+                for d in (device, cpu))
+        held(f"pairwise {metric}", a, b, KB_KERNEL_RTOL, "K")
+    for expression in KB_MORE_EXPRESSIONS:
+        k = kb.kernel_from_expression(expression.format(ones=[1.0] * X.shape[1]))
+        out = []
+        for d in (device, cpu):
+            Xd = torch.as_tensor(X, device=d)
+            K, G = k(Xd, eval_gradient=True)
+            out.append((K, G, k(Xd[:40], Xd), k.diag(Xd)))
+        for i, (a, b) in enumerate(zip(*out)):
+            held(expression, a, b, KB_FD_GRAD_RTOL if i == 1 else KB_KERNEL_RTOL,
+                 "grad" if i == 1 else "K")
+    return worst, len(_pairwise.PAIRWISE_KERNEL_FUNCTIONS)
+
+
+def run_kernel_options_more(device, card: str) -> dict:
+    """Phase 14 (vi): the last kernel options. (a) kv(ν, x) on the card at
+    kernel_baselines.KV_NUS x kv_grid() against scipy.special.kv and the
+    reference's values, within KB_KV_RTOL; (b) `_more_kernels`; (c) every
+    MORE_KERNEL_OPTIONS fit on the card and on the CPU (torch on one CPU
+    thread beside nvcc): GP θ, lml, predictions or probabilities at the
+    bounds above (each binary problem's θ), labels equal; SVM SMO iterations
+    and support_ equal, decision values within KB_SVM_DEC_ATOL, labels
+    equal; the string kernel's fitted kernel holds a HostKernel and its K
+    lies on the card; every card record held to sklearn's
+    (kernel_baselines.compare_more against results/gp_kernels_more.json).
+    Prints each fit's seconds on both, L-BFGS evaluations, Newton passes and
+    SMO iterations. Returns the card's records."""
+    import scipy.special
+    import torch
+    from tensornetworksfork_tpu_torch.experiments import kernel_baselines as kb
+    from tensornetworksfork_tpu_torch.models import _gp_kernels
+    from tensornetworksfork_tpu_torch.models._special import kv
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    with open(kb.MORE_REFERENCE) as f:
+        ref = json.load(f)
+    # (a) kv
+    x = kb.kv_grid()
+    worst = 0.0
+    for nu in kb.KV_NUS:
+        got = kv(nu, torch.as_tensor(x, device=device)).cpu().numpy()
+        for want in (scipy.special.kv(nu, x), np.asarray(ref["kv"]["values"][repr(nu)])):
+            nz = want != 0
+            err = float(np.max(np.abs(got[nz] - want[nz]) / np.abs(want[nz])))
+            worst = max(worst, err)
+            if not (err <= KB_KV_RTOL and np.array_equal(got == 0, want == 0)):
+                raise AssertionError(f"kv({nu}) on the card parts from scipy's by {err:.3g}")
+    log(f"[kernel baselines] {card}: kv on the card at {len(kb.KV_NUS)} orders x {x.size} "
+        f"points (1e-12 to 700) against scipy {scipy.__version__} and the reference: "
+        f"max relative {worst:.3g} (bound {KB_KV_RTOL}), zeros where scipy underflows equal")
+    # (b) the kernels
+    w, n_functions = _more_kernels(device, cpu)
+    log(f"[kernel baselines] {card}: {len(KB_MORE_EXPRESSIONS)} kernels and the "
+        f"{n_functions} pairwise functions at diabetes's training rows: "
+        f"K and diag card vs CPU within {w['K']:.3g} of their max (bound {KB_KERNEL_RTOL}), "
+        f"finite-difference dK/dtheta within {w['grad']:.3g} (bound {KB_FD_GRAD_RTOL})")
+    # (c) the fits
+    got = {}
+    threads = torch.get_num_threads()
+    for option, (fam, expression, _, tables, split) in kb.MORE_KERNEL_OPTIONS.items():
+        got[option] = {}
+        fd = "Matern" in expression or "Pairwise" in expression
+        for name in tables:
+            data, task = kb.more_table(option, name)
+            X = data["X_test"]
+            fits = []
+            for dev in (device, cpu):
+                m = kb.more_model(option, task, str(dev))
+                torch.set_num_threads(1 if dev.type == "cpu" else threads)
+                try:
+                    _, sec = _kb_timed(dev, lambda: m.fit(data["X_train"], data["y_train"]))
+                finally:
+                    torch.set_num_threads(threads)
+                fits.append((m, sec))
+            (m, card_s), (mc, cpu_s) = fits
+            got[option][name] = kb.more_fit_record(option, m, data, task)
+            what = (f"[kernel baselines] {card}: {option} on {name} ({task}, {split}, "
+                    f"{len(data['y_train'])} training rows): fit {card_s:.3f} s on the card, "
+                    f"{cpu_s:.3f} s on the CPU")
+            same = np.array_equal(m.predict(X), mc.predict(X)) or task == "regression"
+            if fam == "svm":
+                dec = kb.svm_decision(m, X, task)
+                d = float(np.abs(dec - kb.svm_decision(mc, X, task)).max())
+                ok = (m.n_iter_ == mc.n_iter_ and np.array_equal(m.support_, mc.support_)
+                      and d <= KB_SVM_DEC_ATOL and same and np.isfinite(dec).all())
+                log(f"{what}; SMO iterations {m.n_iter_} (CPU equal {m.n_iter_ == mc.n_iter_}), "
+                    f"support vectors {len(m.support_)} (CPU equal "
+                    f"{np.array_equal(m.support_, mc.support_)}); max |d decision| {d!r} "
+                    f"(bound {KB_SVM_DEC_ATOL}); labels equal {same}")
+            else:
+                lml, lml_c = m.log_marginal_likelihood_value_, mc.log_marginal_likelihood_value_
+                dl = abs(lml - lml_c) / abs(lml_c)
+                dt = float(np.abs(m.theta_ - mc.theta_).max())
+                if task == "regression":
+                    pred, pred_c = m.predict(X), mc.predict(X)
+                    dp = float(np.abs(pred - pred_c).max() / np.abs(pred_c).max())
+                    pbound = KB_FD_PRED_RTOL if fd else KB_GPR_PRED_RTOL
+                else:
+                    pred, pred_c = m.predict_proba(X), mc.predict_proba(X)
+                    dp = float(np.abs(pred - pred_c).max())
+                    pbound = KB_FD_PROBA_ATOL if fd else KB_GPC_PROBA_ATOL
+                tbound = kb.FD_THETA_ATOL if fd else KB_GPR_THETA_ATOL
+                lbound = kb.FD_LML_RTOL if fd else (
+                    KB_GPR_LML_RTOL if task == "regression" else KB_GPC_LML_RTOL)
+                host = not fd and any(isinstance(k, _gp_kernels.HostKernel) for k in (
+                    getattr(m.kernels_[0], "k1", None), getattr(m.kernels_[0], "k2", None)))
+                on_card = m.kernels_[0](m._x(X[:3])).device == device
+                ok = (dt <= tbound and dl <= lbound and dp <= pbound and same and on_card
+                      and np.isfinite(pred).all() and (fd or host))
+                evals = m.fit_.n_eval
+                log(f"{what}; L-BFGS evaluations {evals} (CPU {mc.fit_.n_eval}); theta "
+                    f"{m.theta_.tolist()} (|d| {dt:.3g}, bound {tbound}); lml {lml!r} (CPU "
+                    f"{lml_c!r}, rel {dl:.3g}, bound {lbound}); "
+                    f"{'predictions |d| / max|pred|' if task == 'regression' else 'max |d proba|'}"
+                    f" {dp:.3g} (bound {pbound}); labels equal {same}"
+                    + ("" if fd else f"; a HostKernel {host}, its K on the card {on_card}"))
+            if not ok:
+                raise AssertionError(f"{option} {name}: card and CPU part")
+    for option, tables in got.items():
+        for name, rec in tables.items():
+            want = ref["options"][option][name]
+            log(f"[kernel baselines] {card}: {option} {name}: "
+                + ", ".join(f"{k} {v!r} (sklearn {want[k]!r})" for k, v in rec.items()
+                            if k not in ("support", "decision")))
+    bad = kb.compare_more(got, ref)
+    log(f"[kernel baselines] {card}: last options against {kb.MORE_REFERENCE} (sklearn "
+        f"{ref['sklearn']}; metrics at the GP and SVM bounds, theta within "
+        f"{kb.FD_THETA_ATOL}, lml within {kb.FD_LML_RTOL}, support_ equal, decisions "
+        f"within 1e-3): {'all within' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"the last kernel options part from sklearn's: {bad}")
+    log(f"[kernel baselines] {card}: phase 14 (vi) took {time.perf_counter() - t0:.1f} s")
     return got
 
 

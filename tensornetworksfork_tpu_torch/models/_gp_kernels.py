@@ -6,26 +6,35 @@ The same classes, parameters and algebra:
 - `Hyperparameter` (bounds a pair, one pair per element, or "fixed"), and
   on each kernel `theta` (the log of its free hyperparameters, in the order
   of their names, as sklearn's `dir()` gives them), `bounds` (their log
-  bounds), `n_dims`, `hyperparameters`, `get_params`, `set_params` and
-  `clone_with_theta`;
+  bounds), `n_dims`, `hyperparameters`, `get_params`, `set_params`,
+  `clone_with_theta`, `is_stationary()` and `requires_vector_input`;
 - `k(X, Y=None, eval_gradient=False)`: K (n, m) and, with Y None, ∂K/∂θ
   (n, n, n_dims), as float64 tensors on X's device; `k.diag(X)`;
 - `ConstantKernel`, `WhiteKernel`, `RBF` (isotropic or one length scale a
-  feature), `Matern` at ν ∈ {0.5, 1.5, 2.5, ∞} with sklearn's analytic
-  gradients, `RationalQuadratic`, `ExpSineSquared` and `DotProduct`;
+  feature), `Matern` (at ν = 0.5, 1.5, 2.5 and ∞ sklearn's closed forms and
+  analytic gradients; at any other ν > 0 its general form with the Bessel
+  function `_special.kv` and its finite-difference gradient),
+  `RationalQuadratic`, `ExpSineSquared`, `DotProduct` and `PairwiseKernel`
+  (sklearn.metrics.pairwise's kernels, `_pairwise.py`, with the
+  finite-difference gradient in log γ);
 - `Sum`, `Product` and `Exponentiation`, built by `+`, `*` and `**`, a
-  number becoming a `ConstantKernel`.
+  number becoming a `ConstantKernel`; `CompoundKernel`, one kernel a binary
+  problem, K stacked on a last axis (sklearn's GaussianProcessClassifier
+  returns one as its multi-class `kernel_`, and refuses one as input).
 
 Squared distances are summed over the feature differences, as scipy's
 pdist / cdist sum them (`_libsvm.sq_dists`), and a Euclidean distance is
-their square root. X's rows are feature vectors: sklearn's kernels on
-other objects (GenericKernelMixin input) are not ported.
+their square root. A finite-difference gradient is sklearn's
+`_approx_fprime` at ε = 1e-10 over `clone_with_theta`, so its f0 is taken
+at exp(θ): it multiplies K's rounding by ~1e10.
 
 `from_sklearn` turns an sklearn kernel object into the port's by its class
-name and `get_params()`, without importing sklearn. Still refused, each
-with a ValueError naming it: `PairwiseKernel` (sklearn.metrics.pairwise's
-kernels), `CompoundKernel` as input, and `Matern` at another ν (scipy's
-Bessel `kv` and a finite-difference gradient).
+name and `get_params()`, without importing sklearn. Any other object with
+sklearn's kernel API (a kernel the user wrote, or a subclass of one of
+sklearn's) becomes a `HostKernel`, which calls the user's numpy code on the
+host and moves K and ∂K/∂θ to the device: the one host path. A kernel whose
+`requires_vector_input` is False may take rows of anything (strings, say),
+held as `HostRows`; ConstantKernel and WhiteKernel count them.
 """
 from __future__ import annotations
 
@@ -38,13 +47,16 @@ import numpy as np
 import torch
 
 from ._libsvm import sq_dists
+from ._pairwise import pairwise_kernels
+from ._special import kv
 
+# Matern's orders with a closed form and an analytic gradient
 MATERN_NUS = (0.5, 1.5, 2.5, math.inf)
-# sklearn kernels the port refuses, and what each would need
-REFUSED = {
-    "PairwiseKernel": "sklearn.metrics.pairwise's kernel functions",
-    "CompoundKernel": "one kernel a binary problem as input",
-}
+# the step of sklearn's finite-difference gradients (_approx_fprime)
+FPRIME_EPS = 1e-10
+# what a user's kernel object needs to be wrapped in a HostKernel
+KERNEL_API = ("__call__", "diag", "theta", "bounds", "clone_with_theta",
+              "hyperparameters", "requires_vector_input")
 
 
 class Hyperparameter(namedtuple("Hyperparameter",
@@ -72,6 +84,33 @@ class Hyperparameter(namedtuple("Hyperparameter",
                 and self.n_elements == other.n_elements and self.fixed == other.fixed)
 
 
+class HostRows:
+    """Rows of objects that are not vectors (strings, graphs), held on the
+    host as sklearn's GPs keep them (a list or an array), with the device
+    that a kernel's values over them go to."""
+
+    def __init__(self, data, device):
+        self.data = data
+        self.device = torch.device(device)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        idx = np.asarray(idx.cpu() if torch.is_tensor(idx) else idx)
+        if isinstance(self.data, np.ndarray):
+            return HostRows(self.data[idx], self.device)
+        return HostRows([self.data[i] for i in idx], self.device)
+
+
+def _count(X):
+    """(rows, device) of X: a tensor, an array or HostRows."""
+    if isinstance(X, HostRows):
+        return len(X), X.device
+    X = _x(X)
+    return X.shape[0], X.device
+
+
 def _x(X, like=None) -> torch.Tensor:
     """X as a 2-D float64 tensor (on `like`'s device where given)."""
     dev = like.device if like is not None else (X.device if torch.is_tensor(X) else None)
@@ -86,8 +125,22 @@ def _scalar(v: float, X: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float64, device=X.device)
 
 
-def _empty_gradient(X: torch.Tensor) -> torch.Tensor:
-    return X.new_empty((X.shape[0], X.shape[0], 0))
+def _empty_gradient(X) -> torch.Tensor:
+    n, dev = _count(X)
+    return torch.empty((n, n, 0), dtype=torch.float64, device=dev)
+
+
+def _approx_fprime(theta: np.ndarray, f, epsilon: float = FPRIME_EPS) -> torch.Tensor:
+    """sklearn's _approx_fprime: (f(θ + ε e_k) - f(θ)) / ε for each k,
+    stacked on a last axis; f0 is f(θ), not the K the caller holds."""
+    f0 = f(theta)
+    grad = f0.new_zeros(tuple(f0.shape) + (len(theta),))
+    step = _scalar(epsilon, f0)
+    for k in range(len(theta)):
+        d = np.zeros(len(theta))
+        d[k] = epsilon
+        grad[:, :, k] = (f(theta + d) - f0) / step
+    return grad
 
 
 class Kernel:
@@ -156,16 +209,16 @@ class Kernel:
         return np.log(np.vstack(bounds)) if bounds else np.array([])
 
     def __add__(self, b):
-        return Sum(self, b if isinstance(b, Kernel) else ConstantKernel(b))
+        return Sum(self, _operand(b))
 
     def __radd__(self, b):
-        return Sum(b if isinstance(b, Kernel) else ConstantKernel(b), self)
+        return Sum(_operand(b), self)
 
     def __mul__(self, b):
-        return Product(self, b if isinstance(b, Kernel) else ConstantKernel(b))
+        return Product(self, _operand(b))
 
     def __rmul__(self, b):
-        return Product(b if isinstance(b, Kernel) else ConstantKernel(b), self)
+        return Product(_operand(b), self)
 
     def __pow__(self, b):
         return Exponentiation(self, b)
@@ -183,6 +236,17 @@ class Kernel:
         """k(x, x) for each row x: ones (the normalised kernels)."""
         X = _x(X)
         return X.new_ones(X.shape[0])
+
+    def is_stationary(self) -> bool:
+        """Whether k(x, y) depends on x - y alone (sklearn's
+        StationaryKernelMixin)."""
+        return True
+
+    @property
+    def requires_vector_input(self) -> bool:
+        """Whether the kernel takes rows of numbers only (sklearn's
+        GenericKernelMixin kernels take any rows)."""
+        return True
 
 
 def _check_length_scale(X: torch.Tensor, length_scale) -> np.ndarray:
@@ -206,21 +270,26 @@ class ConstantKernel(Kernel):
     def hyperparameter_constant_value(self):
         return Hyperparameter("constant_value", "numeric", self.constant_value_bounds)
 
+    @property
+    def requires_vector_input(self):
+        return False
+
     def __call__(self, X, Y=None, eval_gradient=False):
-        X = _x(X)
+        n, dev = _count(X)
         if Y is not None and eval_gradient:
             raise ValueError("Gradient can only be evaluated when Y is None.")
-        m = X.shape[0] if Y is None else _x(Y, X).shape[0]
-        K = X.new_full((X.shape[0], m), float(self.constant_value))
+        m = n if Y is None else _count(Y)[0]
+        value = float(self.constant_value)
+        K = torch.full((n, m), value, dtype=torch.float64, device=dev)
         if not eval_gradient:
             return K
         if self.hyperparameter_constant_value.fixed:
             return K, _empty_gradient(X)
-        return K, X.new_full((X.shape[0], X.shape[0], 1), float(self.constant_value))
+        return K, torch.full((n, n, 1), value, dtype=torch.float64, device=dev)
 
     def diag(self, X):
-        X = _x(X)
-        return X.new_full((X.shape[0],), float(self.constant_value))
+        n, dev = _count(X)
+        return torch.full((n,), float(self.constant_value), dtype=torch.float64, device=dev)
 
     def __repr__(self):
         return f"{np.sqrt(self.constant_value):.3g}**2"
@@ -237,13 +306,17 @@ class WhiteKernel(Kernel):
     def hyperparameter_noise_level(self):
         return Hyperparameter("noise_level", "numeric", self.noise_level_bounds)
 
+    @property
+    def requires_vector_input(self):
+        return False
+
     def __call__(self, X, Y=None, eval_gradient=False):
-        X = _x(X)
+        n, dev = _count(X)
         if Y is not None:
             if eval_gradient:
                 raise ValueError("Gradient can only be evaluated when Y is None.")
-            return X.new_zeros((X.shape[0], _x(Y, X).shape[0]))
-        eye = torch.eye(X.shape[0], dtype=torch.float64, device=X.device)
+            return torch.zeros((n, _count(Y)[0]), dtype=torch.float64, device=dev)
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
         K = float(self.noise_level) * eye
         if not eval_gradient:
             return K
@@ -252,8 +325,8 @@ class WhiteKernel(Kernel):
         return K, (float(self.noise_level) * eye)[:, :, None]
 
     def diag(self, X):
-        X = _x(X)
-        return X.new_full((X.shape[0],), float(self.noise_level))
+        n, dev = _count(X)
+        return torch.full((n,), float(self.noise_level), dtype=torch.float64, device=dev)
 
     def __repr__(self):
         return f"{type(self).__name__}(noise_level={self.noise_level:.3g})"
@@ -311,22 +384,24 @@ class RBF(Kernel):
 
 
 class Matern(RBF):
-    """sklearn's Matern at ν = 0.5, 1.5, 2.5 or ∞ (its closed forms and
-    analytic gradients); another ν raises ValueError."""
+    """sklearn's Matern: at ν = 0.5, 1.5, 2.5 or ∞ its closed forms and
+    analytic gradients; at any other ν > 0 its general case step by step
+    (exact zero distances raised by float64's eps, then 2^(1-ν)/Γ(ν) tmp^ν
+    K_ν(tmp) with tmp = √(2ν) d, in that order) and its finite-difference
+    gradient."""
 
     def __init__(self, length_scale=1.0, length_scale_bounds=(1e-5, 1e5), nu=1.5):
         super().__init__(length_scale, length_scale_bounds)
         self.nu = nu
-        self._check_nu()
 
-    def _check_nu(self):
-        if self.nu not in MATERN_NUS:
-            raise ValueError(f"Matern(nu={self.nu!r}) is not ported: only nu in "
-                             f"{MATERN_NUS} (another nu needs scipy's Bessel kv and a "
-                             "finite-difference gradient)")
+    def _general(self, dists: torch.Tensor) -> torch.Tensor:
+        import scipy.special
+        nu = float(self.nu)
+        d = torch.where(dists == 0.0, np.finfo(float).eps, dists)
+        tmp = math.sqrt(2 * nu) * d
+        return ((2 ** (1.0 - nu)) / float(scipy.special.gamma(nu)) * tmp ** nu) * kv(nu, tmp)
 
     def __call__(self, X, Y=None, eval_gradient=False):
-        self._check_nu()
         X = _x(X)
         if Y is not None and eval_gradient:
             raise ValueError("Gradient can only be evaluated when Y is None.")
@@ -340,14 +415,18 @@ class Matern(RBF):
         elif self.nu == 2.5:
             K = dists * math.sqrt(5)
             K = (1.0 + K + K ** 2 / 3.0) * torch.exp(-K)
-        else:
+        elif self.nu == math.inf:
             K = torch.exp(-(dists ** 2) / 2.0)
+        else:
+            K = self._general(dists)
         if Ys is None:
             K.fill_diagonal_(1)
         if not eval_gradient:
             return K
         if self.hyperparameter_length_scale.fixed:
             return K, _empty_gradient(X)
+        if self.nu not in MATERN_NUS:
+            return K, _approx_fprime(self.theta, lambda t: self.clone_with_theta(t)(X, Y))
         D = self._anisotropic_d(X, ls) if self.anisotropic else (dists ** 2)[:, :, None]
         if self.nu == 0.5:
             den = torch.sqrt(D.sum(2))[:, :, None]
@@ -483,8 +562,60 @@ class DotProduct(Kernel):
         X = _x(X)
         return torch.einsum("ij,ij->i", X, X) + float(self.sigma_0) ** 2
 
+    def is_stationary(self):
+        return False
+
     def __repr__(self):
         return f"{type(self).__name__}(sigma_0={self.sigma_0:.3g})"
+
+
+class PairwiseKernel(Kernel):
+    """sklearn's PairwiseKernel: `_pairwise.pairwise_kernels(X, Y, metric,
+    gamma=γ, filter_params=True, **pairwise_kernels_kwargs)`, a metric name
+    of sklearn.metrics.pairwise, "precomputed" or a callable (user code, run
+    on the host on numpy rows); θ = log γ, its gradient the finite
+    difference at exp(θ). diag is each row's kernel with itself as a 1 x 1
+    kernel (sklearn's apply_along_axis)."""
+
+    def __init__(self, gamma=1.0, gamma_bounds=(1e-5, 1e5), metric="linear",
+                 pairwise_kernels_kwargs=None):
+        self.gamma = gamma
+        self.gamma_bounds = gamma_bounds
+        self.metric = metric
+        self.pairwise_kernels_kwargs = pairwise_kernels_kwargs
+
+    @property
+    def hyperparameter_gamma(self):
+        return Hyperparameter("gamma", "numeric", self.gamma_bounds)
+
+    def _kernel(self, X, Y, gamma):
+        return pairwise_kernels(X, Y, metric=self.metric, gamma=gamma, filter_params=True,
+                                **(self.pairwise_kernels_kwargs or {}))
+
+    def __call__(self, X, Y=None, eval_gradient=False):
+        X = _x(X)
+        Y = None if Y is None else _x(Y, X)
+        K = self._kernel(X, Y, self.gamma)
+        if not eval_gradient:
+            return K
+        if self.hyperparameter_gamma.fixed:
+            return K, _empty_gradient(X)
+        return K, _approx_fprime(self.theta, lambda t: self._kernel(X, Y, np.exp(t)))
+
+    def diag(self, X):
+        X = _x(X)
+        if callable(self.metric):
+            kw = dict(self.pairwise_kernels_kwargs or {}, gamma=self.gamma)
+            return torch.as_tensor([self.metric(x, x, **kw) for x in X.cpu().numpy()],
+                                   dtype=torch.float64, device=X.device)
+        # each row's kernel with itself, as a 1 x 1 kernel
+        return torch.stack([self._kernel(x[None], None, self.gamma)[0, 0] for x in X])
+
+    def is_stationary(self):
+        return isinstance(self.metric, str) and self.metric == "rbf"
+
+    def __repr__(self):
+        return f"{type(self).__name__}(gamma={self.gamma}, metric={self.metric})"
 
 
 class KernelOperator(Kernel):
@@ -530,6 +661,13 @@ class KernelOperator(Kernel):
             return False
         return ((self.k1 == b.k1 and self.k2 == b.k2)
                 or (self.k1 == b.k2 and self.k2 == b.k1))
+
+    def is_stationary(self):
+        return self.k1.is_stationary() and self.k2.is_stationary()
+
+    @property
+    def requires_vector_input(self):
+        return bool(self.k1.requires_vector_input or self.k2.requires_vector_input)
 
 
 class Sum(KernelOperator):
@@ -601,6 +739,13 @@ class Exponentiation(Kernel):
             return False
         return self.kernel == b.kernel and self.exponent == b.exponent
 
+    def is_stationary(self):
+        return self.kernel.is_stationary()
+
+    @property
+    def requires_vector_input(self):
+        return self.kernel.requires_vector_input
+
     def __call__(self, X, Y=None, eval_gradient=False):
         if not eval_gradient:
             return self.kernel(X, Y) ** self.exponent
@@ -615,32 +760,170 @@ class Exponentiation(Kernel):
         return f"{self.kernel} ** {self.exponent}"
 
 
-# the port's kernel classes by name, as sklearn.gaussian_process.kernels
-# names them
+class CompoundKernel(Kernel):
+    """sklearn's CompoundKernel: several kernels side by side, their K
+    stacked on a last axis (n, m, n_kernels), ∂K/∂θ as (n, n, n_dims,
+    n_kernels), diag (n, n_kernels); θ and bounds stacked. sklearn's
+    GaussianProcessClassifier returns one as its kernel_ above two classes;
+    its θ setter, which in sklearn reads a k1 the class lacks, here hands
+    each kernel its n_dims in turn."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def get_params(self, deep=True):
+        return dict(kernels=self.kernels)
+
+    @property
+    def theta(self):
+        return np.hstack([k.theta for k in self.kernels])
+
+    @theta.setter
+    def theta(self, theta):
+        i = 0
+        for k in self.kernels:
+            k.theta = theta[i:i + k.n_dims]
+            i += k.n_dims
+
+    @property
+    def bounds(self):
+        return np.vstack([k.bounds for k in self.kernels])
+
+    def __call__(self, X, Y=None, eval_gradient=False):
+        if not eval_gradient:
+            return torch.stack([k(X, Y) for k in self.kernels], -1)
+        parts = [k(X, Y, eval_gradient) for k in self.kernels]
+        return (torch.stack([K for K, _ in parts], -1),
+                torch.cat([G[..., None] for _, G in parts], 3))
+
+    def __eq__(self, b):
+        if type(self) is not type(b) or len(self.kernels) != len(b.kernels):
+            return False
+        return all(a == c for a, c in zip(self.kernels, b.kernels))
+
+    def is_stationary(self):
+        return all(k.is_stationary() for k in self.kernels)
+
+    @property
+    def requires_vector_input(self):
+        return any(k.requires_vector_input for k in self.kernels)
+
+    def diag(self, X):
+        return torch.stack([k.diag(X) for k in self.kernels], 1)
+
+
+def _host(X):
+    """X as the user's kernel takes it (a numpy array or the rows of
+    HostRows) and the device its values go to."""
+    if isinstance(X, HostRows):
+        return X.data, X.device
+    if torch.is_tensor(X):
+        return X.cpu().numpy(), X.device
+    return X, torch.device("cpu")
+
+
+class HostKernel(Kernel):
+    """A kernel the user wrote with sklearn's kernel API (KERNEL_API), in
+    numpy: called on the host, its K, ∂K/∂θ and diag moved to the device of
+    X as float64. θ, bounds, hyperparameters and clones are the user
+    object's. The only kernel that runs on the host."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+
+    def get_params(self, deep=True):
+        return dict(kernel=self.kernel)
+
+    @property
+    def hyperparameters(self):
+        return list(self.kernel.hyperparameters)
+
+    @property
+    def theta(self):
+        return np.asarray(self.kernel.theta, dtype=np.float64)
+
+    @theta.setter
+    def theta(self, theta):
+        self.kernel.theta = theta
+
+    @property
+    def bounds(self):
+        return np.asarray(self.kernel.bounds, dtype=np.float64)
+
+    def clone_with_theta(self, theta):
+        return HostKernel(self.kernel.clone_with_theta(theta))
+
+    def __call__(self, X, Y=None, eval_gradient=False):
+        Xh, dev = _host(X)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+        if eval_gradient:
+            if Y is not None:
+                raise ValueError("Gradient can only be evaluated when Y is None.")
+            K, G = self.kernel(Xh, eval_gradient=True)
+            return t(K), t(G)
+        return t(self.kernel(Xh) if Y is None else self.kernel(Xh, _host(Y)[0]))
+
+    def diag(self, X):
+        Xh, dev = _host(X)
+        return torch.as_tensor(np.asarray(self.kernel.diag(Xh), dtype=np.float64), device=dev)
+
+    def __eq__(self, b):
+        return type(self) is type(b) and self.kernel == b.kernel
+
+    def is_stationary(self):
+        return bool(self.kernel.is_stationary())
+
+    @property
+    def requires_vector_input(self):
+        return bool(self.kernel.requires_vector_input)
+
+    def __repr__(self):
+        return repr(self.kernel)
+
+
+# sklearn's kernel classes, by the names sklearn.gaussian_process.kernels
+# gives them
 CLASSES = {k.__name__: k for k in (ConstantKernel, WhiteKernel, RBF, Matern,
                                    RationalQuadratic, ExpSineSquared, DotProduct,
-                                   Sum, Product, Exponentiation)}
+                                   PairwiseKernel, Sum, Product, Exponentiation,
+                                   CompoundKernel)}
 # the names a kernel expression may use (experiments/kernel_baselines.py
 # KERNEL_OPTIONS): the classes and sklearn's usual alias C
 NAMESPACE = dict(CLASSES, C=ConstantKernel)
+SKLEARN_MODULE = "sklearn.gaussian_process.kernels"
+
+
+def _operand(b) -> Kernel:
+    """The other side of +, * : a kernel object as from_sklearn takes it, a
+    number as a ConstantKernel."""
+    if isinstance(b, Kernel) or all(hasattr(b, a) for a in KERNEL_API):
+        return from_sklearn(b)
+    return ConstantKernel(b)
 
 
 def from_sklearn(kernel) -> Kernel:
     """An sklearn kernel object -> the port's kernel with the same
-    parameters, by its class name and `get_params(deep=False)` (sklearn is
-    not imported). A port kernel is returned as it is. A kernel the port
-    does not have raises ValueError naming it."""
+    parameters. One of sklearn's own classes converts by its class name and
+    `get_params(deep=False)` (sklearn is not imported), its parts in turn;
+    a port kernel is returned as it is; any other object with sklearn's
+    kernel API (KERNEL_API: a kernel the user wrote, or a subclass of one of
+    sklearn's) becomes a HostKernel. Anything else raises ValueError."""
     if isinstance(kernel, Kernel):
         return kernel
-    name = type(kernel).__name__
-    if name in REFUSED:
-        raise ValueError(f"the GP kernel {name} is not ported (it needs {REFUSED[name]})")
-    if name not in CLASSES or not hasattr(kernel, "get_params"):
-        raise ValueError(f"the GP kernel {name} ({kernel!r}) is not ported; the port has "
-                         f"{sorted(CLASSES)}")
-    params = kernel.get_params(deep=False)
-    if name in ("Sum", "Product"):
-        return CLASSES[name](from_sklearn(params["k1"]), from_sklearn(params["k2"]))
-    if name == "Exponentiation":
-        return Exponentiation(from_sklearn(params["kernel"]), params["exponent"])
-    return CLASSES[name](**{k: copy.deepcopy(v) for k, v in params.items()})
+    cls = type(kernel)
+    if cls.__module__ == SKLEARN_MODULE and cls.__name__ in CLASSES:
+        name, params = cls.__name__, kernel.get_params(deep=False)
+        if name in ("Sum", "Product"):
+            return CLASSES[name](from_sklearn(params["k1"]), from_sklearn(params["k2"]))
+        if name == "Exponentiation":
+            return Exponentiation(from_sklearn(params["kernel"]), params["exponent"])
+        if name == "CompoundKernel":
+            return CompoundKernel([from_sklearn(k) for k in params["kernels"]])
+        return CLASSES[name](**{k: copy.deepcopy(v) for k, v in params.items()})
+    missing = [a for a in KERNEL_API if not hasattr(kernel, a)]
+    if missing:
+        raise ValueError(f"{cls.__name__} ({kernel!r}) is not a GP kernel: it lacks "
+                         f"{missing} of sklearn's kernel API")
+    return HostKernel(kernel)

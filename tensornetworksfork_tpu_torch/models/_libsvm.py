@@ -8,9 +8,10 @@ the card's machine has no sklearn, so the port carries the solver itself:
   (`select_working_set`, TAU = 1e-12, stop at Gmax + Gmax2 < eps), the
   two-variable update clipped to the box, shrinking (`do_shrinking`,
   `reconstruct_gradient`) and `calculate_rho`.
-- Q as libsvm keeps it: each kernel entry computed in float64 and rounded
-  to float32 (`Qfloat`), the diagonal QD, the gradient G and α in float64,
-  each update in libsvm's order of operations.
+- Q as libsvm keeps it: each kernel entry computed in float64 (or read
+  from a precomputed Gram matrix) and rounded to float32 (`Qfloat`), the
+  diagonal QD, the gradient G and α in float64, each update in libsvm's
+  order of operations.
 - `SVC_Q` (C-SVC on ±1 labels, p = -1) and `SVR_Q` (ε-SVR over 2l
   variables, p = ε ∓ y).
 
@@ -50,19 +51,25 @@ _DIFF_BLOCK = 1 << 22
 
 RUNNING, DONE, PAUSE_OPTIMAL, PAUSE_UNSHRINK = 0, 1, 2, 3
 
-KERNELS = ("linear", "poly", "rbf", "sigmoid")
+# libsvm's kernels; "precomputed" takes the Gram matrix (n, n) as X at fit
+# and the test-train kernel (m, n) at predict
+KERNELS = ("linear", "poly", "rbf", "sigmoid", "precomputed")
 
 
-def sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """||a - b||² of every row pair, summed over the differences (as libsvm
-    and scipy's pdist sum them, not as ||a||² + ||b||² - 2ab), in blocks of
+def pair_sums(A: torch.Tensor, B: torch.Tensor, fn) -> torch.Tensor:
+    """fn(a - b) summed over the features for every row pair, in blocks of
     rows so the (rows, cols, features) difference stays small."""
     out = torch.empty((A.shape[0], B.shape[0]), dtype=A.dtype, device=A.device)
     step = max(1, _DIFF_BLOCK // max(1, B.shape[0] * A.shape[1]))
     for s in range(0, A.shape[0], step):
-        d = A[s:s + step, None, :] - B[None, :, :]
-        out[s:s + step] = (d * d).sum(-1)
+        out[s:s + step] = fn(A[s:s + step, None, :] - B[None, :, :]).sum(-1)
     return out
+
+
+def sq_dists(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """||a - b||² of every row pair, summed over the differences (as libsvm
+    and scipy's pdist sum them, not as ||a||² + ||b||² - 2ab)."""
+    return pair_sums(A, B, lambda d: d * d)
 
 
 def kernel_matrix(A: torch.Tensor, B: torch.Tensor, kernel: str, gamma: float,
@@ -437,8 +444,10 @@ def solve(pr: Problems, eps: float = 1e-3, shrinking: bool = True,
 class SVMModel:
     """A fitted libsvm model. `coef` (nSV, P) holds each of the P decision
     functions' coefficients on the support vectors (zero on the classes a
-    pair does not hold); decision p = K(x, SV) @ coef[:, p] + intercept[p]."""
-    support_vectors: torch.Tensor     # (nSV, d) float64
+    pair does not hold); decision p = K(x, SV) @ coef[:, p] + intercept[p].
+    Under a precomputed kernel K(x, SV) is the columns `support` of the
+    test-train kernel handed to `decision`."""
+    support_vectors: torch.Tensor     # (nSV, d) float64; (nSV, n) precomputed
     dual_coef: torch.Tensor           # (max(k-1, 1), nSV) float64
     intercept: torch.Tensor           # (P,) float64, -rho
     n_support: List[int]              # support vectors per class ([] for SVR)
@@ -448,6 +457,7 @@ class SVMModel:
     degree: int
     n_iter: List[int] = field(default_factory=list)
     coef: torch.Tensor = None
+    support: torch.Tensor = None      # (nSV,) long: sklearn's support_
 
     def __post_init__(self):
         if self.coef is None:
@@ -458,9 +468,13 @@ class SVMModel:
         return len(self.n_support)
 
     def decision(self, X: torch.Tensor) -> torch.Tensor:
-        """svm_predict_values' decision values (m, P), libsvm's signs."""
-        K = kernel_matrix(X, self.support_vectors, self.kernel, self.gamma,
-                          self.coef0, self.degree)
+        """svm_predict_values' decision values (m, P), libsvm's signs; X is
+        (m, n_train) kernel values under a precomputed kernel."""
+        if self.kernel == "precomputed":
+            K = X[:, self.support]
+        else:
+            K = kernel_matrix(X, self.support_vectors, self.kernel, self.gamma,
+                              self.coef0, self.degree)
         return K @ self.coef + self.intercept
 
     def vote(self, dec: torch.Tensor) -> torch.Tensor:
@@ -508,8 +522,9 @@ def _solve_warned(pr: Problems, tol, shrinking, max_iter) -> Solution:
 
 
 def _kernel_problems(X: torch.Tensor, kernel, gamma, coef0, degree):
-    """libsvm's Qfloat kernel matrix (float32) and its float64 diagonal."""
-    K = kernel_matrix(X, X, kernel, gamma, coef0, degree)
+    """libsvm's Qfloat kernel matrix (float32) and its float64 diagonal; X
+    is the Gram matrix itself under a precomputed kernel."""
+    K = X if kernel == "precomputed" else kernel_matrix(X, X, kernel, gamma, coef0, degree)
     return K.float(), K.diagonal().clone()
 
 
@@ -557,7 +572,7 @@ def fit_svc(X: torch.Tensor, labels: torch.Tensor, n_class: int, C: float,
     return SVMModel(support_vectors=X[sv_rows], dual_coef=dual,
                     intercept=-sol.rho, n_support=n_support, kernel=kernel,
                     gamma=gamma, coef0=coef0, degree=degree, n_iter=sol.n_iter,
-                    coef=coef)
+                    coef=coef, support=sv_rows)
 
 
 def _dual_from_coef(coef: torch.Tensor, n_support: List[int]) -> torch.Tensor:
@@ -593,10 +608,10 @@ def fit_svr(X: torch.Tensor, target: torch.Tensor, C: float, epsilon: float,
                   valid=torch.ones((1, 2 * n), dtype=torch.bool, device=dev))
     sol = _solve_warned(pr, tol, shrinking, max_iter)
     coef = sol.alpha[0, :n] - sol.alpha[0, n:]
-    sv = coef != 0
+    sv = (coef != 0).nonzero().squeeze(1)
     return SVMModel(support_vectors=X[sv], dual_coef=coef[sv][None],
                     intercept=-sol.rho, n_support=[], kernel=kernel, gamma=gamma,
-                    coef0=coef0, degree=degree, n_iter=sol.n_iter)
+                    coef0=coef0, degree=degree, n_iter=sol.n_iter, support=sv)
 
 
 def ovr_decision(dec: torch.Tensor, k: int) -> torch.Tensor:

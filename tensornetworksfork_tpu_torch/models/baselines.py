@@ -29,19 +29,22 @@
   libsvm, written out in torch (`models/_libsvm.py`): C-SVC one-vs-one over
   the k(k-1)/2 class pairs with libsvm's vote (class_weight and break_ties
   as sklearn's), and ε-SVR; float64 on `device`, the kernel entries rounded
-  to float32 as libsvm's Qfloat. probability=True fits the same model
-  (libsvm trains it apart from Platt scaling's folds), and nothing here
-  reads probabilities.
+  to float32 as libsvm's Qfloat. kernel="precomputed" takes the (n, n)
+  Gram matrix at fit and the (m, n) test-train kernel at predict; a
+  callable kernel is user code, called on the host on X as given
+  (kernel(X, X_fit), as sklearn calls it) and then treated as precomputed
+  on the device. probability=True fits the same model (libsvm trains it
+  apart from Platt scaling's folds), and nothing here reads probabilities.
 - `GaussianProcessWrapper`: sklearn's GaussianProcessRegressor and
   GaussianProcessClassifier over sklearn's kernel objects (the port's
-  `models/_gp_kernels.py`, or sklearn's own converted by class name;
-  defaults C(1) * RBF(1), free for regression and fixed for
-  classification): L-BFGS-B or a callable optimizer on the log-marginal
-  likelihood with restarts, binary Laplace, one-vs-rest or one-vs-one
-  above two classes, warm_start, written out in torch (`models/_gp.py`).
-  Refused with a ValueError naming them: PairwiseKernel, a CompoundKernel
-  as input, Matern at ν other than 0.5, 1.5, 2.5 or ∞, and input that is
-  not rows of numbers.
+  `models/_gp_kernels.py`, sklearn's own converted by class name, or a
+  kernel the user wrote, run on the host; defaults C(1) * RBF(1), free for
+  regression and fixed for classification): L-BFGS-B or a callable
+  optimizer on the log-marginal likelihood with restarts, binary Laplace,
+  one-vs-rest or one-vs-one above two classes, warm_start, written out in
+  torch (`models/_gp.py`). A kernel that does not require vector input
+  takes rows of anything (strings, say), as sklearn's do. A CompoundKernel
+  as input raises ValueError, as sklearn's classifier refuses it.
 
 Not ported: the XGBoost wrappers. xgboost is missing on the card's machine
 and on the machine that runs the tests, so there is no reference to hold a
@@ -443,9 +446,9 @@ def _svm_settings(params, defaults, fixed) -> dict:
             raise ValueError(f"svm_params key {key!r} is not ported")
         else:
             out[key] = value
-    if out["kernel"] not in _libsvm.KERNELS:
-        raise ValueError(f"svm_params['kernel'] = {out['kernel']!r} is not ported "
-                         f"(one of {_libsvm.KERNELS})")
+    if not (callable(out["kernel"]) or out["kernel"] in _libsvm.KERNELS):
+        raise ValueError(f"svm_params['kernel'] = {out['kernel']!r} is not one of "
+                         f"{_libsvm.KERNELS} or a callable")
     if out.get("decision_function_shape", "ovr") not in ("ovr", "ovo"):
         raise ValueError("svm_params['decision_function_shape'] must be 'ovr' or 'ovo'")
     cw = out.get("class_weight")
@@ -493,18 +496,61 @@ class _SVMBase:
         self.device = resolve_device(device)
         self.model_ = None
 
+    @property
+    def _precomputed(self) -> bool:
+        """Whether the model sees a kernel matrix: "precomputed" or a callable."""
+        k = self.settings["kernel"]
+        return callable(k) or k == "precomputed"
+
     def _x(self, X) -> torch.Tensor:
+        """X as float64 rows on the device; under a callable kernel its
+        matrix against the training rows (kernel(X, X_fit), on the host);
+        under "precomputed" the (m, n_train) kernel, checked as sklearn's
+        predict checks it."""
+        k = self.settings["kernel"]
+        if callable(k):
+            X = k(X, self._X_fit)
+        elif k == "precomputed":
+            n, m = self.shape_fit_[0], np.shape(X)[1]
+            if m != n:
+                name = "SVC" if isinstance(self, SVMClfWrapper) else "SVR"
+                raise ValueError(f"X has {m} features, but {name} is expecting {n} features "
+                                 "as input.")
         return torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+
+    def _fit_x(self, X):
+        """The training X on the device (a callable kernel's Gram kernel(X,
+        X), computed on the host on X as given, as sklearn does; a
+        precomputed Gram matrix checked square) and the array that sets
+        gamma."""
+        k = self.settings["kernel"]
+        if callable(k):
+            self._X_fit = X
+            A = np.asarray(k(X, X), np.float64)
+        else:
+            A = np.asarray(X, np.float64)
+        if self._precomputed and A.shape[0] != A.shape[1]:
+            raise ValueError("Precomputed matrix must be a square matrix. Input is a "
+                             f"{A.shape[0]}x{A.shape[1]} matrix.")
+        self.shape_fit_ = np.shape(X) if callable(k) else A.shape
+        return torch.as_tensor(A, device=self.device), A
 
     def _fit_args(self, X: np.ndarray) -> dict:
         s = self.settings
-        return dict(C=float(s["C"]), kernel=s["kernel"], gamma=_svm_gamma(s["gamma"], X),
+        return dict(C=float(s["C"]),
+                    kernel="precomputed" if self._precomputed else s["kernel"],
+                    gamma=0.0 if self._precomputed else _svm_gamma(s["gamma"], X),
                     coef0=float(s["coef0"]), degree=int(s["degree"]), tol=float(s["tol"]),
                     shrinking=bool(s["shrinking"]), max_iter=int(s["max_iter"]))
 
     @property
     def n_iter_(self):
         return self.model_.n_iter
+
+    @property
+    def support_(self) -> np.ndarray:
+        """sklearn's support_: the training rows of the support vectors."""
+        return self.model_.support.cpu().numpy().astype(np.int32)
 
 
 class SVMRegWrapper(_SVMBase):
@@ -515,13 +561,21 @@ class SVMRegWrapper(_SVMBase):
         super().__init__(svm_params, _SVR_DEFAULTS, _SVR_FIXED, device)
 
     def fit(self, X, y):
-        X = np.asarray(X, np.float64)
+        Xt, X = self._fit_x(X)
         y = np.asarray(y, np.float64)
         y = y.squeeze(-1) if y.ndim > 1 else y
-        self.model_ = _libsvm.fit_svr(self._x(X), torch.as_tensor(y, device=self.device),
+        self.model_ = _libsvm.fit_svr(Xt, torch.as_tensor(y, device=self.device),
                                       epsilon=float(self.settings["epsilon"]),
                                       **self._fit_args(X))
         return self
+
+    @property
+    def dual_coef_(self) -> np.ndarray:
+        return self.model_.dual_coef.cpu().numpy()
+
+    @property
+    def intercept_(self) -> np.ndarray:
+        return self.model_.intercept.cpu().numpy()
 
     def predict(self, X):
         return self.model_.decision(self._x(X))[:, 0].cpu().numpy()
@@ -540,7 +594,7 @@ class SVMClfWrapper(_SVMBase):
         self.retranslation_dict = None
 
     def fit(self, X, y):
-        X = np.asarray(X, np.float64)
+        Xt, X = self._fit_x(X)
         y = np.asarray(y)
         if y.ndim == 2:
             y = y.argmax(-1)
@@ -552,7 +606,7 @@ class SVMClfWrapper(_SVMBase):
         self._labels = unique
         codes = np.searchsorted(unique, y)
         self.class_weight_ = class_weights(self.settings["class_weight"], codes, unique.size)
-        self.model_ = _libsvm.fit_svc(self._x(X), torch.as_tensor(codes, device=self.device),
+        self.model_ = _libsvm.fit_svc(Xt, torch.as_tensor(codes, device=self.device),
                                       unique.size, class_weight=self.class_weight_,
                                       **self._fit_args(X))
         return self
@@ -649,9 +703,12 @@ class GaussianProcessWrapper:
     log-marginal likelihood (`_gp.fit_gpc_binary`); otherwise the problems
     run as one batch at the kernel's θ, and `warm_start` starts the fit's
     second mode search from the first's f. After `fit`: `kernel_` (the
-    fitted kernel; above two classes a list, one a binary problem),
-    `theta_` and `log_marginal_likelihood_value_`. A key or value not
-    ported raises ValueError."""
+    fitted kernel; above two classes a CompoundKernel, one kernel a binary
+    problem), `kernels_` (a list of them), `theta_` and
+    `log_marginal_likelihood_value_`. A kernel that does not require vector
+    input takes rows of anything (a user's string kernel, say: see
+    `_gp_kernels.HostKernel`). A key or value not ported, and a
+    CompoundKernel as the kernel, raise ValueError."""
 
     def __init__(self, gp_params=None, task="regression", device="cuda"):
         self.task = task
@@ -680,14 +737,19 @@ class GaussianProcessWrapper:
         k = self.params["kernel"]
         return default_gp_kernel(self.task) if k is None else copy.deepcopy(k)
 
-    def _x(self, X) -> torch.Tensor:
-        """X as float64 rows on the device; input that is not a 2-D array of
-        numbers (sklearn's kernels on generic objects) raises ValueError."""
+    def _x(self, X):
+        """X as float64 rows on the device; where the kernel does not require
+        vector input, other rows (strings, say) as sklearn's validate_data
+        keeps them (`_gp_kernels.HostRows`); else ValueError."""
         A = np.asarray(X)
-        if A.ndim != 2 or not (np.issubdtype(A.dtype, np.number) or A.dtype == bool):
-            raise ValueError("GaussianProcessWrapper takes rows of numbers (n, features): "
-                             "kernels on non-vector input are not ported")
-        return torch.as_tensor(A.astype(np.float64), device=self.device)
+        if A.ndim == 2 and (np.issubdtype(A.dtype, np.number) or A.dtype == bool):
+            return torch.as_tensor(A.astype(np.float64), device=self.device)
+        k = self.params["kernel"]
+        if k is None or k.requires_vector_input:
+            raise ValueError("GaussianProcessWrapper takes rows of numbers (n, features) "
+                             "for a kernel that requires vector input; got an array of "
+                             f"shape {A.shape} and dtype {A.dtype}")
+        return _gp_kernels.HostRows(A, self.device)
 
     @property
     def _one_vs_one(self) -> bool:
@@ -695,6 +757,9 @@ class GaussianProcessWrapper:
                 and self.classes_.size > 2)
 
     def fit(self, X, y):
+        if isinstance(self.params["kernel"], _gp_kernels.CompoundKernel):
+            # sklearn's classifier raises so; its regressor fails on one too
+            raise ValueError("kernel cannot be a CompoundKernel")
         y = np.asarray(y)
         X = self._x(X)
         p = self.params
@@ -789,10 +854,10 @@ class GaussianProcessWrapper:
 
     @property
     def kernel_(self):
-        """sklearn's kernel_: the fitted kernel, or above two classes a list
-        of each binary problem's (sklearn's CompoundKernel of them)."""
+        """sklearn's kernel_: the fitted kernel, or above two classes a
+        CompoundKernel of each binary problem's, in the problems' order."""
         ks = self.kernels_
-        return ks[0] if len(ks) == 1 else ks
+        return ks[0] if len(ks) == 1 else _gp_kernels.CompoundKernel(ks)
 
     @property
     def theta_(self) -> np.ndarray:

@@ -68,9 +68,10 @@ def mlp_params_from_flax(params, spatial=None) -> Dict[str, torch.Tensor]:
 def svm_from_sklearn(fitted, device="cuda"):
     """A fitted sklearn SVC or SVR -> the port's SVMClfWrapper /
     SVMRegWrapper on `device`, predicting as `fitted` does. Reads
-    support_vectors_, dual_coef_, intercept_, n_support_, classes_ and
-    _gamma (and get_params()); for two classes sklearn's public dual_coef_
-    and intercept_ carry the flipped sign, which is undone."""
+    support_vectors_, support_, dual_coef_, intercept_, n_support_,
+    classes_, shape_fit_ and _gamma (and get_params(); a callable kernel's
+    fitted X too); for two classes sklearn's public dual_coef_ and
+    intercept_ carry the flipped sign, which is undone."""
     classifier = hasattr(fitted, "classes_")
     wrapper = (SVMClfWrapper if classifier else SVMRegWrapper)(fitted.get_params(),
                                                               device=device)
@@ -91,19 +92,23 @@ def svm_from_sklearn(fitted, device="cuda"):
     s = wrapper.settings
     wrapper.model_ = _libsvm.SVMModel(
         support_vectors=t(fitted.support_vectors_), dual_coef=dual, intercept=intercept,
-        n_support=n_support, kernel=s["kernel"], gamma=float(fitted._gamma),
-        coef0=float(s["coef0"]), degree=int(s["degree"]),
-        n_iter=np.atleast_1d(fitted.n_iter_).tolist())
+        n_support=n_support, kernel="precomputed" if wrapper._precomputed else s["kernel"],
+        gamma=float(fitted._gamma), coef0=float(s["coef0"]), degree=int(s["degree"]),
+        n_iter=np.atleast_1d(fitted.n_iter_).tolist(),
+        support=torch.as_tensor(np.asarray(fitted.support_, np.int64), device=dev))
+    wrapper.shape_fit_ = fitted.shape_fit_
+    if callable(s["kernel"]):
+        wrapper._X_fit = fitted._BaseLibSVM__Xfit      # SVC's fitted X, name-mangled
     return wrapper
 
 
 def gp_kernel_from_sklearn(kernel):
-    """An sklearn Gaussian-process kernel object (sklearn.gaussian_process.
-    kernels: ConstantKernel, WhiteKernel, RBF, Matern at ν 0.5, 1.5, 2.5 or
-    ∞, RationalQuadratic, ExpSineSquared, DotProduct, and their sums,
-    products and powers) -> the port's kernel with the same parameters
+    """An sklearn Gaussian-process kernel object (any class of
+    sklearn.gaussian_process.kernels, and their sums, products, powers and
+    CompoundKernels) -> the port's kernel with the same parameters
     (`models/_gp_kernels.py`), read by class name and get_params(); a kernel
-    the port lacks raises ValueError naming it."""
+    the user wrote with sklearn's kernel API becomes a HostKernel, run on
+    the host; anything else raises ValueError."""
     return _gp_kernels.from_sklearn(kernel)
 
 

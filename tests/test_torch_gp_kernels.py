@@ -21,6 +21,9 @@ Tolerances:
   split's probabilities 1.06e-7 (`studies/port_repairs_study.py cells`).
 - The converter: a fitted sklearn GP predicts through the port as it does,
   to CONVERT_ATOL.
+- What the port refuses, it refuses as sklearn does (REFUSALS): a
+  CompoundKernel as input, an object without the kernel API, a kernel that
+  needs vectors on strings, chi2 on negative input, an unknown metric.
 - results/gp_kernels.json re-derived from studies/gp_kernels_ref.py to
   REDERIVE_RTOL, and the port's CPU fits held to it.
 
@@ -296,21 +299,42 @@ def test_gp_from_sklearn_round_trip():
                                        atol=CONVERT_ATOL)
 
 
+# what the port still refuses, each as sklearn refuses it: a CompoundKernel
+# as input, an object without the kernel API, a kernel that needs vectors on
+# strings, chi2 on negative input, a metric that is no kernel function
+REFUSALS = ("kernel cannot be a CompoundKernel|is not a GP kernel|requires vector input"
+            "|contains negative values|'metric' parameter of pairwise_kernels")
+
+
+class _CallOnly:
+    """Half of a kernel: __call__ and diag, no θ."""
+
+    def __call__(self, X, Y=None, eval_gradient=False):
+        return np.zeros((len(X), len(X)))
+
+    def diag(self, X):
+        return np.zeros(len(X))
+
+
+_THREE = (np.array([[0.0, 1.0], [1.0, 0.0], [2.0, 2.0]]), np.array([0.0, 1.0, 2.0]))
+
+
 @pytest.mark.parametrize("make", [
-    lambda: tbl.GaussianProcessWrapper({"kernel": skk.PairwiseKernel()}, device="cpu"),
+    lambda: tbl.GaussianProcessWrapper(
+        {"kernel": skk.CompoundKernel([skk.RBF(), skk.RBF()])}, device="cpu").fit(*_THREE),
     lambda: tbl.GaussianProcessWrapper(
         {"kernel": skk.CompoundKernel([skk.RBF(), skk.RBF()])}, task="classification",
-        device="cpu"),
-    lambda: tbl.GaussianProcessWrapper({"kernel": skk.Matern(nu=0.7)}, device="cpu"),
-    lambda: tk.Matern(nu=3.5),
-    lambda: gp_kernel_from_sklearn(skk.PairwiseKernel(metric="laplacian")),
+        device="cpu").fit(*_THREE),
     lambda: gp_kernel_from_sklearn(object()),
-    # sklearn fits a WhiteKernel on strings; the port takes rows of numbers
-    lambda: tbl.GaussianProcessWrapper({"kernel": skk.WhiteKernel()}, device="cpu").fit(
+    lambda: tbl.GaussianProcessWrapper({"kernel": _CallOnly()}, device="cpu"),
+    # sklearn fits a WhiteKernel on strings, not an RBF
+    lambda: tbl.GaussianProcessWrapper({"kernel": skk.RBF()}, device="cpu").fit(
         np.array(["ab", "cd", "ef"]), np.array([0.0, 1.0, 2.0])),
+    lambda: tk.PairwiseKernel(metric="chi2")(-_THREE[0]),
+    lambda: gp_kernel_from_sklearn(skk.PairwiseKernel(metric="hamming"))(_THREE[0]),
 ])
 def test_unported_kernels_raise(make):
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=REFUSALS):
         make()
 
 

@@ -300,7 +300,8 @@ def _fit_three(wrapper):
 
 @pytest.mark.parametrize("make", [
     lambda: tbl.SVMClfWrapper({"nu": 0.5}, device="cpu"),
-    lambda: tbl.SVMClfWrapper({"kernel": "precomputed"}, device="cpu"),
+    # not one of libsvm's kernels (sklearn refuses it too)
+    lambda: tbl.SVMClfWrapper({"kernel": "cosine"}, device="cpu"),
     # sklearn's compute_class_weight: a key that is no class, a class missing
     lambda: _fit_three(tbl.SVMClfWrapper({"class_weight": {0: 2.0, 7: 1.0}}, device="cpu")),
     # SVC.predict refuses break_ties under "ovo"
