@@ -51,6 +51,17 @@ the loop.
   give it) and sums A, b and the loss over every rank, as the 1-D mesh
   does; the matrix-free and gradient branches, whose sums are whole on the
   model ranks, sum over the data axis alone.
+
+- Spans (`utils/timing.py` `span`: under a running profiler with
+  TNF_SPANS=1, else one profiler check each where no profiler runs) mark
+  the layers for a `torch.profiler` trace: `tnf.sweep.run` a call;
+  `tnf.env.far`, `tnf.env.advance` and `tnf.env.gauge` the environments;
+  `tnf.update:<node>` a node update, and inside it `tnf.update.jacobian`
+  (Jacobian, prediction, loss terms), `tnf.update.gram` (A and b, their
+  finish and mesh sums) and `tnf.solve` (the factor and solve, or the
+  Krylov solve); `tnf.member_forward` a sum's cached member outputs;
+  `tnf.sync.flush_ok` and `tnf.sync.loss` the waits on the device.
+  `solve_block` is looked up at each call, so a caller may wrap it.
 """
 from __future__ import annotations
 
@@ -64,6 +75,7 @@ import torch
 
 from ..ops.cuda import gram as kgram
 from ..parallel import mesh as pmesh
+from ..utils.timing import span
 from . import gauges, krylov
 from .contract import contract
 from .engine import Network
@@ -96,6 +108,8 @@ class SweepConfig:
 
 
 ITERATIVE_METHODS = ("cg", "minres", "lanczos")
+# the span of a timer phase, where it is not "tnf.<phase>"
+_PHASE_SPANS = {"far_envs": "tnf.env.far", "advance": "tnf.env.advance"}
 # environments retained across node updates for two-sided reuse; beyond this
 # many bytes new entries are dropped (recomputed later instead)
 ENV_HISTORY_MAX_BYTES = 4 * 1024 ** 3
@@ -171,9 +185,10 @@ class Sweeper:
         if not self._pending_ok:
             return True
         pending, self._pending_ok = self._pending_ok, []
-        oks = torch.stack([o for o, _ in pending]).to("cpu", torch.int32)
-        if self._mesh is not None:  # rank 0's flags: every rank stops alike
-            oks = pmesh.replicate(oks, self._mesh)
+        with span("tnf.sync.flush_ok"):
+            oks = torch.stack([o for o, _ in pending]).to("cpu", torch.int32)
+            if self._mesh is not None:  # rank 0's flags: every rank stops alike
+                oks = pmesh.replicate(oks, self._mesh)
         if bool(oks.all()):
             return True
         if self.cfg.verbose > 0:
@@ -190,14 +205,17 @@ class Sweeper:
         return False
 
     def _timed(self, phase: str, fn, *args):
-        if not self._timing:
-            return fn(*args)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        """`fn(*args)` inside the phase's span; with TNF_SWEEP_TIMERS=1
+        synchronised and added to `timers[phase]`."""
+        with span(_PHASE_SPANS.get(phase, f"tnf.{phase}")):
+            if not self._timing:
+                return fn(*args)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
         acc = self.timers.setdefault(phase, [0.0, 0])
         acc[0] += time.perf_counter() - t0
         acc[1] += 1
@@ -462,9 +480,11 @@ class Sweeper:
         x_sol = None
         if method in ITERATIVE_METHODS:
             chunks = [piece_at(c) for c in range(nc)]
+            with span("tnf.update.jacobian"):
+                ops_all = [jac_ops(piece, params) for piece in chunks]
             new_core, loss_acc, ok, x_sol = self._update_matrix_free(
                 net, mid, ni, method, core, mask, eps, x0, use_rest, chunks,
-                [jac_ops(piece, params) for piece in chunks], weighted_terms)
+                ops_all, weighted_terms)
         elif gradient_mode:
             # one steepest-descent step per chunk, in sequence; only b is
             # formed (gram_and_rhs's rhs line), never A
@@ -472,14 +492,16 @@ class Sweeper:
             loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
             for c in range(nc):
                 piece = piece_at(c)
-                J = net.jacobian(ni, dict(params, **{name: cur}), piece["x"],
-                                 *env_ops(piece))
-                pred = net.predict_from_jacobian(ni, J, cur)
-                if use_rest:
-                    pred = pred + piece["rest"]
-                loss, g, _ = weighted_terms(pred, piece)
-                b = net.rhs(ni, J, g)
-                self._sum_data(b)  # this chunk's rows on every rank
+                with span("tnf.update.jacobian"):
+                    J = net.jacobian(ni, dict(params, **{name: cur}), piece["x"],
+                                     *env_ops(piece))
+                    pred = net.predict_from_jacobian(ni, J, cur)
+                    if use_rest:
+                        pred = pred + piece["rest"]
+                    loss, g, _ = weighted_terms(pred, piece)
+                with span("tnf.update.gram"):
+                    b = net.rhs(ni, J, g)
+                    self._sum_data(b)  # this chunk's rows on every rank
                 cur = apply_update(cur, -b, cfg.lr, cfg.adaptive_step,
                                    cfg.max_norm, mask)
                 loss_acc = loss_acc + loss.sum()
@@ -500,18 +522,19 @@ class Sweeper:
             preds = []
             for c in range(nc):
                 piece = piece_at(c)
-                if method in ITERATIVE_METHODS:
-                    preds.append(net.jacobian_apply(ni, jac_ops(piece, prms),
-                                                    new_core))
-                    continue
-                Lop, Rop = env_ops(piece)
-                pj = (net.packed_jacobian(ni, prms, piece["x"], Lop, Rop)
-                      if plan is not None else None)
-                if pj is not None:
-                    preds.append(net.packed_predict(pj, new_core))
-                else:
-                    J = net.jacobian(ni, prms, piece["x"], Lop, Rop)
-                    preds.append(net.predict_from_jacobian(ni, J, new_core))
+                with span("tnf.update.jacobian"):
+                    if method in ITERATIVE_METHODS:
+                        preds.append(net.jacobian_apply(ni, jac_ops(piece, prms),
+                                                        new_core))
+                        continue
+                    Lop, Rop = env_ops(piece)
+                    pj = (net.packed_jacobian(ni, prms, piece["x"], Lop, Rop)
+                          if plan is not None else None)
+                    if pj is not None:
+                        preds.append(net.packed_predict(pj, new_core))
+                    else:
+                        J = net.jacobian(ni, prms, piece["x"], Lop, Rop)
+                        preds.append(net.predict_from_jacobian(ni, J, new_core))
             pred_out = torch.stack(preds)
             if merged:  # restore the (nchunks, B, *out) layout
                 pred_out = pred_out.reshape((nc0, -1) + tuple(pred_out.shape[2:]))
@@ -547,53 +570,57 @@ class Sweeper:
         loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
         for c in range(nc):
             piece = piece_at(c)
-            Lop, Rop = env_ops(piece)
-            pj = (net.packed_jacobian(ni, params, piece["x"], Lop, Rop)
-                  if plan is not None else None)
-            J = net.jacobian(ni, params, piece["x"], Lop, Rop) if pj is None else None
-            if tp is not None:
+            with span("tnf.update.jacobian"):
+                Lop, Rop = env_ops(piece)
+                pj = (net.packed_jacobian(ni, params, piece["x"], Lop, Rop)
+                      if plan is not None else None)
+                J = net.jacobian(ni, params, piece["x"], Lop, Rop) if pj is None else None
+                if tp is not None:
+                    if pj is not None:
+                        pj = net.rows_for_gram(pj, groups)
+                    else:
+                        J = net.rows_for_gram(J, groups)
+                    piece = {k: pmesh.rows_of(v, tp, groups) for k, v in piece.items()
+                             if k in ("y", "w", "rest")}
                 if pj is not None:
-                    pj = net.rows_for_gram(pj, groups)
+                    pred = net.packed_predict(pj, core)
                 else:
-                    J = net.rows_for_gram(J, groups)
-                piece = {k: pmesh.rows_of(v, tp, groups) for k, v in piece.items()
-                         if k in ("y", "w", "rest")}
-            if pj is not None:
-                pred = net.packed_predict(pj, core)
-            else:
-                pred = net.predict_from_jacobian(ni, J, core)
-            if use_rest:
-                pred = pred + piece["rest"]
-            loss, g, H = weighted_terms(pred, piece)
-            if pj is not None and in_kernel_acc:
-                # the kernel adds this chunk's Gram into A_acc in place (the
-                # JAX package aliases the carry into the kernel output)
-                _, b = net.packed_gram_rhs(pj, g, H, acc=A_acc)
-                A = None
-            elif pj is not None:
-                A, b = net.packed_gram_rhs(pj, g, H)
-            else:
-                A, b = net.gram_and_rhs(ni, J, g, H, defer_ownout=ownout)
-                if ownout is None or ownout["plan"] is None:
-                    A = A.reshape(D, D)
-                b = b.reshape(D)
-            if A is not None:
-                A_acc = A if A_acc is None else A_acc + A
-            b_acc = b_acc + b
-            loss_acc = loss_acc + loss.sum()
+                    pred = net.predict_from_jacobian(ni, J, core)
+                if use_rest:
+                    pred = pred + piece["rest"]
+                loss, g, H = weighted_terms(pred, piece)
+            with span("tnf.update.gram"):
+                if pj is not None and in_kernel_acc:
+                    # the kernel adds this chunk's Gram into A_acc in place (the
+                    # JAX package aliases the carry into the kernel output)
+                    _, b = net.packed_gram_rhs(pj, g, H, acc=A_acc)
+                    A = None
+                elif pj is not None:
+                    A, b = net.packed_gram_rhs(pj, g, H)
+                else:
+                    A, b = net.gram_and_rhs(ni, J, g, H, defer_ownout=ownout)
+                    if ownout is None or ownout["plan"] is None:
+                        A = A.reshape(D, D)
+                    b = b.reshape(D)
+                if A is not None:
+                    A_acc = A if A_acc is None else A_acc + A
+                b_acc = b_acc + b
+                loss_acc = loss_acc + loss.sum()
             del pj, J, pred, g, H, A, b
-        # under a mesh: each rank's raw sums (the in-kernel carry, the
-        # deferred own-out block or A) summed once, before they are finished
-        self._sum_ranks(A_acc, b_acc, loss_acc)
-        if in_kernel_acc:
-            A = net.packed_gram_finisher(plan)(A_acc)
-        elif ownout is not None and ownout["plan"] is not None:
-            A = net.expand_ownout(A_acc, ownout["plan"]).reshape(D, D)
-        else:
-            A = A_acc
+        with span("tnf.update.gram"):
+            # under a mesh: each rank's raw sums (the in-kernel carry, the
+            # deferred own-out block or A) summed once, before they are finished
+            self._sum_ranks(A_acc, b_acc, loss_acc)
+            if in_kernel_acc:
+                A = net.packed_gram_finisher(plan)(A_acc)
+            elif ownout is not None and ownout["plan"] is not None:
+                A = net.expand_ownout(A_acc, ownout["plan"]).reshape(D, D)
+            else:
+                A = A_acc
         del A_acc
-        step, ok = solve_block(A, b_acc, core, method, eps, cfg.refine,
-                               cfg.solve_dtype)
+        with span("tnf.solve"):
+            step, ok = solve_block(A, b_acc, core, method, eps, cfg.refine,
+                                   cfg.solve_dtype)
         del A
         new_core = apply_update(core, step.reshape(core.shape), cfg.lr,
                                 cfg.adaptive_step, cfg.max_norm, mask)
@@ -615,14 +642,17 @@ class Sweeper:
         loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
         H_all = []
         for piece, ops in zip(pieces, ops_all):
-            pred = net.jacobian_apply(ni, ops, core)
-            if use_rest:
-                pred = pred + piece["rest"]
-            loss, g, H = weighted_terms(pred, piece)
-            b_rhs = b_rhs + net.jacobian_transpose_apply(ni, ops, g)
-            loss_acc = loss_acc + loss.sum()
+            with span("tnf.update.jacobian"):
+                pred = net.jacobian_apply(ni, ops, core)
+                if use_rest:
+                    pred = pred + piece["rest"]
+                loss, g, H = weighted_terms(pred, piece)
+            with span("tnf.update.gram"):
+                b_rhs = b_rhs + net.jacobian_transpose_apply(ni, ops, g)
+                loss_acc = loss_acc + loss.sum()
             H_all.append(H)
-        self._sum_data(b_rhs, loss_acc)
+        with span("tnf.update.gram"):
+            self._sum_data(b_rhs, loss_acc)
 
         def matvec_raw(v_flat):
             v = v_flat.reshape(core.shape)
@@ -639,26 +669,27 @@ class Sweeper:
         # normalisation, so that f32 iterates cannot overflow on an
         # ill-conditioned system: the dense branch's diagonal-mean rescale
         # needs A, so ||A|| is estimated along b with one probe.
-        two_eps = 2.0 * torch.tensor(eps, dtype=core.dtype, device=core.device)
-        b_aug = b_rhs.reshape(-1) + two_eps * core.reshape(-1)
-        unit = b_aug / torch.clamp(torch.linalg.vector_norm(b_aug), min=1e-30)
-        scale = torch.linalg.vector_norm(matvec_raw(unit) + two_eps * unit)
-        scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
+        with span("tnf.solve"):
+            two_eps = 2.0 * torch.tensor(eps, dtype=core.dtype, device=core.device)
+            b_aug = b_rhs.reshape(-1) + two_eps * core.reshape(-1)
+            unit = b_aug / torch.clamp(torch.linalg.vector_norm(b_aug), min=1e-30)
+            scale = torch.linalg.vector_norm(matvec_raw(unit) + two_eps * unit)
+            scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
 
-        def matvec(v_flat):
-            return (matvec_raw(v_flat) + two_eps * v_flat) / scale
+            def matvec(v_flat):
+                return (matvec_raw(v_flat) + two_eps * v_flat) / scale
 
-        b_flat = -b_aug / scale
-        if x0 is None:
-            x0 = torch.zeros((core.numel(),), dtype=core.dtype, device=core.device)
-        if method == "lanczos":
-            x_sol = krylov.lanczos_galerkin(matvec, b_flat, x0, cfg.max_iter,
-                                            cfg.tol)
-            iters = torch.tensor(cfg.max_iter)
-        else:
-            x_sol, iters = krylov.SOLVERS[method](matvec, b_flat, x0=x0,
-                                                  maxiter=cfg.max_iter,
-                                                  tol=cfg.tol)
+            b_flat = -b_aug / scale
+            if x0 is None:
+                x0 = torch.zeros((core.numel(),), dtype=core.dtype, device=core.device)
+            if method == "lanczos":
+                x_sol = krylov.lanczos_galerkin(matvec, b_flat, x0, cfg.max_iter,
+                                                cfg.tol)
+                iters = torch.tensor(cfg.max_iter)
+            else:
+                x_sol, iters = krylov.SOLVERS[method](matvec, b_flat, x0=x0,
+                                                      maxiter=cfg.max_iter,
+                                                      tol=cfg.tol)
         self.krylov_iters.append((mid, net.topology.nodes[ni].name, iters))
         new_core = apply_update(core, x_sol.reshape(core.shape), cfg.lr,
                                 cfg.adaptive_step, cfg.max_norm, mask)
@@ -685,23 +716,26 @@ class Sweeper:
         if spec.cpd_mask:
             mask = cpd_diag_mask(core.shape, spec.labels, spec.left, spec.right,
                                  core.dtype, core.device)
-        ops = [net.operand(nj, params, {}) for nj in range(len(t.nodes)) if nj != ni]
-        keep = net.jacobian_keep(ni, [ax for ax, _ in ops])
-        J = (keep, contract(ops, keep, net.precision))
-        pred = net.predict_from_jacobian(ni, J, core)
-        n = pred.shape[0]
-        y_f = y.reshape((-1,) + tuple(y.shape[2:]))[:n]
-        w_f = w.reshape(-1)[:n]
-        if use_rest:
-            pred = pred + y_rest.reshape((-1,) + tuple(y_rest.shape[2:]))[:n]
-        loss, g, H = self.loss_fn(pred, y_f)
-        loss = loss * w_f.to(loss.dtype)
-        g = g * w_f.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
-        H = H * w_f.to(H.dtype).reshape((-1,) + (1,) * (H.ndim - 1))
-        A, b = net.gram_and_rhs(ni, J, g, H)
+        with span("tnf.update.jacobian"):
+            ops = [net.operand(nj, params, {}) for nj in range(len(t.nodes)) if nj != ni]
+            keep = net.jacobian_keep(ni, [ax for ax, _ in ops])
+            J = (keep, contract(ops, keep, net.precision))
+            pred = net.predict_from_jacobian(ni, J, core)
+            n = pred.shape[0]
+            y_f = y.reshape((-1,) + tuple(y.shape[2:]))[:n]
+            w_f = w.reshape(-1)[:n]
+            if use_rest:
+                pred = pred + y_rest.reshape((-1,) + tuple(y_rest.shape[2:]))[:n]
+            loss, g, H = self.loss_fn(pred, y_f)
+            loss = loss * w_f.to(loss.dtype)
+            g = g * w_f.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
+            H = H * w_f.to(H.dtype).reshape((-1,) + (1,) * (H.ndim - 1))
+        with span("tnf.update.gram"):
+            A, b = net.gram_and_rhs(ni, J, g, H)
         D = core.numel()
-        step, ok = solve_block(A.reshape(D, D), b.reshape(D), core, method, eps,
-                               cfg.refine, cfg.solve_dtype)
+        with span("tnf.solve"):
+            step, ok = solve_block(A.reshape(D, D), b.reshape(D), core, method, eps,
+                                   cfg.refine, cfg.solve_dtype)
         new_core = apply_update(core, step.reshape(core.shape), cfg.lr,
                                 cfg.adaptive_step, cfg.max_norm, mask)
         # singular guard (deferred-ok contract: see _flush_ok)
@@ -756,8 +790,10 @@ class Sweeper:
                 # input-less members keep no model sharding (no input to shard)
                 m.net.shard_model(mesh if m.net.topology.input_nodes else None,
                                   model_axis_labels)
-            return self._run(params_list, x, y, sample_weight, convergence_criterion,
-                             block_callback, loss_callback, node_order, model_axis_labels)
+            with span("tnf.sweep.run"):
+                return self._run(params_list, x, y, sample_weight, convergence_criterion,
+                                 block_callback, loss_callback, node_order,
+                                 model_axis_labels)
         finally:
             self._mesh = None
             for m in self.members:
@@ -952,11 +988,13 @@ class Sweeper:
             net = self.members[mi].net
             ncols = len(net.topology.columns)
             if d == "l2r" and k < len(net.topology.main_nodes) - 1:
-                params_list[mi] = gauges.orthonormalize_left(net, params_list[mi], k)
+                with span("tnf.env.gauge"):
+                    params_list[mi] = gauges.orthonormalize_left(net, params_list[mi], k)
                 c, side = ci + 1, "right"
                 prev = far_envs[mi][c + 1] if c < ncols - 1 else None
             elif d == "r2l" and k > 0:
-                params_list[mi] = gauges.orthonormalize_right(net, params_list[mi], k)
+                with span("tnf.env.gauge"):
+                    params_list[mi] = gauges.orthonormalize_right(net, params_list[mi], k)
                 c, side = ci - 1, "left"
                 prev = far_envs[mi][c - 1] if c > 0 else None
             else:
@@ -1060,8 +1098,10 @@ class Sweeper:
                 y_members[mi] = pred
                 rest_cache.clear()
 
-            avg_loss = (float(loss_sum) / S
-                        if loss_callback or cfg.verbose > 1 else None)
+            avg_loss = None
+            if loss_callback or cfg.verbose > 1:
+                with span("tnf.sync.loss"):
+                    avg_loss = float(loss_sum) / S
             if cfg.verbose > 1:
                 print(f"NS: {NS}, loss ({name}): {avg_loss} (eps: {eps})")
             if loss_callback is not None:

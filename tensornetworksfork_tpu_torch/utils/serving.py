@@ -27,6 +27,7 @@ the artifact's tensors live on, and the one its inputs must be on.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 from typing import Sequence, Union
@@ -148,7 +149,8 @@ def load_forward(blob: Union[bytes, str]):
     """Deserialize a serving artifact (bytes, or a path to one) into a
     callable of one tensor. Needs only torch: no code of this package. The
     callable's `device` is the device the artifact's tensors live on; a
-    numpy or CPU input is moved there."""
+    numpy or CPU input is moved there. Under a running `torch.profiler`, with
+    TNF_SPANS=1 in the environment, a call is the span `tnf.serve.call`."""
     src = io.BytesIO(blob) if isinstance(blob, (bytes, bytearray)) else os.fspath(blob)
     ep = torch.export.load(src)
     module = ep.module()
@@ -159,8 +161,13 @@ def load_forward(blob: Union[bytes, str]):
     dtype = next(n.meta["val"].dtype for n in ep.graph.nodes
                  if n.op == "placeholder" and n.name == name)
 
+    # the call's span (utils/timing.py `span`, written with torch alone)
+    profiling = torch._C._autograd._profiler_enabled
+
     def fn(x):
-        with torch.no_grad():
+        on = profiling() and os.environ.get("TNF_SPANS") == "1"
+        with (torch.profiler.record_function("tnf.serve.call") if on
+              else contextlib.nullcontext()), torch.no_grad():
             return module(torch.as_tensor(x, dtype=dtype, device=device))
 
     fn.device = device

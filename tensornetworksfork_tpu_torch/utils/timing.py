@@ -1,5 +1,16 @@
 """Phase timing and tracing (port of tensornetworksfork_tpu/utils/timing.py).
 
+`span(name)` marks a region of the program for `torch.profiler`: under a
+running profiler, with TNF_SPANS=1 in the environment, it is a
+`record_function` range, which lands in the same timeline as the CUDA
+activity; otherwise it is a shared no-op context, and where no profiler
+runs it costs one check that the profiler is enabled. The program's spans
+are named `tnf.<layer>...` (`core/sweep.py`, `Timer.phase`); the serving
+callable of `utils/serving.py` opens its own, `tnf.serve.call`, with torch
+alone. They are off unless asked for: a reader that keys a profile's CPU
+events by correlation id would take a range's id, the profiler's op id, for
+a runtime call's.
+
 Each `Timer` phase synchronises the CUDA device at its start and end, so its
 totals are the card's time and not the host's launch time (the JAX package
 blocks on its results for the same reason). `block_on` waits for the
@@ -10,6 +21,7 @@ CUDA activity) that writes a Chrome trace into its directory on exit.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import defaultdict
@@ -17,6 +29,17 @@ from contextlib import contextmanager
 from typing import Dict
 
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `torch.profiler.record_function(name)` range where the profiler is
+    enabled and TNF_SPANS=1, else a no-op context."""
+    if _profiler_enabled() and os.environ.get("TNF_SPANS") == "1":
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _sync() -> None:
@@ -51,14 +74,17 @@ class Timer:
 
     @contextmanager
     def phase(self, name: str):
-        _sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
+        """Times the block (synchronised) and marks it as the span
+        `tnf.phase:<name>`."""
+        with span(f"tnf.phase:{name}"):
             _sync()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                _sync()
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
 
     def rate(self, name: str):
         t = self.totals.get(name, 0.0)
