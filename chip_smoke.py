@@ -775,28 +775,85 @@ def carry_gram(X, Y, D):
     return err, tol, acc
 
 
+def k6_split_bf16(Jt, Kt, acc, D):
+    """K6 in bf16 on the split Gram in one split (the route of operands TMA
+    cannot address, and the clustered Gram's former kernel)."""
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    kg._launch_wgram_split(Jt, None, 0, None, acc, D, True, 1, "gram_pair", Y=Kt,
+                           has_acc=True)
+
+
+def k6_cluster_l2_bytes(rows: int, D: int, cluster_rows: int) -> float:
+    """Operand bytes K6 in bf16 reads from L2 a call: every CTA of the
+    clustered Gram loads, a 64-row stage at a time, half its row's X strip
+    (the other half reaches it from its row neighbour) and of its column's
+    Y strip half (cluster_rows 2) or all (1); cluster_rows 0: the split
+    Gram, two whole 128-column strips a tile."""
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    nt = -(-D // kg.WTILE)
+    rows64 = -(-rows // 64) * 64
+    if cluster_rows == 0:
+        return 2.0 * (nt * (nt + 1) // 2) * rows64 * 2 * kg.WTILE
+    ctas = len(kg._cluster_table_np(nt, cluster_rows))
+    return 2.0 * ctas * rows64 * (kg.WTILE // 2 + kg.WTILE // cluster_rows)
+
+
 def k6_bf16_entry(where, Jt, Kt, D, timed):
-    """K6 in bf16 on K1's outputs Jt, Kt against its plain version; with
-    `timed`, its kernels entry (else None)."""
+    """K6 in bf16 on K1's outputs Jt, Kt against its plain version, and bit
+    for bit (torch.equal, two chunks chained from a nonzero carry) against
+    the split Gram it replaced; with `timed`, its kernels entry (else None)
+    beside its bound, its plain version, torch.mm, the split Gram and the
+    clustered Gram in clusters of 1 x 2 tiles."""
     import torch
     from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
     err, tol, acc = carry_gram(Jt, Kt, D)
+    rows, Dp = Jt.shape
+    route = kg.k6_kernel(Jt.dtype, Dp, Jt.data_ptr(), Kt.data_ptr())
+    if route != "cluster":
+        raise AssertionError(f"gram_pair ({where}, bf16) took the {route} route")
+    acc_c = torch.randn_like(acc)
+    acc_s = acc_c.clone()
+    for _ in range(2):
+        kg.gram_pair(Jt, Kt, acc=acc_c, D=D)
+        k6_split_bf16(Jt, Kt, acc_s, D)
+    torch.cuda.synchronize()
+    if not torch.equal(acc_c, acc_s):
+        raise AssertionError(f"gram_pair ({where}, bf16) differs from the split "
+                             f"Gram by {float((acc_c - acc_s).abs().max())}")
+    del acc_c, acc_s
     if not timed:
         return None
-    rows, Dp = Jt.shape
     with bf16_f32_reduction():
         lib = time_ms(lambda: torch.mm(Jt.T, Kt))
     Jf, Kf = Jt.float(), Kt.float()
     up = time_ms(lambda: acc.addmm_(Jf.T, Kf))
     del Jf, Kf
     ms = time_ms(lambda: kg.gram_pair(Jt, Kt, acc=acc, D=D))
+    split = time_ms(lambda: k6_split_bf16(Jt, Kt, acc, D))
+    alt = 1 if kg.CLUSTER_ROWS == 2 else 2
+    other = time_ms(lambda: kg._launch_gram_cluster(Jt, Kt, acc, D, alt))
+    lib_ = kg._build.lib()
+    occ = {c: lib_.tnf_gram_bf16_cluster_occupancy(c) for c in (1, 2)}
+    shape = {1: "1 x 2", 2: "2 x 2"}
+    l2 = {c: k6_cluster_l2_bytes(rows, D, c) for c in (0, 1, 2)}
+    times = {kg.CLUSTER_ROWS: ms, alt: other}
+    log(f"[kernels] gram_pair bf16 ({where}): clustered {shape[kg.CLUSTER_ROWS]} {ms:.3f} "
+        f"ms, {shape[alt]} {other:.3f} ms, split Gram {split:.3f} ms; clusters the card "
+        f"holds at once {occ[2]} of 2 x 2, {occ[1]} of 1 x 2")
     return dict(
         name="gram_pair_tiled", dtype="bf16", err=err, ms=ms,
         plain_ms=plain_time_ms(lambda: kg.gram_pair_plain(Jt, Kt, acc=acc), ms),
         library_ms=lib,
         bound=bound(gram_ops(rows, D), nbytes(Jt, Kt) + 2 * nbytes(acc), "bf16"),
         note=f"{where} with carry ({rows}x{Dp}, D {D}, bf16 from K1), tol {tol:.3g}; "
-             f"split Gram wgmma, 1 split; library: torch.mm on the bf16 operands "
+             f"clustered Gram ({shape[kg.CLUSTER_ROWS]} tiles a cluster, TMA multicast), "
+             f"bit-equal (torch.equal) to the split Gram over two chained chunks; "
+             f"L2 reads a call {l2[kg.CLUSTER_ROWS] / 1e9:.1f} GB = "
+             f"{l2[kg.CLUSTER_ROWS] / ms / 1e9:.2f} TB/s; "
+             + "; ".join(f"{shape[c]}: {times[c]:.3f} ms, L2 {l2[c] / 1e9:.1f} GB, "
+                         f"{occ[c]} clusters at once" for c in (2, 1))
+             + f"; split Gram (1 split) {split:.3f} ms, L2 {l2[0] / 1e9:.1f} GB = "
+             f"{l2[0] / split / 1e9:.2f} TB/s; library: torch.mm on the bf16 operands "
              f"(bf16 out, f32 sums); acc.addmm_ on them upcast to f32 {up:.3f} ms")
 
 

@@ -65,13 +65,6 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
       : "memory");
 }
 
-template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 // A consumer thread holds rows row0 and row0 + 8 of the tile and columns
 // col0 + 8 j, col0 + 8 j + 1 (j < 16): sums[4 j + v] is row + 8 for v >= 2,
 // column + 1 for odd v (wgmma's accumulator layout). Its scales of a block:
@@ -194,48 +187,12 @@ gram_q_kernel(const __grid_constant__ CUtensorMap tm1, const __grid_constant__ C
           make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (the library does not
-// link libcuda itself)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Status codes beside cudaError_t's (which are positive)
-constexpr int kNoEncoder = -1;        // libcuda has no cuTensorMapEncodeTiled
-constexpr int kEncodeFailed = -1000;  // minus the CUresult of a failed encode
-
 // The codes Qt (Dp columns, each of ldq bytes of which the first Bp are
 // used) as a TMA map of 128-row x 128-column boxes in 128-byte swizzle;
 // rows past Bp read as zero.
 int encode_codes(CUtensorMap* map, const void* Qt, int ldq, int Bp, int Dp) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return kNoEncoder;
-  const cuuint64_t dims[2] = {(cuuint64_t)Bp, (cuuint64_t)Dp};
-  const cuuint64_t strides[1] = {(cuuint64_t)ldq};
-  const cuuint32_t box[2] = {kQT, kQT}, estr[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(Qt), dims, strides,
-                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, Qt, (cuuint64_t)Bp, (cuuint64_t)Dp,
+                   (cuuint64_t)ldq, kQT, kQT);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

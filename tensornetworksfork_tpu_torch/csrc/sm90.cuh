@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core Gram kernels of
-// wgram.cu (bf16 and 3xTF32 wgmma) and qgram.cu (s8 wgmma fed by TMA):
-// shared-memory addresses, cp.async, wgmma's fences and its K-major
-// descriptor, mbarriers and the 2-D TMA load. Everything is device code in
-// an anonymous namespace, so each source that includes it has its own copy.
+// wgram.cu (bf16 and 3xTF32 wgmma, and the bf16 Gram fed by TMA multicast)
+// and qgram.cu (s8 wgmma fed by TMA): shared-memory addresses, cp.async,
+// wgmma's fences and its K-major descriptor, setmaxnreg, mbarriers, the 2-D
+// TMA load, thread-block clusters (rank, barrier, remote arrive, multicast
+// load), and on the host the tensor-map encoder. Everything is in an
+// anonymous namespace, so each source that includes it has its own copy.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -62,6 +65,15 @@ __device__ __forceinline__ uint64_t tdesc(uint32_t saddr) {
          (1ull << 62);
 }
 
+// A warpgroup's registers a thread: give some back (a producer) or take
+// more (a consumer); every warp of the warpgroup executes it.
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ------------------------------------------------------------ mbarriers
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -98,6 +110,90 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ------------------------------------------------------------- clusters
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: what each did before is visible
+// to all after (each CTA's barrier inits before a peer's copy or arrival).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+
+// Arrive on the mbarrier at `bar`'s offset in the shared memory of CTA `cta`
+// of the cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+
+// tma_load_2d into every CTA of the cluster whose bit `mask` sets: the box
+// lands at `dst`'s offset in each one's shared memory, and its bytes complete
+// on the barrier at `bar`'s offset in each.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// ------------------------------------------------------------ host side
+// cuTensorMapEncodeTiled, found through the runtime (the library does not
+// link libcuda itself)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Status codes beside cudaError_t's (which are positive)
+constexpr int kNoEncoder = -1;        // libcuda has no cuTensorMapEncodeTiled
+constexpr int kEncodeFailed = -1000;  // minus the CUresult of a failed encode
+
+// A row-major 2-D operand (dims[1] rows of dims[0] values, rows `stride`
+// bytes apart) as a TMA map of box[1] x box[0] boxes in 128-byte swizzle;
+// elements past dims read as zero. Returns 0 or a status code above.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                     cuuint64_t dim0, cuuint64_t dim1, cuuint64_t stride, cuuint32_t box0,
+                     cuuint32_t box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return kNoEncoder;
+  const cuuint64_t dims[2] = {dim0, dim1};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box0, box1}, estr[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
 }
 
 }  // namespace

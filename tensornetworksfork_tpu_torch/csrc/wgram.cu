@@ -8,8 +8,9 @@
 //   _weighted_gram_tiled_jit (K7: _make_weighted_kernel_tiled_acc)
 //   _gram_pair_tiled_jit     (K6: _pair_kernel_tiled with a carry; K5,
 //                             _add_packed_upper_jit, is its epilogue)
-// K6 in bf16 runs on the split Gram, in f32 on gram_tf32x3_kernel. The split
-// Gram computes, per class pair pq (K9, K10, K7, K6: one, pq = 0),
+// K6 in bf16 runs on the clustered bf16 Gram (cluster_wgram_bf16_kernel)
+// where TMA can address its operands, else on the split Gram; in f32 on
+// gram_tf32x3_kernel. The split Gram computes, per class pair pq (K9, K10, K7, K6: one, pq = 0),
 //   A_pq[d, e] (+)= sum_r round_T(X[r, d] * h[r * hstride + pq]) * Y[r, e]
 // with the weighted operand multiplied in f32 and rounded once to the operand
 // type T, as the reference's (j1 * w).astype(j1.dtype); Y = X for K9, K11 and
@@ -33,7 +34,19 @@
 //   K6,  18,432 x 16,200 (Dp 16,384; the flagship's A2/A3 chunk) with a
 //        carry, upper over D: 4.84e12 FLOP -> bf16 4.9 ms on the tensor cores;
 //        f32 on three TF32 products, 29 ms (72 ms on f32 FMA).
-// So all but K10 in bf16 are bound by operations. What the design does:
+// So all but K10 in bf16 are bound by operations on paper. K6 in bf16 is
+// bound by its reads from L2 first: each of its 8,128 CTAs reads two
+// 128-column strips of all 18,432 rows, 8,128 x 18,432 x 2 x 128 x 2 B =
+// 76.7 GB a call, 64 FLOP a byte; at the ~7.7-7.9 TB/s the int8 Gram (K3,
+// qgram.cu, TMA-fed) draws from L2 that is ~10 ms, and 989 TFLOP/s would
+// take 15.5 TB/s. Only reuse of a loaded strip by more than one tile lifts
+// that, so K6 in bf16 runs in clusters of 2 x 2 tiles, each strip loaded
+// once from L2 and multicast by TMA to the two CTAs that read it: 39.3 GB a
+// call (cluster_wgram_bf16_kernel, below; 8.5 ms against the split Gram's
+// 13.4 ms on an H100 at 700 W, where back-to-back calls hold the card at
+// its power limit). 30 clusters of 4 fit on the card at once (120 SMs);
+// clusters of 1 x 2 tiles fill all 132 but read 58.9 GB and ran 9.2 ms.
+// What the design does:
 //   - Row split. The grid is (output tiles) x (class pairs) x (row splits). A
 //     1,032-wide output has only 45 upper (81 whole) 128x128 tiles and K10's
 //     900-wide one 36 upper tiles, well under one CTA per SM, so the host
@@ -536,6 +549,170 @@ wgram_bf16_kernel(const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __re
            has_acc, tid);
 }
 
+// ------------------------------------------------- bf16, clustered (K6)
+// K6 in bf16 with a carry: the bf16 kernel's arithmetic, fed by TMA multicast
+// to clusters of kCM x 2 output tiles (2 x 2 on the card). Cluster rank
+// r = 2 i + j owns tile (ti, tj) of its table row; the CTAs of one cluster
+// row share ti (X's 128-column strip), those of one cluster column tj (Y's).
+// A stage is 64 rows: X's strip as two 64 x 64 halves (8 KB each, the
+// 128-byte swizzle gdesc reads, which TMA's SWIZZLE_128B writes), then Y's.
+// Each CTA loads X half j of its row's strip for both CTAs of the row, and
+// (kCM = 2) Y half i of its column's strip for both CTAs of the column (kCM =
+// 1: its own Y strip), so a 2 x 2 cluster reads each strip from L2 once for
+// two tiles. Roles as K3's (qgram.cu): a producer warpgroup, one thread of
+// which issues the loads into a ring of kCStages stages behind full/empty
+// mbarriers, and two consumer warpgroups of 64 x 128 outputs, each with two
+// sets of tensor-core sums so that one 128-row chain runs while the last
+// one is added. A stage's empty barrier counts the consumer warps of every
+// CTA its producer writes into (this one, its row neighbour, and for kCM = 2
+// its column neighbour), which arrive on it remotely; the producer then
+// waits for each stage's last release, so no CTA leaves while a peer may
+// still write to or arrive on it.
+// A CTA whose tile is not stored (below the diagonal, or past D) loads its
+// share and multiplies like the others but stores nothing. The stored tiles'
+// wgmmas, their 128-row chains from zero, the __fadd_rn into acc and the
+// carry add in wg_store are the bf16 kernel's, in the same order, so the
+// result is bit-equal to it. TMA's zero fill past `rows` and past D takes
+// the place of cp.async's.
+
+constexpr int kCHalf = kGK * 64 * 2;      // one 64-row x 64-column bf16 half-strip
+constexpr int kCStageBytes = 4 * kCHalf;  // X's two halves, then Y's
+constexpr int kCStages = 7;               // ring depth (224 KB of the 227 KB)
+constexpr int kCThreads = 384;            // producer + two consumer warpgroups
+constexpr int kCSmem = kCStages * kCStageBytes + 2 * kCStages * 8 + 1024;  // + barriers, alignment
+
+template <int kCM>
+__global__ void __launch_bounds__(kCThreads, 1)
+cluster_wgram_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
+                          const __grid_constant__ CUtensorMap tmy, const int* __restrict__ tiles,
+                          int rows, int D, float* __restrict__ out, int ldo) {
+  constexpr int kPeers = kCM == 2 ? 3 : 2;  // CTAs whose producers write into this one
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kCStages * kCStageBytes);
+  uint64_t* empty = full + kCStages;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees it warp-uniform
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const uint32_t rank = cluster_ctarank();
+  const int ci = kCM == 2 ? (int)(rank >> 1) : 0, cj = (int)(rank & 1);
+  const int* t = tiles + 3 * blockIdx.x;
+  const int d0 = t[0] * kWT, e0 = t[1] * kWT, store = t[2];
+  const int nk = (rows + kGK - 1) / kGK;
+  if (tid == 0) {
+    for (int s = 0; s < kCStages; ++s) {
+      mbar_init(&full[s], 1);               // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], 8 * kPeers);     // one arrival per consumer warp of each peer
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      const uint16_t xmask = (uint16_t)(3u << (2 * ci));               // this tile row
+      const uint16_t ymask = (uint16_t)((1u << cj) | (1u << (2 + cj)));  // this tile column
+      // k past nk: wait for the last release of every stage, then leave
+      for (int k = 0; k < nk + kCStages; ++k) {
+        const int s = k % kCStages;
+        if (k >= kCStages) mbar_wait(&empty[s], (k / kCStages - 1) & 1);
+        if (k >= nk) continue;
+        unsigned char* st = smem + s * kCStageBytes;
+        mbar_expect_tx(&full[s], kCStageBytes);
+        tma_load_2d_multicast(st + cj * kCHalf, &tmx, &full[s], d0 + 64 * cj, k * kGK, xmask);
+        if constexpr (kCM == 2) {
+          tma_load_2d_multicast(st + (2 + ci) * kCHalf, &tmy, &full[s], e0 + 64 * ci, k * kGK,
+                                ymask);
+        } else {
+          tma_load_2d(st + 2 * kCHalf, &tmy, &full[s], e0, k * kGK);
+          tma_load_2d(st + 3 * kCHalf, &tmy, &full[s], e0 + 64, k * kGK);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int g = wg - 1;
+  auto release = [&](int s) {  // this warp is done with stage s, in every peer
+    if (tid % 32 == 0) {
+      mbar_arrive_cluster(&empty[s], rank);
+      mbar_arrive_cluster(&empty[s], rank ^ 1);
+      if (kCM == 2) mbar_arrive_cluster(&empty[s], rank ^ 2);
+    }
+  };
+  float acc[64], da[64], db[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // stage k's four wgmmas into d, from zero where `first`
+  auto mma = [&](float (&d)[64], int k, bool first) {
+    const int s = k % kCStages;
+    mbar_wait(&full[s], (k / kCStages) & 1);
+    const uint32_t xa = smem_u32(smem + s * kCStageBytes) + g * kCHalf;
+    const uint32_t ya = smem_u32(smem + s * kCStageBytes) + 2 * kCHalf;
+#pragma unroll
+    for (int ks = 0; ks < kGK / 16; ++ks)
+      wgmma_m64n128(d, gdesc(xa + ks * 2048), gdesc(ya + ks * 2048), !first || ks > 0);
+    wgmma_commit();
+  };
+  auto add = [&](const float (&d)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+  };
+  // Chain j sums stages 2j and 2j+1 (128 rows) from zero into da (j even)
+  // or db (j odd); chain j-1 is retired, its stages released and its sum
+  // added while chain j runs, so the tensor cores do not wait for the add.
+  // The group counts are fixed (two a chain) and no wgmma sits in a
+  // divergent branch: ptxas would otherwise serialise the wgmmas. Every CTA
+  // multiplies, stored or not. A last stage of odd nk is a chain alone.
+  auto chain = [&](float (&d)[64], int j) {
+    wgmma_fence();
+    mma(d, 2 * j, true);
+    mma(d, 2 * j + 1, false);
+  };
+  auto retire = [&](int j) {
+    release((2 * j) % kCStages);
+    release((2 * j + 1) % kCStages);
+  };
+  const int np = nk / 2;
+  if (np > 0) {
+    chain(da, 0);
+    int j = 1;
+    for (; j + 1 < np; j += 2) {
+      chain(db, j);
+      wgmma_wait<2>();
+      retire(j - 1);
+      add(da);
+      chain(da, j + 1);
+      wgmma_wait<2>();
+      retire(j);
+      add(db);
+    }
+    if (j < np) {
+      chain(db, j);
+      wgmma_wait<2>();
+      retire(j - 1);
+      add(da);
+      wgmma_wait<0>();
+      retire(j);
+      add(db);
+    } else {
+      wgmma_wait<0>();
+      retire(j - 1);
+      add(da);
+    }
+  }
+  if (nk % 2) {
+    wgmma_fence();
+    mma(da, nk - 1, true);
+    wgmma_wait<0>();
+    release((nk - 1) % kCStages);
+    add(da);
+  }
+  if (!store || d0 + g * 64 >= D) return;  // not stored, or this warpgroup's rows past D
+  wg_store(acc, out, ldo, d0 + g * 64, e0, D, 1, tid);
+}
+
 // ---------------------------------------------------------------- 3xTF32
 // K6 on f32 operands: A = X^T Y over a 128 x 128 tile on the TF32 tensor
 // cores, each operand split as x = hi + lo (hi = x rounded to TF32, to
@@ -718,6 +895,55 @@ int launch_bf16(const __nv_bfloat16* X, const __nv_bfloat16* Y, int ld, const fl
   return (int)cudaGetLastError();
 }
 
+// The clustered kernel's launch configuration: grid `ctas`, clusters of
+// 2 kCM CTAs along x.
+template <int kCM>
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int ctas, cudaStream_t stream) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2 * kCM;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(kCThreads);
+    cfg.dynamicSmemBytes = kCSmem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int kCM>
+int launch_cluster(const void* X, const void* Y, int ld, const int* tiles, int ctas, int rows,
+                   int D, float* out, int ldo, cudaStream_t stream) {
+  CUtensorMap mx, my;
+  int st = encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, X, (cuuint64_t)D, (cuuint64_t)rows,
+                     (cuuint64_t)ld * 2, 64, kGK);
+  if (st == 0)
+    st = encode_2d(&my, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Y, (cuuint64_t)D, (cuuint64_t)rows,
+                   (cuuint64_t)ld * 2, 64, kGK);
+  if (st != 0) return st;
+  auto kern = cluster_wgram_bf16_kernel<kCM>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kCSmem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch<kCM> L(ctas, stream);
+  err = cudaLaunchKernelEx(&L.cfg, kern, mx, my, tiles, rows, D, out, ldo);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int kCM>
+int cluster_occupancy() {
+  auto kern = cluster_wgram_bf16_kernel<kCM>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kCSmem);
+  if (err != cudaSuccess) return -(int)err;
+  ClusterLaunch<kCM> L(2 * kCM, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &L.cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 // a weighted Gram is of X with itself (Y = X)
 bool bad_split_args(const void* X, const void* Y, const void* h, int ncls, int npairs, int rows,
                     int rps, int splits, int D, int ld) {
@@ -806,6 +1032,30 @@ int tnf_gram_tf32x3(const void* X, const void* Y, int ld, const void* pairs, int
   kern<<<npairs, kWThreads, kTSmem, (cudaStream_t)stream>>>(
       (const float*)X, (const float*)Y, ld, (const int*)pairs, rows, D, (float*)out, ldo, has_acc);
   return (int)cudaGetLastError();
+}
+
+// K6 on bf16 operands with a carry, on the clustered kernel: out += X^T Y
+// over the tiles of `tiles` (ctas, 3) int32 rows (ti, tj, store), clusters of
+// 2 cluster_rows consecutive rows in rank order (ops/cuda/gram.py
+// _cluster_table_np), the stored ones the upper kWT-tiles over D; X and Y
+// (rows, ld) bf16, ld a multiple of 8 values and both 16-byte aligned (TMA's
+// terms). cluster_rows 2 multicasts X and Y, 1 X alone. Returns a
+// cudaError_t, or kNoEncoder / kEncodeFailed - CUresult.
+int tnf_gram_bf16_cluster(const void* X, const void* Y, int ld, const void* tiles, int ctas,
+                          int cluster_rows, int rows, int D, void* out, int ldo, void* stream) {
+  if ((cluster_rows != 1 && cluster_rows != 2) || ctas < 1 || ctas % (2 * cluster_rows) ||
+      rows < 1 || D < 1 || D > ld || D > ldo || ld % 8 || !aligned(X, 16) || !aligned(Y, 16))
+    return (int)cudaErrorInvalidValue;
+  auto launch = cluster_rows == 2 ? launch_cluster<2> : launch_cluster<1>;
+  return launch(X, Y, ld, (const int*)tiles, ctas, rows, D, (float*)out, ldo,
+                (cudaStream_t)stream);
+}
+
+// The clusters of the clustered kernel (2 cluster_rows CTAs each) the card
+// holds at once, or minus a cudaError_t.
+int tnf_gram_bf16_cluster_occupancy(int cluster_rows) {
+  if (cluster_rows != 1 && cluster_rows != 2) return -(int)cudaErrorInvalidValue;
+  return cluster_rows == 2 ? cluster_occupancy<2>() : cluster_occupancy<1>();
 }
 
 int tnf_wgram_tile() { return kWT; }

@@ -46,6 +46,8 @@ _SIGNATURES = {
                              _I, _P, _P, _L, _I, _L, _I, _P),
     "tnf_wgram_reduce": (_P, _I, _I, _I, _I, _I, _P, _P, _L, _I, _P),
     "tnf_gram_tf32x3": (_P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P),
+    "tnf_gram_bf16_cluster": (_P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P),
+    "tnf_gram_bf16_cluster_occupancy": (_I,),
     "tnf_wgram_tile": (),
 }
 

@@ -34,10 +34,12 @@ from . import _build
 # Launch counts per kernel, incremented where a wrapper launches its kernel
 # and nowhere else (plain versions do not count). gram_pair counts its flat
 # launches (K10) under "gram_pair" and those into a carry (K6) under
-# "gram_pair_tiled".
+# "gram_pair_tiled", and of those the ones on the clustered bf16 kernel
+# also under "gram_pair_tiled_cluster".
 LAUNCHES = {"retile_hmix": 0, "quantize_tiled": 0, "gram_pair_q": 0,
-            "gram_pair": 0, "gram_pair_tiled": 0, "retile_rows": 0,
-            "weighted_gram_tiled": 0, "weighted_gram": 0, "own_out_gram": 0}
+            "gram_pair": 0, "gram_pair_tiled": 0, "gram_pair_tiled_cluster": 0,
+            "retile_rows": 0, "weighted_gram_tiled": 0, "weighted_gram": 0,
+            "own_out_gram": 0}
 
 TILE = 512    # the reference plan's D slab (plan_tiles): padding and band map
 BLOCK = 2048  # the reference plan's sample block: int8 quantisation rows
@@ -65,6 +67,13 @@ WGRAM_RESIDENT = 2
 # operand strips (49) rather than up to 129 in row order, and the strips
 # stay in L2.
 GROUP = 12
+# K6 in bf16 (csrc/wgram.cu cluster_wgram_bf16_kernel): clusters of
+# CLUSTER_ROWS x 2 output tiles, each operand strip loaded from L2 once for
+# the cluster's tiles that read it and multicast to them by TMA (2: X's
+# strips and Y's, halving the L2 reads; 1 shares X's alone: 9.2 ms a
+# flagship chunk on an H100 against 2's 8.5, though 2 x 2 clusters leave 12
+# of the 132 SMs idle).
+CLUSTER_ROWS = 2
 
 
 def reset_launches() -> None:
@@ -239,6 +248,31 @@ def _pair_table_np(ntiles: int, slab_tiles: int, band: bool) -> np.ndarray:
     ti, tj, swap = ti[keep], tj[keep], swap[keep]
     order = np.lexsort((tj, ti, tj // GROUP, ti // GROUP))
     return np.stack([ti[order], tj[order], swap[order]], 1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _cluster_table_np(ntiles: int, cluster_rows: int = CLUSTER_ROWS) -> np.ndarray:
+    """(ctas, 3) int32 rows (ti, tj, store) of the clustered bf16 Gram: the
+    clusters of cluster_rows x 2 tiles (rows cluster_rows·si.., columns
+    2·sj..) that hold an upper tile of the ntiles x ntiles tiles, listed in
+    GROUP x GROUP-tile blocks (blocks, then clusters, in row order), each
+    cluster's CTAs in rank order (rank 2 i + j: tile (cluster_rows·si + i,
+    2·sj + j)). store marks the upper tiles over D (ti <= tj < ntiles),
+    each listed once: a CTA of a tile below the diagonal (in a cluster on
+    it) or past D loads its share of the cluster's operands and multiplies
+    with the others, but stores nothing."""
+    rows = -(-ntiles // cluster_rows)
+    cols = -(-ntiles // 2)
+    si, sj = np.divmod(np.arange(rows * cols), cols)
+    keep = cluster_rows * si <= 2 * sj + 1
+    si, sj = si[keep], sj[keep]
+    order = np.lexsort((sj, si, 2 * sj // GROUP, cluster_rows * si // GROUP))
+    si, sj = si[order], sj[order]
+    i, j = np.divmod(np.arange(2 * cluster_rows), 2)
+    ti = (cluster_rows * si[:, None] + i).ravel()
+    tj = (2 * sj[:, None] + j).ravel()
+    store = (ti <= tj) & (tj < ntiles)
+    return np.stack([ti, tj, store], 1).astype(np.int32)
 
 
 _TABLES = {}
@@ -580,6 +614,19 @@ def mirror_band(A: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- K6 / K10
+def k6_kernel(dtype: torch.dtype, ld: int, *addresses: int) -> str:
+    """The kernel K6 (gram_pair with a carry) takes for operands of `dtype`
+    with row stride `ld` values at the given base addresses: "tf32x3" for
+    f32; for bf16, "cluster" where TMA can address the operands (a row
+    stride of a multiple of 8 values, 16 bytes, and 16-byte-aligned bases),
+    else "split" (the split Gram in one split)."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    if ld % 8 == 0 and all(a % 16 == 0 for a in addresses):
+        return "cluster"
+    return "split"
+
+
 @_on_operands_device
 def gram_pair(X: torch.Tensor, Y: torch.Tensor,
               acc: Optional[torch.Tensor] = None,
@@ -609,8 +656,13 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
     16,200: 8,128 upper 128² tiles, one CTA each, no split): f32 operands
     run on csrc/wgram.cu's 3xTF32 kernel (each operand split into TF32 hi +
     lo, three TF32 tensor-core products per multiply-add, each 128-row sum
-    added in f32; bound by that work, 29 ms), bf16 ones on the split Gram's
-    wgmma kernel (bound by bf16 tensor-core work, 4.9 ms)."""
+    added in f32; bound by that work, 29 ms), bf16 ones (k6_kernel) on the
+    clustered bf16 Gram where TMA can address them, else on the split Gram's
+    wgmma kernel: the same wgmmas and f32 sums, bit-equal. Bound on paper by
+    bf16 tensor-core work (4.9 ms), in fact first by reading two operand
+    strips from L2 a tile (76.7 GB a call, 13.4 ms on the split Gram);
+    clusters of 2 x 2 tiles load each strip once for two tiles and
+    multicast it (39.3 GB, 8.5 ms on an H100 at 700 W)."""
     rows, W = X.shape
     D = W if D is None else D
     if _on_cpu(X, Y, *(() if acc is None else (acc,))):
@@ -630,16 +682,32 @@ def gram_pair(X: torch.Tensor, Y: torch.Tensor,
     _check(acc, "acc", (torch.float32,), 2)
     if tuple(acc.shape) != (W, W) or not 0 < D <= W or rows < 1:
         raise ValueError(f"gram_pair: acc {tuple(acc.shape)}, X {tuple(X.shape)}, D={D}")
-    if X.dtype == torch.float32:
+    kernel = k6_kernel(X.dtype, W, X.data_ptr(), Y.data_ptr())
+    if kernel == "tf32x3":
         pairs = _pair_table(-(-D // WTILE), 1, False, X.device)
         _raise_on(_wgram_lib().tnf_gram_tf32x3(
             X.data_ptr(), Y.data_ptr(), W, pairs.data_ptr(), pairs.shape[0], rows, D,
             acc.data_ptr(), W, 1, _stream(X.device)), "gram_pair")
+    elif kernel == "cluster":
+        _launch_gram_cluster(X, Y, acc, D)
+        LAUNCHES["gram_pair_tiled_cluster"] += 1
     else:
         _launch_wgram_split(X, None, 0, None, acc, D, True, 1, "gram_pair", Y=Y,
                             has_acc=True)
     LAUNCHES["gram_pair_tiled"] += 1
     return acc
+
+
+def _launch_gram_cluster(X, Y, acc, D, cluster_rows: int = CLUSTER_ROWS) -> None:
+    """acc += Xᵀ Y over the upper tiles over D on csrc/wgram.cu's clustered
+    bf16 Gram (X, Y (rows, W) bf16 that k6_kernel sends there, acc (W, W)
+    f32), in clusters of cluster_rows x 2 tiles."""
+    rows, W = X.shape
+    tiles = _table(("cluster", -(-D // WTILE), cluster_rows),
+                   _cluster_table_np(-(-D // WTILE), cluster_rows), X.device)
+    _raise_on(_wgram_lib().tnf_gram_bf16_cluster(
+        X.data_ptr(), Y.data_ptr(), W, tiles.data_ptr(), tiles.shape[0], cluster_rows, rows,
+        D, acc.data_ptr(), W, _stream(X.device)), "gram_pair")
 
 
 def _weighted_operand(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -190,6 +190,98 @@ def test_gram_pair_carry_matches_plain_on_cuda(rows, D, W, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [100, 128, 129, 256, 700, 1100, 16200])
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 1000, 4133, 2048 * 9])
+def test_gram_pair_cluster_bit_equal_to_split_on_cuda(rows, D):
+    """K6 in bf16 on the clustered Gram (gram_pair's route for W a multiple
+    of 128) against the split Gram in one split on the same inputs
+    (_launch_wgram_split with has_acc), two chunks chained into a nonzero
+    carry: torch.equal everywhere, the carry kept bit for bit outside the
+    upper tiles over D (the lower tile of each diagonal cluster among them),
+    and each call counted under gram_pair_tiled_cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(rows * 7 + D)
+    W = -(-D // kg.WTILE) * kg.WTILE
+    carry = torch.randn((W, W), generator=gen, device=dev)
+    acc, acc_s = carry.clone(), carry.clone()
+    kg.reset_launches()
+    for _ in range(2):
+        X, Y = (torch.nn.functional.pad(torch.randn((rows, D), generator=gen, device=dev),
+                                        (0, W - D)).to(torch.bfloat16) for _ in range(2))
+        assert kg.k6_kernel(X.dtype, W, X.data_ptr(), Y.data_ptr()) == "cluster"
+        assert kg.gram_pair(X, Y, acc=acc, D=D) is acc
+        kg._launch_wgram_split(X, None, 0, None, acc_s, D, True, 1, "gram_pair", Y=Y,
+                               has_acc=True)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["gram_pair_tiled_cluster"] == 2 and kg.LAUNCHES["gram_pair_tiled"] == 2
+    i = torch.arange(W, device=dev)
+    tile = i // kg.WTILE
+    done = (tile[:, None] <= tile[None, :]) & (i[:, None] < D) & (i[None, :] < D)
+    assert torch.equal(acc[~done], carry[~done])
+    assert not torch.equal(acc[done], carry[done])
+    assert torch.equal(acc, acc_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,offset", [(137, 0), (1028, 0), (1024, 4)])
+def test_gram_pair_bf16_off_tma_terms_takes_split_on_cuda(W, offset):
+    """bf16 operands TMA cannot address (a row stride not a multiple of 8
+    values, or a base off 16 bytes) take the split Gram: the result equals
+    _launch_wgram_split's and gram_pair_tiled_cluster stays 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(W + offset)
+    rows, D = 333, W - 7
+    X, Y = (torch.randn((rows * W + offset,), generator=gen, device=dev)
+            .to(torch.bfloat16)[offset:].view(rows, W) for _ in range(2))
+    carry = torch.randn((W, W), generator=gen, device=dev)
+    acc, acc_s = carry.clone(), carry.clone()
+    kg.reset_launches()
+    kg.gram_pair(X, Y, acc=acc, D=D)
+    kg._launch_wgram_split(X, None, 0, None, acc_s, D, True, 1, "gram_pair", Y=Y,
+                           has_acc=True)
+    torch.cuda.synchronize()
+    assert kg.LAUNCHES["gram_pair_tiled"] == 1 and kg.LAUNCHES["gram_pair_tiled_cluster"] == 0
+    assert torch.equal(acc, acc_s)
+
+
+@pytest.mark.cuda
+def test_fast_tier_sweep_takes_cluster_gram_on_cuda(monkeypatch):
+    """A fast-tier (bf16 Gram, bf16 aux) conv-TT swipe at test size on the
+    packed route: every K6 call takes the clustered Gram."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.models.layers import TensorConvolutionTrainLayer
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    from tensornetworksfork_tpu_torch.ops.cuda import gram as kg
+    monkeypatch.setenv("TNF_PACKED_SYRK_MIN_D", "1")
+    monkeypatch.setenv("TNF_GRAM_DTYPE", "bf16")
+    monkeypatch.setenv("TNF_AUX_PRECISION", "default")
+    rng = np.random.default_rng(3)
+    S, P, pp, C = 192, 6, 5, 3
+    X = torch.tensor(rng.standard_normal((S, P, pp)).astype(np.float32), device="cuda")
+    y = torch.tensor(np.eye(C + 1, dtype=np.float32)[rng.integers(0, C + 1, S)],
+                     device="cuda")
+    layer = TensorConvolutionTrainLayer(4, 6, P, pp, output_shape=(C,), convolution_bond=2,
+                                        seed=0, device="cuda", use_kernels=True)
+    cfg = SweepConfig(num_swipes=1, batch_size=64, method="ridge_cholesky", eps=5.0,
+                      eps_decay=0.25)
+    kg.reset_launches()
+    _, ok = Sweeper(layer.network, XEBregman(1.0), cfg).run([layer.params], X, y)
+    torch.cuda.synchronize()
+    assert ok
+    assert kg.LAUNCHES["gram_pair_tiled"] > 0
+    assert kg.LAUNCHES["gram_pair_tiled_cluster"] == kg.LAUNCHES["gram_pair_tiled"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,D,W", [(333, 137, 137), (1000, 700, 1024), (4133, 1100, 1536)])
 def test_gram_pair_carry_f32_holds_to_float64_on_cuda(rows, D, W):
     """K6 in f32 (3xTF32) from a zero carry against the float64 Gram of its

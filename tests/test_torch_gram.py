@@ -211,6 +211,77 @@ def test_int8_pair_table_covers_upper_slab_pairs(n, band):
     assert np.all(np.diff(keys) >= 0)
 
 
+@pytest.mark.parametrize("cluster_rows", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 13, 25, 127])
+def test_cluster_table_covers_upper_tiles_once(n, cluster_rows):
+    """The clustered bf16 Gram's table: whole clusters of cluster_rows x 2
+    CTAs in rank order (rank 2 i + j on tile (cluster_rows si + i, 2 sj +
+    j), so a cluster row shares ti and a cluster column tj), and its stored
+    tiles are every upper tile ti <= tj < n exactly once."""
+    t = tg._cluster_table_np(n, cluster_rows)
+    size = 2 * cluster_rows
+    assert t.dtype == np.int32 and len(t) % size == 0
+    c = t.reshape(-1, size, 3)
+    i, j = np.divmod(np.arange(size), 2)
+    si, sj = c[:, 0, 0] // cluster_rows, c[:, 0, 1] // 2
+    assert np.all(c[:, 0, 0] % cluster_rows == 0) and np.all(c[:, 0, 1] % 2 == 0)
+    assert np.array_equal(c[:, :, 0], cluster_rows * si[:, None] + i)
+    assert np.array_equal(c[:, :, 1], 2 * sj[:, None] + j)
+    assert len({(a, b) for a, b in zip(si, sj)}) == len(c)
+    stored = [(a, b) for a, b, st in t.tolist() if st]
+    assert len(stored) == len(set(stored))
+    assert set(stored) == {(a, b) for a in range(n) for b in range(a, n)}
+
+
+@pytest.mark.parametrize("cluster_rows", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 12, 13, 30, 127])
+def test_cluster_table_skips_lower_and_past_d_and_walks_group_blocks(n, cluster_rows):
+    """Only a tile below the diagonal (the lower tile of a 2 x 2 cluster on
+    the diagonal) or past the last tile over D is not stored; no cluster
+    holds no stored tile; clusters are listed in GROUP x GROUP-tile blocks,
+    then in row order within a block (as the split Gram's upper table)."""
+    t = tg._cluster_table_np(n, cluster_rows)
+    ti, tj, st = t[:, 0], t[:, 1], t[:, 2]
+    assert np.array_equal(st.astype(bool), (ti <= tj) & (tj < n))
+    c = t.reshape(-1, 2 * cluster_rows, 3)
+    assert np.all(c[:, :, 2].any(axis=1))
+    if cluster_rows == 2:
+        lower = c[:, 2]  # rank 2: tile (2 si + 1, 2 sj)
+        diag = c[:, 0, 0] == c[:, 0, 1]
+        assert np.array_equal(lower[:, 0] > lower[:, 1], diag)
+        assert not np.any(lower[diag, 2])
+        below = t[ti > tj]
+        assert np.array_equal(below[:, 0], below[:, 1] + 1) and np.all(below[:, 0] % 2 == 1)
+    first = c[:, 0]
+    blocks = np.stack([first[:, 0] // tg.GROUP, first[:, 1] // tg.GROUP], 1)
+    keys = blocks[:, 0] * n + blocks[:, 1]
+    assert np.all(np.diff(keys) >= 0)
+    for key in np.unique(keys):
+        rows = first[keys == key]
+        order = rows[:, 0] * (2 * n) + rows[:, 1]
+        assert np.all(np.diff(order) > 0)
+
+
+@pytest.mark.parametrize("dtype,ld,addresses,kernel", [
+    (torch.float32, 16384, (0, 0), "tf32x3"),
+    (torch.float32, 137, (4, 8), "tf32x3"),
+    (torch.bfloat16, 16384, (0, 1 << 20), "cluster"),
+    (torch.bfloat16, 1024, (16, 32), "cluster"),
+    (torch.bfloat16, 8, (256, 256), "cluster"),
+    (torch.bfloat16, 137, (0, 0), "split"),
+    (torch.bfloat16, 140, (0, 0), "split"),
+    (torch.bfloat16, 1028, (0, 0), "split"),
+    (torch.bfloat16, 1024, (8, 0), "split"),
+    (torch.bfloat16, 1024, (0, 2), "split"),
+])
+def test_k6_kernel_route(dtype, ld, addresses, kernel):
+    """K6's route from what gram_pair can observe: f32 to the 3xTF32 Gram;
+    bf16 to the clustered Gram where TMA can address both operands (row
+    stride a multiple of 8 values, 16-byte-aligned bases), else to the split
+    Gram (the 137-wide case of the card tests among them)."""
+    assert tg.k6_kernel(dtype, ld, *addresses) == kernel
+
+
 def test_gram_pair_band_q_plain_takes_any_layout():
     """On the CPU the int8 Gram's plain version gives the same bits for the
     K-major view quantize_tiled returns and for a row-major copy of it."""
@@ -385,7 +456,7 @@ def test_launch_counters_and_kernel_source():
     from tensornetworksfork_tpu_torch.ops.cuda import _build
     assert set(tg.LAUNCHES) == {"retile_hmix", "quantize_tiled",
                                 "gram_pair_q", "gram_pair", "gram_pair_tiled",
-                                "retile_rows",
+                                "gram_pair_tiled_cluster", "retile_rows",
                                 "weighted_gram_tiled", "weighted_gram",
                                 "own_out_gram"}
     tg.reset_launches()
