@@ -10,31 +10,44 @@ count k are the JAX package's.
 
 The loop. The JAX package runs a `lax.while_loop` on the device, which
 decides every iteration there. An eager loop can only stop on a value it
-reads on the host, and a read per iteration would drain the launch queue
-each time. So:
+reads on the host, and a read that waits for the device drains the launch
+queue: the device idles until the host has launched the next iteration. So:
 
 - every scalar of the recurrence stays a 0-dim tensor on the device;
 - each iteration computes its `active` flag on the device (the while
   loop's condition on the current state) and commits its new state through
   `torch.where(active, new, old)`, so an inactive iteration is a no-op and
   k grows by `active`;
-- the host reads `active` only every CHECK_EVERY (8) iterations, and
-  breaks there if the loop has ended; the loop's bound is maxiter.
+- on a CUDA device each iteration's flag is copied to pinned host memory
+  behind an event (`_Flags`), and the host reads, without waiting, every
+  flag that has arrived, and breaks at the first that is False. It waits
+  for a flag only when it is LAG (1) iterations old, so that the device
+  still has that iteration queued while the host waits, and for the flag
+  after the first iteration, so that a system one iteration solves (A a
+  multiple of I: a sweep's node whose J is ~0 beside the ridge) stops
+  after one matvec. Elsewhere each flag is read as it is made. Each read
+  is the span `tnf.krylov.check` (`utils/timing.py` `span`); the loop's
+  bound is maxiter.
 
 Once the condition is false the state no longer changes, so it stays false,
 and the active iterations run the while loop's body on the same values in
-the same order: x and k are the while loop's. What it costs is at most 7
-masked iterations past convergence, and one host read in 8 iterations.
+the same order: x and k are the while loop's, whenever the host reads. What
+it costs is at most LAG masked iterations past convergence, and one wait
+for the device a solve, after its first iteration.
 Lanczos runs its fixed maxiter with no read at all.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Callable, Tuple
 
 import torch
 
-# iterations between two host reads of the device-side `active` flag
-CHECK_EVERY = 8
+from ..utils.timing import span
+
+# iterations the host launches past the newest `active` flag it has read
+# before it waits for the next one
+LAG = 1
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,10 +66,48 @@ def _floor(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=1e-30)
 
 
-def _ended(it: int, active: torch.Tensor) -> bool:
-    """True when the host reads `active` at this iteration and it is
-    False."""
-    return it % CHECK_EVERY == 0 and not bool(active)
+class _Flags:
+    """The loop's `active` flags on their way to the host (module
+    docstring): `ended(it, active)` sends iteration it's flag and reads
+    those that have arrived."""
+
+    def __init__(self, b: torch.Tensor, maxiter: int):
+        self.cuda = b.is_cuda
+        self.host = torch.empty((max(maxiter, 1),), dtype=torch.bool, pin_memory=self.cuda)
+        self.sent = deque()
+
+    def _send(self, it: int, active: torch.Tensor):
+        if not self.cuda:
+            self.host[it] = active
+            return None
+        self.host[it].copy_(active, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _arrived(self, it: int, j: int, ev) -> bool:
+        """Whether iteration j's flag is on the host when the host is at
+        iteration it (tests stand a lagging device in here)."""
+        return ev is None or ev.query()
+
+    def _wait(self, ev) -> None:
+        ev.synchronize()
+
+    def ended(self, it: int, active: torch.Tensor) -> bool:
+        """True when a flag read so far, this iteration's or an earlier
+        one's, is False."""
+        self.sent.append((it, self._send(it, active)))
+        with span("tnf.krylov.check"):
+            while self.sent:
+                j, ev = self.sent[0]
+                if not self._arrived(it, j, ev):
+                    if j != 1 and j > it - LAG:
+                        return False
+                    self._wait(ev)
+                self.sent.popleft()
+                if not self.host[j]:
+                    return True
+        return False
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0=None, maxiter: int = 50,
@@ -68,10 +119,11 @@ def cg(matvec: Callable, b: torch.Tensor, x0=None, maxiter: int = 50,
     p = r
     rs = _dot(r, r)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
+    flags = _Flags(b, maxiter)
     for it in range(maxiter):
         # k < maxiter holds inside the loop (k <= it)
         active = rs > atol2
-        if _ended(it, active):
+        if flags.ended(it, active):
             break
         Ap = matvec(p)
         alpha = rs / _floor(_dot(p, Ap))
@@ -105,9 +157,10 @@ def minres(matvec: Callable, b: torch.Tensor, x0=None, maxiter: int = 50,
                                   scalar(1.0), scalar(0.0))
     phi = beta0
     k = torch.zeros((), dtype=torch.int64, device=b.device)
+    flags = _Flags(b, maxiter)
     for it in range(maxiter):
         active = torch.abs(phi) > thresh
-        if _ended(it, active):
+        if flags.ended(it, active):
             break
         Av = matvec(v)
         alpha = _dot(v, Av)

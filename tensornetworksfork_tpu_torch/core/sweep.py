@@ -59,7 +59,9 @@ the loop.
   `tnf.update:<node>` a node update, and inside it `tnf.update.jacobian`
   (Jacobian, prediction, loss terms), `tnf.update.gram` (A and b, their
   finish and mesh sums) and `tnf.solve` (the factor and solve, or the
-  Krylov solve); `tnf.member_forward` a sum's cached member outputs;
+  Krylov solve, in which `tnf.krylov.matvec` is each matvec and
+  `krylov.py`'s `tnf.krylov.check` each host read of the loop's flag);
+  `tnf.member_forward` a sum's cached member outputs;
   `tnf.sync.flush_ok` and `tnf.sync.loss` the waits on the device.
   `solve_block` is looked up at each call, so a caller may wrap it.
 """
@@ -146,6 +148,11 @@ def _stack(chunks):
 
 
 class Sweeper:
+    # on a CUDA device without a mesh, each matrix-free update records its
+    # matvec as a CUDA graph at the first call and replays it after
+    # (`_record_matvec`)
+    graph_matvecs = True
+
     def __init__(self, members, loss_fn, cfg: SweepConfig):
         if isinstance(members, Network):
             members = [Member(members)]
@@ -172,6 +179,13 @@ class Sweeper:
         # (member, node name, k) of each Krylov solve, k a device tensor
         # (read it after the run: reading it here would sync every update)
         self.krylov_iters: List = []
+        # matvecs launched per (member, node name), over the Sweeper's life:
+        # the residual, the scale probe and every iteration the loop ran,
+        # the masked ones past convergence included (k counts none of those)
+        self.krylov_matvecs: Dict[Tuple[int, str], int] = {}
+        # [graph memory pool, capture stream, last graph] of the matvec
+        # graphs, made at the first one
+        self._graph_kit = None
         # the data mesh of the current run (None: one process)
         self._mesh = None
 
@@ -636,7 +650,9 @@ class Sweeper:
         b = Jᵀg; every chunk's H is kept. Matvec: Σ over chunks of
         Jᵀ·H·(J·v). Then the ridge and one scale probe along b, the Krylov
         solve from x0, and the singular guard. No Gram kernel runs: A is
-        never formed."""
+        never formed. The scale probe runs the matvec eagerly; on a CUDA
+        device without a mesh the later ones replay it as a CUDA graph
+        (`graph_matvecs`, `_record_matvec`)."""
         cfg = self.cfg
         b_rhs = torch.zeros(core.shape, dtype=core.dtype, device=core.device)
         loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
@@ -653,8 +669,10 @@ class Sweeper:
             H_all.append(H)
         with span("tnf.update.gram"):
             self._sum_data(b_rhs, loss_acc)
+        key = (mid, net.topology.nodes[ni].name)
+        self.krylov_matvecs.setdefault(key, 0)
 
-        def matvec_raw(v_flat):
+        def matvec_eager(v_flat):
             v = v_flat.reshape(core.shape)
             Av = torch.zeros(core.shape, dtype=core.dtype, device=core.device)
             for ops, H in zip(ops_all, H_all):
@@ -664,6 +682,19 @@ class Sweeper:
             # stopping tests see the same numbers
             self._sum_data(Av)
             return Av.reshape(-1)
+
+        replay = None
+
+        def matvec_raw(v_flat):
+            nonlocal replay
+            self.krylov_matvecs[key] += 1
+            with span("tnf.krylov.matvec"):
+                if replay is not None:
+                    return replay(v_flat)
+                out = matvec_eager(v_flat)
+                if self.graph_matvecs and core.is_cuda and self._mesh is None:
+                    replay = self._record_matvec(matvec_eager, v_flat)
+                return out
 
         # The ridge (the reference's iterative tier has none) and a scale
         # normalisation, so that f32 iterates cannot overflow on an
@@ -690,7 +721,7 @@ class Sweeper:
                 x_sol, iters = krylov.SOLVERS[method](matvec, b_flat, x0=x0,
                                                       maxiter=cfg.max_iter,
                                                       tol=cfg.tol)
-        self.krylov_iters.append((mid, net.topology.nodes[ni].name, iters))
+        self.krylov_iters.append((*key, iters))
         new_core = apply_update(core, x_sol.reshape(core.shape), cfg.lr,
                                 cfg.adaptive_step, cfg.max_norm, mask)
         ok = torch.isfinite(new_core).all()
@@ -698,6 +729,45 @@ class Sweeper:
         new_core = torch.where(ok, new_core, core)
         x_sol = torch.where(ok, x_sol, torch.zeros_like(x_sol))
         return new_core, loss_acc, ok, x_sol
+
+    def _record_matvec(self, matvec, like: torch.Tensor):
+        """`matvec` recorded as a CUDA graph: returns v -> matvec(v), whose
+        result is a buffer that the next call overwrites. Its ~300 kernels
+        a matvec then cost the host one launch, so the card runs the Krylov
+        loop without waiting for the host. The graphs of all updates share
+        one memory pool and one capture stream; the last graph is kept, so
+        that the pool lives on to the next capture (a pool no graph holds
+        is released), and is never replayed again. The low-level capture
+        skips `torch.cuda.graph`'s synchronise, gc and cache release, which
+        would drain the card at every update."""
+        dev = like.device
+        if self._graph_kit is None:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                # the capture stream's first use (cuBLAS handle and
+                # workspace) outside any capture
+                matvec(like)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self._graph_kit = [torch.cuda.graph_pool_handle(), side, None]
+        pool, side, _ = self._graph_kit
+        v_in = like.clone()
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool)
+            try:
+                out = matvec(v_in)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._graph_kit[2] = graph
+
+        def replay(v_flat):
+            v_in.copy_(v_flat)
+            graph.replay()
+            return out
+        return replay
 
     def _update_standalone(self, mid: int, ni: int, method: str,
                            use_rest: bool, params, y, w, y_rest, eps):

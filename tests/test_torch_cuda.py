@@ -485,6 +485,65 @@ def test_krylov_on_cuda_against_float64(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", ["minres", "cg"])
+def test_graphed_matvec_swipe_matches_eager_on_cuda(method, monkeypatch):
+    """A matrix-free swipe of a type-I sum of 1-2 conv-TT carriages (r=4,
+    CB=2, 3 x 16 x 16 images at kernel 8, 512 rows in 4 chunks) on the card
+    with each update's matvec replayed as a CUDA graph, against the same
+    swipe launched eagerly: the same k at every update, the parameters
+    within 1e-5 (the graph replays the eager kernels; 1e-5 leaves room for
+    cuBLAS to pick another kernel under capture), the counter at k + 2 to
+    k + 2 + LAG matvecs an update (the host reads the flags as they arrive;
+    a node updates in both passes),
+    and a second swipe from the first's warm starts as close."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from portbench import cifar, data
+    from tensornetworksfork_tpu_torch.core import krylov
+    from tensornetworksfork_tpu_torch.core.sweep import Member, SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.experiments import train_image
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    monkeypatch.delenv("TNF_AUX_PRECISION", raising=False)
+    monkeypatch.delenv("TNF_GRAM_DTYPE", raising=False)
+    monkeypatch.setenv("TNF_FULLBATCH_MAX_BYTES", "0")
+    dev = torch.device("cuda")
+    gen = data.generator(11, dev)
+    X, y = cifar.images(gen, 512, 16, 8, 3, 10, 24.0, dev)
+    P, q = X.shape[1], X.shape[2]
+    model = train_image.build_model({"model_type": "tt_type1", "N": 2, "r": 4, "CB": 2,
+                                     "seed": 0, "device": dev}, P, q, 10)
+    scale = 1.0 / float(model(X[:64]).std(unbiased=False))
+
+    def swipes(graphed):
+        monkeypatch.setattr(Sweeper, "graph_matvecs", graphed)
+        sw = Sweeper([Member(l.network, fn) for l, fn in zip(model.layers, model.input_fns)],
+                     XEBregman(w=scale),
+                     SweepConfig(num_swipes=1, batch_size=128, method=method, max_iter=50,
+                                 eps=5.0, eps_decay=0.25))
+        out, plist = [], model.params_list
+        for _ in range(2):
+            m0, n0 = dict(sw.krylov_matvecs), len(sw.krylov_iters)
+            plist, ok = sw.run(plist, X, y)
+            assert ok
+            ks = [(m, n, int(k)) for m, n, k in sw.krylov_iters[n0:]]
+            mv = {key: v - m0.get(key, 0) for key, v in sw.krylov_matvecs.items()}
+            out.append((torch.cat([p[k].reshape(-1) for p in plist for k in sorted(p)]),
+                        ks, mv))
+        return out, sw
+
+    eager, _ = swipes(False)
+    graphed, sw = swipes(True)
+    assert sw._graph_kit is not None
+    for (pe, ke, _), (pg, kg, mv) in zip(eager, graphed):
+        assert ke == kg
+        assert float((pg - pe).abs().max() / pe.abs().max()) < 1e-5
+        for key in mv:
+            ks = [k for m, n, k in kg if (m, n) == key]
+            assert sum(ks) + 2 * len(ks) <= mv[key] <= sum(ks) + (2 + krylov.LAG) * len(ks)
+
+
+@pytest.mark.cuda
 def test_f64_ladder_on_cuda():
     """chip_smoke's phase 8a ladder: the float64 tier on CUDA tensors meets
     a numpy float64 oracle at every eps down to 1e-12, and at the corner

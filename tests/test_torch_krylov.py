@@ -78,26 +78,71 @@ def test_solver_matches_jax_at_a_fixed_iteration_count(name, indefinite, maxiter
     np.testing.assert_allclose(xt.numpy(), xj, rtol=0, atol=1e-5 * np.abs(xj).max())
 
 
+class Lagging(tk._Flags):
+    """A device `behind` iterations behind the host: iteration j's flag
+    arrives once the host has reached iteration j + behind, or when the
+    host waits for it. Records the iterations at which the host waited."""
+    behind = 0
+    waits: list = []
+
+    def _send(self, it, active):
+        self.host[it] = active
+        return it
+
+    def _arrived(self, it, j, ev):
+        return it >= j + self.behind
+
+    def _wait(self, ev):
+        self.waits.append(ev)
+
+
 # CG converges at k = 13 and MINRES at k = 30 here, neither a multiple of 8
 @pytest.mark.parametrize("name,indefinite,tol", [("cg", False, 1e-6),
                                                  ("minres", True, 1e-4)])
-def test_masked_loop_stops_where_the_while_loop_does(name, indefinite, tol):
+@pytest.mark.parametrize("behind", [0, 3])
+def test_masked_loop_stops_where_the_while_loop_does(name, indefinite, tol, behind,
+                                                     monkeypatch):
     """The same k as the JAX package's while loop, x within 1e-5 of max|x|;
     the masked iterations past k leave x bit for bit as a loop of exactly k
-    iterations does; the host reads every 8 iterations, so the loop runs
-    8·ceil(k/8) matvecs after the first."""
+    iterations does. With the flags at hand (the CPU) the host stops at k;
+    with a device 3 iterations behind it launches LAG masked matvecs past
+    k, waiting for the flag after the first iteration and then only for
+    flags LAG old (a read every 8 would run 8·ceil(k/8) - k: 3 and 2)."""
+    Lagging.behind, Lagging.waits = behind, []
+    monkeypatch.setattr(tk, "_Flags", Lagging)
     A = spectral(48, 4.0, seed=0, indefinite=indefinite)
     b = np.random.default_rng(50).standard_normal(48).astype(np.float32)
     mvj, bj, mvt, bt, calls = both(A, b)
     xj, kj = getattr(jk, name)(mvj, bj, maxiter=100, tol=tol)
     xt, kt = getattr(tk, name)(mvt, bt, maxiter=100, tol=tol)
     k = int(kt)
-    assert k == int(kj) and k % tk.CHECK_EVERY != 0
+    assert k == int(kj) and k % 8 != 0
     xj = np.asarray(xj)
     np.testing.assert_allclose(xt.numpy(), xj, rtol=0, atol=1e-5 * np.abs(xj).max())
-    assert len(calls) == 1 + tk.CHECK_EVERY * math.ceil(k / tk.CHECK_EVERY)
+    masked = tk.LAG if behind > tk.LAG else behind
+    assert len(calls) == 1 + k + masked
+    if behind:
+        assert Lagging.waits == list(range(k + 1))
     x_k, k_k = getattr(tk, name)(mvt, bt, maxiter=k, tol=tol)
     assert int(k_k) == k and torch.equal(x_k, xt)
+
+
+@pytest.mark.parametrize("name", ["cg", "minres"])
+def test_a_system_one_iteration_solves_stops_after_one_matvec(name, monkeypatch):
+    """A = 3 I (a node whose J is ~0 beside the ridge): the JAX package's
+    loop ends at k = 1, and the host's wait for the flag after the first
+    iteration stops the port's there too, after the residual and one matvec,
+    on a device that lags too (a read every 8 would run 8)."""
+    Lagging.behind = 3
+    monkeypatch.setattr(tk, "_Flags", Lagging)
+    A = 3.0 * np.eye(24, dtype=np.float32)
+    b = np.random.default_rng(51).standard_normal(24).astype(np.float32)
+    mvj, bj, mvt, bt, calls = both(A, b)
+    _, kj = getattr(jk, name)(mvj, bj, maxiter=50, tol=1e-6)
+    xt, kt = getattr(tk, name)(mvt, bt, maxiter=50, tol=1e-6)
+    assert int(kj) == int(kt) == 1
+    assert len(calls) == 2
+    np.testing.assert_allclose(xt.numpy(), b / 3.0, rtol=1e-6, atol=1e-7)
 
 
 def test_cg_matches_dense():
