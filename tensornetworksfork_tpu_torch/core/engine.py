@@ -11,6 +11,9 @@ Functions over a static `Topology` + a params dict:
 - `jacobian_apply`, `jacobian_transpose_apply`, `hessian_apply`,
   `gram_matvec`        J v, Jᵀ u, H u and JᵀHJ v for the matrix-free tier,
                        each one contraction at `Network.precision`
+- `prepare_jacobian`   J v and Jᵀ u of one chunk as a `PreparedJacobian`:
+                       its fixed factors laid out once, each product then
+                       one GEMM and a per-row product
 
 Every contraction runs at the network's dot precision, `Network.precision`
 (highest | high | default: `contract.matmul`), taken from TNF_PRECISION
@@ -41,6 +44,7 @@ or Jᵀu that keeps it is assembled over the model group.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -50,7 +54,7 @@ import torch
 from ..ops.cuda import gram as kgram
 from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
-from .contract import check_precision, contract, matmul
+from .contract import check_precision, contract, matmul, max_elems
 from .topology import CONST, INPUT, PARAM, Topology
 
 Operand = Tuple[Tuple[int, ...], torch.Tensor]
@@ -1021,6 +1025,73 @@ class Network:
         out = self._tp_contract(ops, t.node_axes[ni], self.precision)
         return self._assemble(t.node_axes[ni], out)
 
+    def prepare_jacobian(self, ni: int, operands: Sequence[Operand]
+                         ) -> Optional["PreparedJacobian"]:
+        """The node's Jacobian over `operands` (one chunk's
+        jacobian_operands) with its fixed factors laid out once, so that
+        each J v and Jᵀ u is one GEMM and a per-row product; or None where
+        the split below does not hold, and jacobian_apply and
+        jacobian_transpose_apply serve.
+
+        The operands split into the carrier L, the one operand that holds
+        output axes (none where the node holds them all), and the rest,
+        contracted once into M[(s, b), a_M]: b the bonds L shares with the
+        rest, a_M the node axes the rest holds. With a_L the node axes L
+        holds and a_N the output axes on the node,
+            (J v)[s, out_L, a_N] = Σ_{b, a_L} L[s, out_L, b, a_L] (M V)[(s, b), (a_L, a_N)]
+        with V = v as an a_M × (a_L, a_N) matrix, and Jᵀ u the same steps
+        in reverse. Taken where every node axis lies on exactly one of L,
+        the rest and the output axes, the sample axis on L and the rest,
+        and M holds no more elements than S·D (|b| ≤ |a_L|·|a_N|) and than
+        contract's cap: past S·D, as at the conv-TT's conv blocks, whose
+        bridge r is wider than their own bond CB, each GEMM would read more
+        of M than the einsums compute. Declined under the model sharding
+        and for complex operands."""
+        t = self.topology
+        s = t.sample_axis
+        node = t.node_axes[ni]
+        outs = t.output_axes
+        if (self.model_blocks or len(set(node)) != len(node)
+                or any(arr.is_complex() for _, arr in operands)):
+            return None
+        carriers = [op for op in operands if set(op[0]) & set(outs)]
+        if len(carriers) > 1:
+            return None
+        L = carriers[0] if carriers else None
+        rest = [op for op in operands if op is not L]
+        L_axes = L[0] if L is not None else (s,)
+        rest_axes = {a for ax, _ in rest for a in ax}
+        out_L = tuple(a for a in outs if a in L_axes)
+        a_N = tuple(a for a in node if a in outs)
+        a_L = tuple(a for a in node if a in L_axes)
+        a_M = tuple(a for a in node if a in rest_axes)
+        b = tuple(a for a in L_axes if a != s and a not in out_L + a_L)
+        if (s not in rest_axes or s not in L_axes or len(set(L_axes)) != len(L_axes)
+                or sorted(out_L + a_N) != sorted(outs)
+                or sorted(a_L + a_M + a_N) != sorted(node)
+                or any(a not in rest_axes for a in b)):
+            return None
+        size = dict(t.axis_size)
+        for ax, arr in operands:
+            size.update(zip(ax, arr.shape))
+        S = size[s]
+        nb, nM = math.prod(size[a] for a in b), math.prod(size[a] for a in a_M)
+        cap = max_elems()
+        if (nb > math.prod(size[a] for a in a_L + a_N)
+                or (cap > 0 and S * nb * nM > cap)):
+            return None
+        M = contract(rest, (s,) + b + a_M, self.precision).contiguous().view(S * nb, nM)
+        Lm = None
+        if L is not None:
+            Lm = L[1].permute(*[L_axes.index(a) for a in (s,) + out_L + b + a_L])
+            Lm = Lm.contiguous().view(S, math.prod(size[a] for a in out_L), -1)
+
+        def layout(axes, order):
+            return ([axes.index(a) for a in order], tuple(size[a] for a in order),
+                    [order.index(a) for a in axes])
+        return PreparedJacobian(M, Lm, layout(node, a_L + a_N + a_M),
+                                layout((s,) + outs, (s,) + out_L + a_N), self.precision)
+
     def hessian_apply(self, hess: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """H u over the output axes; diagonal (ndim == u.ndim) or full."""
         if hess.ndim == u.ndim:
@@ -1055,6 +1126,40 @@ class Network:
         Jc = J_arr.conj() if J_arr.is_complex() else J_arr
         return self._assemble(node_axes, self._tp_contract(
             [(J_axes, Jc), (coeff_keep, coeff)], node_axes, self.precision))
+
+
+class PreparedJacobian:
+    """One chunk's Jacobian of a node with its fixed factors laid out
+    (`Network.prepare_jacobian`): M, (S·b) × a_M, and the carrier Lm,
+    S × out_L × (b·a_L), or None. `apply` and `transpose_apply` equal
+    jacobian_apply and jacobian_transpose_apply up to the order of their
+    sums: each one GEMM over M, whose other operand is a view of v or of
+    the per-row product, and one batched product with Lm. `v_layout` and
+    `u_layout` (permutation, shape, inverse) take v to (a_L, a_N, a_M) and
+    J v's (s, *out) to (s, out_L, a_N), and back."""
+
+    def __init__(self, M, Lm, v_layout, u_layout, precision):
+        self.M, self.Lm, self.precision = M, Lm, precision
+        self._v_perm, self._v_shape, self._v_back = v_layout
+        self._u_perm, self._u_shape, self._u_back = u_layout
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """(J v)[s, *out]: Y = M @ V, then the per-row sum with L over (b, a_L)."""
+        V = v.permute(*self._v_perm).reshape(-1, self.M.shape[1])
+        Y = matmul(self.M, V.T, self.precision)
+        if self.Lm is not None:
+            S, _, bL = self.Lm.shape
+            Y = matmul(self.Lm, Y.view(S, bL, -1), self.precision)
+        return Y.reshape(self._u_shape).permute(*self._u_back)
+
+    def transpose_apply(self, u: torch.Tensor) -> torch.Tensor:
+        """(Jᵀ u)[node axes]: Z, the per-row product of u with L, then Zᵀ @ M."""
+        U = u.permute(*self._u_perm)
+        if self.Lm is not None:
+            S, O, _ = self.Lm.shape
+            U = matmul(self.Lm.transpose(1, 2), U.reshape(S, O, -1), self.precision)
+        W = matmul(U.reshape(self.M.shape[0], -1).T, self.M, self.precision)
+        return W.reshape(self._v_shape).permute(*self._v_back)
 
 
 def _flat_gram(J3: torch.Tensor, W: torch.Tensor, diag: bool,

@@ -68,6 +68,7 @@ the loop.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 import warnings
@@ -183,6 +184,9 @@ class Sweeper:
         # the residual, the scale probe and every iteration the loop ran,
         # the masked ones past convergence included (k counts none of those)
         self.krylov_matvecs: Dict[Tuple[int, str], int] = {}
+        # of those, the matvecs whose J v and Jᵀ u ran as GEMMs over the
+        # factors prepared once an update (`Network.prepare_jacobian`)
+        self.krylov_prepared: Dict[Tuple[int, str], int] = {}
         # [graph memory pool, capture stream, last graph] of the matvec
         # graphs, made at the first one
         self._graph_kit = None
@@ -648,36 +652,46 @@ class Sweeper:
 
         Linearise: per chunk pred = J·core, the weighted loss, g and H,
         b = Jᵀg; every chunk's H is kept. Matvec: Σ over chunks of
-        Jᵀ·H·(J·v). Then the ridge and one scale probe along b, the Krylov
-        solve from x0, and the singular guard. No Gram kernel runs: A is
-        never formed. The scale probe runs the matvec eagerly; on a CUDA
-        device without a mesh the later ones replay it as a CUDA graph
-        (`graph_matvecs`, `_record_matvec`)."""
+        Jᵀ·H·(J·v), J v and Jᵀ u one GEMM each over the chunk's factors
+        laid out once an update (`Network.prepare_jacobian`) where the
+        engine can split them, else its einsums. Then the ridge and one
+        scale probe along b, the Krylov solve from x0, and the singular
+        guard. No Gram kernel runs: A is never formed. The scale probe runs
+        the matvec eagerly; on a CUDA device without a mesh the later ones
+        replay it as a CUDA graph (`graph_matvecs`, `_record_matvec`)."""
         cfg = self.cfg
         b_rhs = torch.zeros(core.shape, dtype=core.dtype, device=core.device)
         loss_acc = torch.zeros((), dtype=torch.float32, device=core.device)
+        with span("tnf.krylov.prepare"):
+            preps = [net.prepare_jacobian(ni, ops) for ops in ops_all]
+        prepared = all(p is not None for p in preps)
+        # each chunk's (J v, Jᵀ u)
+        jac = [(p.apply, p.transpose_apply) if p is not None else
+               (functools.partial(net.jacobian_apply, ni, ops),
+                functools.partial(net.jacobian_transpose_apply, ni, ops))
+               for p, ops in zip(preps, ops_all)]
         H_all = []
-        for piece, ops in zip(pieces, ops_all):
+        for piece, (jv, jtu) in zip(pieces, jac):
             with span("tnf.update.jacobian"):
-                pred = net.jacobian_apply(ni, ops, core)
+                pred = jv(core)
                 if use_rest:
                     pred = pred + piece["rest"]
                 loss, g, H = weighted_terms(pred, piece)
             with span("tnf.update.gram"):
-                b_rhs = b_rhs + net.jacobian_transpose_apply(ni, ops, g)
+                b_rhs = b_rhs + jtu(g)
                 loss_acc = loss_acc + loss.sum()
             H_all.append(H)
         with span("tnf.update.gram"):
             self._sum_data(b_rhs, loss_acc)
         key = (mid, net.topology.nodes[ni].name)
         self.krylov_matvecs.setdefault(key, 0)
+        self.krylov_prepared.setdefault(key, 0)
 
         def matvec_eager(v_flat):
             v = v_flat.reshape(core.shape)
             Av = torch.zeros(core.shape, dtype=core.dtype, device=core.device)
-            for ops, H in zip(ops_all, H_all):
-                coeff = net.hessian_apply(H, net.jacobian_apply(ni, ops, v))
-                Av = Av + net.jacobian_transpose_apply(ni, ops, coeff)
+            for (jv, jtu), H in zip(jac, H_all):
+                Av = Av + jtu(net.hessian_apply(H, jv(v)))
             # one all-reduce a matvec: every rank's Krylov iterates and
             # stopping tests see the same numbers
             self._sum_data(Av)
@@ -688,6 +702,7 @@ class Sweeper:
         def matvec_raw(v_flat):
             nonlocal replay
             self.krylov_matvecs[key] += 1
+            self.krylov_prepared[key] += prepared
             with span("tnf.krylov.matvec"):
                 if replay is not None:
                     return replay(v_flat)

@@ -544,6 +544,65 @@ def test_graphed_matvec_swipe_matches_eager_on_cuda(method, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_prepared_matvec_graph_replay_on_cuda():
+    """The matvec of a D = 16,384 middle core (member 3 of a type-I sum at
+    r=32, CB=4 on 32 x 32 x 3 images at kernel 8: 16 patches of 192 pixels,
+    2,048 rows in 4 chunks) on the prepared route (`prepare_jacobian`):
+    replayed as a CUDA graph (`Sweeper._record_matvec`), bit-equal to its
+    eager call; and within 1e-5 of max|A v| of the einsum route's (f32
+    sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from portbench import cifar, data
+    from tensornetworksfork_tpu_torch.core.sweep import SweepConfig, Sweeper
+    from tensornetworksfork_tpu_torch.experiments import train_image
+    from tensornetworksfork_tpu_torch.ops.bregman import XEBregman
+    dev = torch.device("cuda")
+    gen = data.generator(12, dev)
+    X, y = cifar.images(gen, 2048, 32, 8, 3, 10, 24.0, dev)
+    model = train_image.build_model({"model_type": "tt_type1", "N": 3, "r": 32, "CB": 4,
+                                     "seed": 0, "device": dev}, X.shape[1], X.shape[2], 10)
+    layer, fn = model.layers[2], model.input_fns[2]
+    net, params = layer.network, layer.params
+    t = net.topology
+    ni = [n.name for n in t.nodes].index("A2")
+    ci, core = t.col_of[ni], params["A2"]
+    assert core.numel() >= 10_000
+    scale = 1.0 / float(net.forward(params, fn(X[:64])).std(unbiased=False))
+    ops_all, H_all = [], []
+    for xc, yc in zip(X.chunk(4), y.chunk(4)):
+        inputs = net.bind_inputs(fn(xc))
+        left = net.env_chain(params, inputs, "left")
+        right = net.env_chain(params, inputs, "right")
+        ops = net.jacobian_operands(ni, params, inputs, left[ci - 1], right[ci + 1])
+        H_all.append(XEBregman(w=scale)(net.jacobian_apply(ni, ops, core), yc)[2])
+        ops_all.append(ops)
+    preps = [net.prepare_jacobian(ni, ops) for ops in ops_all]
+    assert all(p is not None for p in preps)
+
+    def matvec(prepared):
+        def mv(v_flat):
+            v = v_flat.reshape(core.shape)
+            Av = torch.zeros_like(v)
+            for p, ops, H in zip(preps, ops_all, H_all):
+                if prepared:
+                    Av = Av + p.transpose_apply(net.hessian_apply(H, p.apply(v)))
+                else:
+                    Av = Av + net.jacobian_transpose_apply(
+                        ni, ops, net.hessian_apply(H, net.jacobian_apply(ni, ops, v)))
+            return Av.reshape(-1)
+        return mv
+    v = torch.randn((core.numel(),), device=dev,
+                    generator=torch.Generator(dev).manual_seed(3))
+    replay = Sweeper(net, XEBregman(), SweepConfig())._record_matvec(matvec(True), v)
+    eager = matvec(True)(v)
+    assert torch.equal(replay(v), eager)
+    ref = matvec(False)(v)
+    assert float((eager - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_f64_ladder_on_cuda():
     """chip_smoke's phase 8a ladder: the float64 tier on CUDA tensors meets
     a numpy float64 oracle at every eps down to 1e-12, and at the corner

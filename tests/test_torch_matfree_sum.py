@@ -204,3 +204,200 @@ def test_counts_equal_the_references_products():
                     env(Xm, b, Numerics())
                 assert (fa.get_total_flops() - fb.get_total_flops()
                         == matfree.env_step_flops(z, side, S))
+
+
+# ------------------------------------------------- the prepared Jacobian
+def _member3(dtype, rows=384, chunk=128, seed=4):
+    """Member 3 of an N = 3 sum at this file's widths (A1 first, A2 middle,
+    A3 last, C2 a conv block), its weights from `seed`, in `dtype`, with
+    its rows in chunks: (network, params, input_fn, X, y, scale, chunks)."""
+    gen = data.generator(seed, "cpu")
+    X, y = cifar.images(gen, rows, 16, 8, 3, C + 1, 24.0, "cpu")
+    model = train_image.build_model({"model_type": "tt_type1", "N": 3, "r": R, "CB": CB,
+                                     "seed": 0, "device": "cpu"}, X.shape[1], X.shape[2],
+                                    C + 1)
+    layer, fn = model.layers[2], model.input_fns[2]
+    w = data.weights(gen, data.conv_tt_shapes(3, R, CB, X.shape[1] - 1, X.shape[2] - 1, C),
+                     "cpu")
+    params = {k: w[k].reshape(v.shape).to(dtype) for k, v in layer.params.items()}
+    X = X.to(dtype)
+    net = layer.network
+    scale = 1.0 / float(net.forward(params, fn(X)).std(unbiased=False))
+    return net, params, fn, X, y, scale, rows // chunk
+
+
+def _chunk_ops(net, params, fn, X, ni, nchunks):
+    t = net.topology
+    ci, ncols = t.col_of[ni], len(t.columns)
+    out = []
+    for xc in X.chunk(nchunks):
+        inputs = net.bind_inputs(fn(xc))
+        left = net.env_chain(params, inputs, "left")
+        right = net.env_chain(params, inputs, "right")
+        out.append(net.jacobian_operands(ni, params, inputs,
+                                         left[ci - 1] if ci > 0 else None,
+                                         right[ci + 1] if ci < ncols - 1 else None))
+    return out
+
+
+def _one_update(net, params, fn, X, y, scale, ni, nchunks, monkeypatch, prepared, tol):
+    """One MINRES update of node `ni` (one half-pass over it alone) from
+    `params` at `tol`, on the prepared route or with it declined: (k, x, the
+    new core, the share of its matvecs that ran prepared)."""
+    sw = Sweeper([Member(net, fn)], XEBregman(w=scale),
+                 SweepConfig(num_swipes=1, batch_size=X.shape[0] // nchunks,
+                             method="minres", max_iter=MAX_ITER, tol=tol, eps=EPS,
+                             skip_second=True))
+    with monkeypatch.context() as m:
+        if not prepared:
+            m.setattr(Network, "prepare_jacobian", lambda self, ni, ops: None)
+        plist, ok = sw.run([dict(params)], X, y, node_order=[(0, ni)])
+    assert ok and len(sw.krylov_iters) == 1
+    key = (0, net.topology.nodes[ni].name)
+    return (int(sw.krylov_iters[0][2]), sw._node_sols[(0, ni)], plist[0][key[1]],
+            sw.krylov_prepared[key] / sw.krylov_matvecs[key])
+
+
+@pytest.mark.parametrize("dtype,tol,x_tol", [(torch.float64, 1e-12, 1e-8),
+                                             (torch.float32, 1e-5, 2e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("node", ["A1", "A2", "A3", "C2"],
+                         ids=["first core", "middle core", "last core", "conv block"])
+def test_prepared_matvec_equals_the_einsums(f32, monkeypatch, node, dtype, tol, x_tol):
+    """For the first, middle and last cores of a 3-carriage member the
+    prepared route is taken, and its J v, Jᵀ u and whole matvec
+    Σ_chunks Jᵀ H J v equal the einsums' to `tol` (the same sums in another
+    order: measured 2e-16 - 6e-16 in float64, as a one-ulp change of J v
+    moves the einsums' own); for the conv block it is declined (its M would
+    exceed S·D). One MINRES update of the node from the same state then
+    runs to the same k on both routes, its iterate and new core within
+    `x_tol` of their norm: about twice what a one-ulp scaling of the state
+    moves the einsum route's own (at most 5.2e-9 in float64 and 2.7e-6 in
+    f32, measured). At tol 1e-3 the solves stop within 8-23 iterations;
+    past about 25 this recurrence amplifies rounding so far that the
+    stopping iteration is itself rounding's (at tol 1e-6 a one-ulp scaling
+    of the state moves the einsum route's residual at iteration 26 by 20 %)."""
+    net, params, fn, X, y, scale, nchunks = _member3(dtype)
+    ni = [n.name for n in net.topology.nodes].index(node)
+    gen = torch.Generator().manual_seed(9)
+    v = torch.randn(params[node].shape, generator=gen, dtype=dtype)
+    Av_e = Av_p = 0
+    for ops, yc in zip(_chunk_ops(net, params, fn, X, ni, nchunks), y.chunk(nchunks)):
+        prep = net.prepare_jacobian(ni, ops)
+        assert (prep is None) == (node == "C2")
+        if prep is None:
+            continue
+        Jv = net.jacobian_apply(ni, ops, v)
+        assert _rel(prep.apply(v), Jv) < tol
+        _, g, H = XEBregman(w=scale)(net.jacobian_apply(ni, ops, params[node]), yc)
+        assert _rel(prep.transpose_apply(g), net.jacobian_transpose_apply(ni, ops, g)) < tol
+        Av_e = Av_e + net.jacobian_transpose_apply(ni, ops, net.hessian_apply(H, Jv))
+        Av_p = Av_p + prep.transpose_apply(net.hessian_apply(H, prep.apply(v)))
+    if node != "C2":
+        assert _rel(Av_p, Av_e) < tol
+    (k_e, x_e, core_e, _), (k_p, x_p, core_p, share) = (
+        _one_update(net, params, fn, X, y, scale, ni, nchunks, monkeypatch, prepared, 1e-3)
+        for prepared in (False, True))
+    assert k_p == k_e > 0
+    assert share == (node != "C2")
+    assert _rel(x_p, x_e) < x_tol and _rel(core_p, core_e) < x_tol
+
+
+def test_hessian_apply_once_a_chunk_in_chunk_order_on_the_prepared_route(f32, monkeypatch):
+    """A swipe of the sum in 4 chunks: each matvec of a prepared update
+    calls hessian_apply once a chunk, in chunk order, each on its own
+    chunk's J v (the benchmark's half-chunk fault counts on it); the conv
+    blocks' matvecs, on the einsums, call it once a chunk too."""
+    X, y, model, _, _, scale = _setup(8)
+    log, made = [], []
+    prepare, hessian_apply = Network.prepare_jacobian, Network.hessian_apply
+
+    def logged_prepare(self, ni, ops):
+        p = prepare(self, ni, ops)
+        if p is not None:
+            idx, apply = len(made), p.apply
+            made.append(p)
+
+            def logged_apply(v):
+                out = apply(v)
+                log.append(("J", idx, out))
+                return out
+            p.apply = logged_apply
+        return p
+
+    def logged_hessian_apply(self, H, u):
+        log.append(("H", u))
+        return hessian_apply(self, H, u)
+    monkeypatch.setattr(Network, "prepare_jacobian", logged_prepare)
+    monkeypatch.setattr(Network, "hessian_apply", logged_hessian_apply)
+    nchunks = 4
+    sw = Sweeper([Member(l.network, fn) for l, fn in zip(model.layers, model.input_fns)],
+                 XEBregman(w=scale),
+                 SweepConfig(num_swipes=1, batch_size=ROWS // nchunks, method="minres",
+                             max_iter=MAX_ITER, eps=EPS, eps_decay=DECAY))
+    _, ok = sw.run(model.params_list, X, y)
+    assert ok and len(made) % nchunks == 0
+    on_chunk = [log[i - 1][1] for i, e in enumerate(log)
+                if e[0] == "H" and i > 0 and log[i - 1][0] == "J"]
+    assert all(log[i - 1][2] is e[1] for i, e in enumerate(log)
+               if e[0] == "H" and log[i - 1][0] == "J")
+    prepared = sum(sw.krylov_prepared.values())
+    assert 0 < prepared < sum(sw.krylov_matvecs.values())
+    # each prepared update makes its chunks' operators in chunk order
+    assert [i % nchunks for i in on_chunk] == list(range(nchunks)) * prepared
+    einsum_calls = sum(1 for i, e in enumerate(log) if e[0] == "H"
+                       and (i == 0 or log[i - 1][0] != "J"))
+    assert einsum_calls == nchunks * (sum(sw.krylov_matvecs.values()) - prepared)
+
+
+def test_solvers_are_looked_up_at_call_time(f32, monkeypatch):
+    """`krylov.SOLVERS[method]` replaced after the Sweeper is built still
+    runs every solve, on the prepared route as on the einsums."""
+    from tensornetworksfork_tpu_torch.core import krylov
+    X, y, model, _, _, scale = _setup(9)
+    sw, calls = _sweeper(model, scale), []
+    real = krylov.SOLVERS["minres"]
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setitem(krylov.SOLVERS, "minres", spy)
+    _, ok = sw.run(model.params_list, X, y)
+    assert ok and len(calls) == len(sw.krylov_iters) > 0
+    assert sum(sw.krylov_prepared.values()) > 0
+
+
+def test_prepared_counter_counts_the_prepared_matvecs(f32):
+    """`Sweeper.krylov_prepared` has `krylov_matvecs`' keys: on the conv-TT
+    sum it equals the matvecs of every core and is 0 at every conv block;
+    on a type-I sum of tensor trains, cores alone, it equals them."""
+    from tensornetworksfork_tpu_torch.models.layers import TensorTrainLayer
+    X, y, model, _, _, scale = _setup(10)
+    sw = _sweeper(model, scale)
+    _, ok = sw.run(model.params_list, X, y)
+    assert ok and set(sw.krylov_prepared) == set(sw.krylov_matvecs)
+    for (m, name), n in sw.krylov_matvecs.items():
+        assert sw.krylov_prepared[(m, name)] == (n if name[0] == "A" else 0) and n > 0
+    gen = torch.Generator().manual_seed(10)
+    Xt = torch.randn((ROWS, 5), generator=gen)
+    yt = torch.eye(4)[torch.randint(0, 4, (ROWS,), generator=gen)]
+    layers = [TensorTrainLayer(n, 3, 5, output_shape=(3,), seed=n, device="cpu")
+              for n in (2, 3)]
+    sw = Sweeper([Member(l.network) for l in layers], XEBregman(w=1.0),
+                 SweepConfig(num_swipes=1, batch_size=CHUNK, method="minres",
+                             max_iter=MAX_ITER, eps=EPS))
+    _, ok = sw.run([l.params for l in layers], Xt, yt)
+    assert ok and sw.krylov_prepared == sw.krylov_matvecs and len(sw.krylov_matvecs) == 5
+
+
+def test_prepared_route_declined_when_sharded_or_complex(monkeypatch):
+    """A core whose operands the route splits is declined under the model
+    sharding (its `_tp_contract` path) and for complex operands."""
+    net, params, fn, X, _, _, _ = _member3(torch.float32, rows=64, chunk=64)
+    ni = [n.name for n in net.topology.nodes].index("A2")
+    (ops,) = _chunk_ops(net, params, fn, X, ni, 1)
+    assert net.prepare_jacobian(ni, ops) is not None
+    assert net.prepare_jacobian(ni, [(a, o.to(torch.complex64)) for a, o in ops]) is None
+    axis = net.topology.node_axes[ni][1]
+    monkeypatch.setattr(net, "model_blocks", {axis: (0, net.topology.axis_size[axis])})
+    assert net.prepare_jacobian(ni, ops) is None
