@@ -1,5 +1,6 @@
-"""Entry `matfree_sum`: epochs of `Sweeper.run` on a type-I sum of conv-TTs,
-matrix-free (the reference's CIFAR_minres configuration).
+"""Entry `matfree_sum`: one epoch of `Sweeper.run` on a type-I sum of
+conv-TTs, matrix-free (the reference's CIFAR_minres configuration), run
+again and again from the same state.
 
 Set-up makes the cell's rows (`cifar.py`) and weights on the card from the
 seed, builds the model with `train_image.build_model` (`tt_type1`: members
@@ -9,9 +10,25 @@ first 64 rows; the reference computes its own from the same weights),
 builds `train_image`'s sweeper over the members (the
 configuration's method, max_iter, tol, eps, decay and chunk) in the cell's
 numerics tier, and runs the first epoch: the window's own call on all its
-rows, which also warms every shape and pays the chunking. The window then
-calls `sweeper.run` back to back from where the first epoch left off, the
-sweeper's warm starts kept, as a user's later epochs do.
+rows, which also warms every shape and pays the chunking. It then keeps the
+state that sets what a later epoch computes: the parameters the first epoch
+returned and what the sweeper carries from one `run` call to the next and
+reads again (`CARRIED`: the Krylov warm starts `_node_sols`, and the
+environment history `_near_hist` with its byte count, whose entries a later
+epoch reuses where the parameters they contracted are still the same
+tensors). Nothing else carries over: eps restarts at the configuration's
+on every call (`_eps_for` counts the half-passes of the call), the data
+cache holds the same rows, and the Krylov counters (`krylov_iters`,
+`krylov_matvecs`) only count.
+
+A window epoch is training's second epoch, run from that state: each unit
+hands the sweeper the kept parameters by reference (`run` copies the list
+and replaces its dicts, never writing into a tensor or a dict it was
+given), and fresh copies of the carried dicts, whose tensors they share
+(`run` writes into those dicts): a copy of a few dozen references before
+the call. So every unit, every seed's run, and the runs of two versions of
+the program, do the same epoch: how fast the program is does not decide
+how far into training the window reaches.
 
 Each epoch keeps, from the program's own state at its block callbacks
 (read by reference, no synchronisation), for each followed node (`follow`
@@ -21,12 +38,15 @@ iteration count k the program recorded for it; and the epoch's updates'
 (member, node, k) and the matvecs the program launched
 (`Sweeper.krylov_matvecs`, where the program counts them). The check
 follows each of those updates with the plain reference from the same
-state, at set-up and in the window's last epoch, and compares the
-program's forward of the parameters the window ended with.
+state, at set-up (the first epoch) and in the window's last epoch (an
+epoch-2 update), and compares the program's forward of the parameters that
+epoch ended with.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
+import time
 
 import torch
 
@@ -35,6 +55,17 @@ from ..counts.matfree import members
 from ..reference import matfree_sum as mf
 from ..reference.tn import Numerics
 from ..trace import SOLVE
+
+
+# what `Sweeper.run` carries from one call to the next and reads again
+CARRIED = ("_node_sols", "_near_hist", "_near_hist_bytes")
+
+
+def _containers_copied(v):
+    """`v` with its dicts copied, its tensors shared."""
+    if isinstance(v, dict):
+        return {k: _containers_copied(x) for k, x in v.items()}
+    return v
 
 
 class Driver:
@@ -90,6 +121,8 @@ class Driver:
             raise RuntimeError("the first epoch reported a failed solve")
         self.first = first
         self.first_loss = {t: losses[r["index"]] for t, r in first.items()}
+        self.start = {"params": self.params,
+                      **{a: _containers_copied(getattr(self.sweeper, a)) for a in CARRIED}}
 
     def _epoch(self, params, on_loss=None):
         """One call of the window. Returns the parameters it ends with, the
@@ -121,10 +154,15 @@ class Driver:
         return plist, recs, ok, stats
 
     def unit(self):
-        self.params, self.last, ok, stats = self._epoch(self.params)
-        self.units.append(stats)
+        """Training's second epoch, from the state set-up kept."""
+        t0 = time.perf_counter()
+        for a in CARRIED:
+            setattr(self.sweeper, a, _containers_copied(self.start[a]))
+        self.params, self.last, ok, stats = self._epoch(self.start["params"])
         if self.cell.device.type == "cuda":
             torch.cuda.synchronize(self.cell.device)
+        stats["seconds"] = time.perf_counter() - t0
+        self.units.append(stats)
         return self.wl["rows"] * self.wl["swipes"], bool(ok)
 
     @contextlib.contextmanager
@@ -162,8 +200,10 @@ class Driver:
         with torch.no_grad():
             self.out = self.model.forward_batch(self.X, self.wl["eval_batch"]).float()
         self.final = [dict(p) for p in self.params]
-        del self.model, self.sweeper, self.params
+        del self.model, self.sweeper, self.params, self.start
         self.tier.close()
+        print(f"[portbench] window epochs: seconds {[round(u['seconds'], 4) for u in self.units]},"
+              f" matvecs {[u['matvecs'] for u in self.units]}", file=sys.stderr, flush=True)
 
     # ------------------------------------------------------------------ check
     def _sum(self, plist) -> mf.Sum:

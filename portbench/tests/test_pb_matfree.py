@@ -78,7 +78,7 @@ def half_the_chunks(monkeypatch, window_only):
 
 
 METRICS = ("step_mfu.minres", "krylov_ms_per_swipe.minres", "matvec_roofline.minres",
-           "krylov_matvecs_per_swipe.minres")
+           "krylov_matvecs_per_swipe.minres", "device_idle_share.train", "aux_ms_per_swipe.train")
 
 
 def test_the_benchmark_lists_the_cell_and_its_metrics():
@@ -99,6 +99,51 @@ def test_sound_run_is_correct_and_reads_its_metrics():
     # nothing
     assert m["krylov_ms_per_swipe.minres"]["value"] == 0.0
     assert "matvec_roofline.minres" not in m
+
+
+def _cloned(v):
+    """`v` with its containers and tensors copied."""
+    if isinstance(v, dict):
+        return {k: _cloned(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_cloned(x) for x in v)
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+def _same(a, b) -> bool:
+    """Bit-equal tensors in containers of the same shape."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def test_every_window_epoch_repeats_the_second():
+    """A window of 3 units: each runs training's second epoch from the state
+    set-up kept, so each records the first unit's (member, node, k) list and
+    ends with its parameters bit for bit, and the kept state is untouched."""
+    c = cell()
+    drv = harness.driver_for(c)
+    drv.setup()
+    kept = _cloned(drv.start)
+    assert kept["_node_sols"] and kept["_near_hist"]
+    ends, unit = [], drv.unit
+
+    def unit_and_params():
+        out = unit()
+        ends.append(drv.params)
+        return out
+    drv.unit = unit_and_params
+    stats = harness.window(drv, 1e9, 3)
+    assert stats["units"] == 3 and stats["failed"] == 0
+    ups = drv.detail()["updates"]
+    assert ups[0] and ups[1] == ups[0] and ups[2] == ups[0]
+    assert not _same(ends[0], kept["params"])
+    assert _same(ends[1], ends[0]) and _same(ends[2], ends[0])
+    assert _same(drv.start, kept)
 
 
 @pytest.mark.parametrize("window_only", [False, True], ids=["from_the_start", "in_the_window"])
